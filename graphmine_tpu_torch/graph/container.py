@@ -1,0 +1,136 @@
+"""Device-resident graph container (PyTorch).
+
+Counterpart of ``graphmine_tpu/graph/container.py``. A graph is a set of
+dense int32 index tensors on one device. Every superstep consumes the
+*message CSR*: the 2E-long (receiver, sender) pair sorted by receiver.
+Messages flow along both directions of every directed edge and duplicate
+edges are kept with multiplicity, exactly as in the JAX package, so the
+CSR arrays of the two packages are array-equal.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from graphmine_tpu_torch.device import resolve_device
+
+# Kernels index the [M] message arrays with int32; a larger message count
+# would wrap.
+_INT32_MAX = (1 << 31) - 1
+
+
+@dataclass(frozen=True)
+class Graph:
+    """Static-shape graph: edges + message CSR, all int32 on one device.
+
+    ``src, dst`` [E] directed edge endpoints; ``msg_recv`` [M] receiver of
+    each message, ascending; ``msg_send`` [M] its sender; ``msg_ptr``
+    [V+1] CSR row pointers; ``symmetric``: messages flow both directions.
+    """
+
+    src: torch.Tensor
+    dst: torch.Tensor
+    msg_recv: torch.Tensor
+    msg_send: torch.Tensor
+    msg_ptr: torch.Tensor
+    num_vertices: int
+    symmetric: bool = True
+
+    @property
+    def num_edges(self) -> int:
+        return int(self.src.shape[0])
+
+    @property
+    def num_messages(self) -> int:
+        return int(self.msg_recv.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.src.device
+
+    def degrees(self) -> torch.Tensor:
+        """Message-degree per vertex (undirected degree with multiplicity
+        when ``symmetric``), the segment sizes of the message CSR."""
+        return self.msg_ptr[1:] - self.msg_ptr[:-1]
+
+
+def _prepare_edges(src, dst, num_vertices, edge_weights=None):
+    """Shared endpoint coercion/validation/V-inference for graph builders."""
+    if edge_weights is not None:
+        raise NotImplementedError(
+            "weighted graphs: ROADMAP.md queue 1 item 1 (weighted LPA)"
+        )
+    src = np.asarray(src, dtype=np.int32)
+    dst = np.asarray(dst, dtype=np.int32)
+    if src.shape != dst.shape or src.ndim != 1:
+        raise ValueError("src/dst must be equal-length 1-D arrays")
+    if num_vertices is None:
+        num_vertices = int(max(src.max(initial=-1), dst.max(initial=-1))) + 1
+    if len(src) and (
+        min(src.min(), dst.min()) < 0 or max(src.max(), dst.max()) >= num_vertices
+    ):
+        raise ValueError(f"edge endpoint out of range [0, {num_vertices})")
+    return src, dst, num_vertices
+
+
+def _message_csr(src: torch.Tensor, dst: torch.Tensor, num_vertices: int,
+                 symmetric: bool):
+    """``(ptr int64 [V+1], recv_sorted, send_sorted int32 [M])``: messages
+    grouped by receiver in stable order, built on ``src``'s device. A
+    stable sort keeps the senders of one receiver in message order, the
+    order NumPy's stable argsort and the JAX package's native counting
+    sort produce."""
+    if symmetric:
+        recv = torch.cat([dst, src])
+        send = torch.cat([src, dst])
+    else:
+        recv, send = dst, src
+    ptr = torch.zeros(num_vertices + 1, dtype=torch.int64, device=src.device)
+    ptr[1:] = torch.cumsum(torch.bincount(recv, minlength=num_vertices), 0)
+    if int(ptr[-1]) > _INT32_MAX:
+        raise ValueError(
+            f"message count {int(ptr[-1]):,} exceeds the int32 index bound "
+            f"{_INT32_MAX:,} for a single device"
+        )
+    order = torch.argsort(recv, stable=True)
+    return ptr, recv[order], send[order]
+
+
+def build_graph(src, dst, num_vertices: int | None = None, symmetric: bool = True,
+                edge_weights=None, device=None) -> Graph:
+    """Build a :class:`Graph` from host endpoint arrays on ``device``
+    (CUDA unless the caller asks for another device)."""
+    dev = resolve_device(device)
+    src, dst, num_vertices = _prepare_edges(src, dst, num_vertices, edge_weights)
+    src_t = torch.from_numpy(src).to(dev)
+    dst_t = torch.from_numpy(dst).to(dev)
+    ptr, recv, send = _message_csr(src_t, dst_t, num_vertices, symmetric)
+    return Graph(
+        src=src_t, dst=dst_t, msg_recv=recv, msg_send=send,
+        msg_ptr=ptr.to(torch.int32), num_vertices=num_vertices, symmetric=symmetric,
+    )
+
+
+def graph_from_edge_table(table, symmetric: bool = True, device=None) -> Graph:
+    """Build a graph from an :class:`~graphmine_tpu_torch.io.edges.EdgeTable`."""
+    return build_graph(table.src, table.dst, num_vertices=table.num_vertices,
+                       symmetric=symmetric, device=device)
+
+
+def simple_undirected_edges(graph: Graph) -> tuple[np.ndarray, np.ndarray]:
+    """Host-side simplification: distinct undirected edges, no self-loops.
+
+    Returns ``(a, b)`` int32 arrays with ``a < b``, one row per undirected
+    edge, in ascending ``(a, b)`` order.
+    """
+    src = graph.src.cpu().numpy()
+    dst = graph.dst.cpu().numpy()
+    v = graph.num_vertices
+    keep = src != dst
+    a = np.minimum(src[keep], dst[keep]).astype(np.int64)
+    b = np.maximum(src[keep], dst[keep]).astype(np.int64)
+    und = np.unique(a * v + b)
+    return (und // v).astype(np.int32), (und % v).astype(np.int32)
