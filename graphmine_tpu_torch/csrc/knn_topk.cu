@@ -6,166 +6,337 @@
 // tiles, each folded into a per-row top-k by k rounds of min-extraction.
 // That fold costs O(k) vector work per candidate and does not carry over.
 //
-// What bounds it here: compute. At the pipeline's shape (N = 262,144
-// points, F = 8 features, k = 128) the kernel evaluates N^2 = 6.9e10
-// distances of 2F+3 float32 operations each, while it reads only N*F*4
-// bytes and writes N*k*8. It stays on the FP32 pipes on purpose: the JAX
-// package forces true float32 distances (TF32 or bf16 rounding moved
-// neighbour indices), so there are no tensor cores, and every product and
-// sum is rounded on its own (__fmul_rn/__fadd_rn: no FMA contraction) in
-// the order of the plain PyTorch version (graphmine_tpu_torch/ops/knn.py),
-// which makes the two bit-equal. PERF.md has its time beside that bound.
+// The contract: every distance is bit-equal to the plain PyTorch version
+// (graphmine_tpu_torch/ops/knn.py::_tiled_knn), so the two return equal
+// indices even where distances tie (LOF's features are full of duplicate
+// rows). Each distance is 2F+3 float32 operations in the plain version's
+// order, each rounded on its own (__fmul_rn/__fadd_rn, --fmad=false):
+// F products and F-1 sums for the cross term, the doubling, the two norm
+// terms and the clamp. That rules out the tensor cores (TF32 rounds the
+// inputs; even 3xTF32 does not give these bits, and a filter on them needs
+// error margins, a candidate list and an exact second pass) and FMA.
 //
-// Design (F <= 8 features, k <= 128): a block of 8 warps owns 32 query
-// rows (4 per warp) and walks all reference points in ascending index
-// order through a shared-memory tile (features stored feature-major so a
-// warp's 32 lanes read 32 consecutive floats). Each lane takes one
-// reference point per step and computes its distance to the warp's 4
-// query rows, reusing the 9 shared loads across them. Each row's sorted
-// top-k (distance, index) lives in registers, spread over the warp (lane
-// l holds positions l*KPL .. l*KPL+KPL-1, KPL = 1 for k <= 32, else 4),
-// with a threshold equal to the current k-th distance: most candidates fail
-// `d2 < threshold` and cost one compare. A warp ballot collects the lanes
-// that pass; they are inserted one at a time, lowest lane (smallest index)
-// first, each re-checked against the shrinking threshold. An insertion
-// counts the entries <= d2 (a warp reduction) and shifts the tail right
-// by one with a lane shuffle. Inserting after equal entries, with
-// candidates arriving in ascending index order, keeps ties on the smaller
-// index: the reference's rule.
+// What bounds it: the FP32 instruction rate. Without FMA every operation is
+// one instruction, so one H100 (132 SMs x 4 schedulers x 32 lanes, one
+// warp instruction per scheduler per clock, ~33.5 T lane-instructions/s,
+// half the 67 TFLOP/s peak that counts an FMA as two) needs at least
+// 19 x N(N-1) / 33.5e12 = 38.98 ms at N = 262,144, F = 8: the floor of
+// this arithmetic, twice chip_smoke.py's operations bound. Everything the
+// kernel executes beyond those 19 instructions per pair (loads, checks,
+// votes, top-k insertions) is time above the floor.
 //
-// C interface (bound with ctypes): knn_topk_f32 launches on the given
-// stream and returns cudaGetLastError().
+// Design (F <= 8 features, k <= 128):
+// 1. A prologue kernel (pack_kernel) computes every point's squared norm
+//    once, in _sq_norms' order, and writes the points tile by tile as
+//    [f0..f3 x T][f4..f7 x T][norm x T], zero-padded to 8 features and to
+//    a whole tile. Zero features add exact zeros; padded points get an
+//    infinite norm, so their distance is +inf and never passes a
+//    threshold. The main kernel recomputes no norm and reads no strided
+//    row.
+// 2. A ring of kStages tiles in dynamic shared memory, each filled by one
+//    TMA bulk copy that completes the stage's mbarrier. While the warps
+//    compute on one tile the next ones are in flight. Each warp waits on
+//    the barrier of the stage it reads and releases the stage when done;
+//    the last warp to release it starts the copy of the tile kStages
+//    ahead into it. No warp waits on another except through a stage, so
+//    warps may drift apart by up to kStages-1 tiles. That drift is what
+//    the ring buys: two buffers with one __syncthreads a tile (filled by
+//    cp.async or through registers) cost 12-15 ms more at the main
+//    path's shape, since each tile then waits for the warp with the most
+//    merges.
+// 3. A block of kWarps warps owns kWarps*kRowsPerWarp query rows (96), 6
+//    per warp, held in registers. Each lane takes one reference point per
+//    step (two 16-byte and one 4-byte shared load, made a step ahead)
+//    and computes its distance to the warp's rows, feature by feature
+//    across the rows so that 6 independent sums are in flight: the loads
+//    cost half an instruction per pair, and every block streams all N
+//    points once for 96 rows. Six rows and 16 warps (124 registers, four
+//    warps per scheduler) beat eight rows and 12 warps: the rare path
+//    below is a chain of warp votes, shuffles and shared-memory round
+//    trips, and more warps hide its latency.
+// 4. The inner loop has no bounds or diagonal check. Padded points fail the
+//    threshold by their infinite distance; the self pair (distance exactly
+//    0, since the cross term repeats the norm's sum) passes it and is
+//    dropped on the rare path, like padded query rows (threshold -inf).
+//    The test is !(d2 >= threshold) on the unclamped distance: it lets
+//    through every pair whose clamped distance is below the threshold (and
+//    NaN, which the clamp maps to 0), and the rare path clamps and checks
+//    again. One vote per step covers the warp's rows.
+// 5. Each row keeps its top-k as kMaxK sorted keys in shared memory, a key
+//    being the distance's bits over the column index (the plain version's
+//    selection key, so ties go to the smaller index whatever the arrival
+//    order), and a threshold in a register: the k-th key's distance. A
+//    candidate below it is appended to the row's buffer of kBuf keys (one
+//    ballot and one store for all the lanes of a step); a full buffer is
+//    merged into the top-k by the warp at once (merge_buffer) and the
+//    threshold drops. Between merges the threshold is stale, which only
+//    lets more candidates into the buffer: a point it rejects has a larger
+//    distance than k points already seen, or the same distance and a
+//    larger index, so it is not among the k nearest.
+//
+// C interface (bound with ctypes): knn_topk_scratch_bytes gives the size
+// of the packed copy the caller allocates; knn_topk_f32 launches the
+// prologue and the main kernel on the given stream and returns the first
+// launch error (cudaGetLastError()), 0 if none.
 
 #include <cuda_runtime.h>
 
+#include <cstddef>
+#include <cstdint>
+
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kRowsPerWarp = 4;
-constexpr int kRowsPerBlock = kWarps * kRowsPerWarp;
-// Features are padded to 8 in registers and in the shared tile; zero
-// features add exact zeros to every sum, so distances do not change.
 constexpr int kFeatPad = 8;
+constexpr int kTile = 512;  // reference points per stage
+constexpr int kStages = 4;
+constexpr int kWarps = 16;
+constexpr int kRowsPerWarp = 6;
+constexpr int kRowsPerBlock = kWarps * kRowsPerWarp;
+constexpr int kThreads = kWarps * 32;
+constexpr int kTileFloats = kTile * (kFeatPad + 1);
+constexpr unsigned kTileBytes = kTileFloats * sizeof(float);
+constexpr int kMaxK = 128;  // top-k keys kept per row
+constexpr int kKeysPerLane = kMaxK / 32;
+constexpr int kBuf = 32;  // candidates buffered per row between merges
+static_assert(kBuf == 32, "a merge sorts one key a lane, and one step may append 32");
+// A key packs a distance's bits (monotone for distances >= 0) over its
+// column index; the sentinel is (+inf, 0xffffffff), above every candidate.
+constexpr uint64_t kSentinelKey = (uint64_t(0x7f800000u) << 32) | 0xffffffffu;
+constexpr size_t kSmemBytes = size_t(kStages) * kTileBytes +
+                              size_t(kRowsPerBlock) * (kMaxK + kBuf) * sizeof(uint64_t) +
+                              kStages * (sizeof(uint64_t) + sizeof(unsigned));
 constexpr unsigned kFull = 0xffffffffu;
 
-template <int KPL>
-__device__ __forceinline__ void insert_sorted(float (&d)[KPL], int (&ix)[KPL],
-                                              float nd, int ni, int lane, int k) {
-  int cnt = 0;
+int num_tiles(int n) { return (n + kTile - 1) / kTile; }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One TMA bulk copy of a tile (kTileBytes contiguous bytes) into a stage;
+// the copy's arrival completes the stage's full barrier.
+__device__ __forceinline__ void load_tile(float* dst, const float* src, uint64_t* full) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(full)),
+               "r"(kTileBytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(kTileBytes), "r"(smem_addr(full))
+      : "memory");
+}
+
+// Packs the points tile by tile (see the note at the top) with their norms.
+__global__ void pack_kernel(const float* __restrict__ pts, int n, int f, int n_pad,
+                            float* __restrict__ tiles) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n_pad) return;
+  float x[kFeatPad];
 #pragma unroll
-  for (int s = 0; s < KPL; ++s) {
-    const int p = lane * KPL + s;
-    cnt += (p < k && d[s] <= nd) ? 1 : 0;
+  for (int c = 0; c < kFeatPad; ++c) x[c] = (j < n && c < f) ? pts[(size_t)j * f + c] : 0.f;
+  float s = __fmul_rn(x[0], x[0]);
+#pragma unroll
+  for (int c = 1; c < kFeatPad; ++c) {
+    if (c < f) s = __fadd_rn(s, __fmul_rn(x[c], x[c]));
   }
-  const int pos = __reduce_add_sync(kFull, cnt);
-  const float carry_d = __shfl_up_sync(kFull, d[KPL - 1], 1);
-  const int carry_i = __shfl_up_sync(kFull, ix[KPL - 1], 1);
+  if (j >= n) s = __int_as_float(0x7f800000);
+  float* tile = tiles + (size_t)(j / kTile) * kTileFloats;
+  const int t = j % kTile;
+  reinterpret_cast<float4*>(tile)[t] = make_float4(x[0], x[1], x[2], x[3]);
+  reinterpret_cast<float4*>(tile + 4 * kTile)[t] = make_float4(x[4], x[5], x[6], x[7]);
+  tile[8 * kTile + t] = s;
+}
+
+// Folds a row's candidate buffer (cnt <= kBuf keys, in no order) into its
+// sorted top-k keys and returns the new threshold, the k-th key's
+// distance. The warp sorts the buffer (bitonic, one key a lane), finds each
+// candidate's rank among the top-k keys (binary search) and, for each top-k
+// key, the number of smaller candidates (binary search over those ranks,
+// which ascend over the lanes), then writes every key to its merged place.
+// Keys are distinct, so the merged order is total.
+__device__ __forceinline__ float merge_buffer(uint64_t* topk, const uint64_t* buf, int cnt, int k,
+                                              int lane) {
+  __syncwarp();
+  uint64_t b = lane < cnt ? buf[lane] : kSentinelKey;
 #pragma unroll
-  for (int s = KPL - 1; s >= 0; --s) {
-    const int p = lane * KPL + s;
-    const float prev_d = s > 0 ? d[s > 0 ? s - 1 : 0] : carry_d;
-    const int prev_i = s > 0 ? ix[s > 0 ? s - 1 : 0] : carry_i;
-    if (p > pos) {
-      d[s] = prev_d;
-      ix[s] = prev_i;
-    } else if (p == pos) {
-      d[s] = nd;
-      ix[s] = ni;
+  for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const uint64_t o = __shfl_xor_sync(kFull, b, stride);
+      const bool keep_min = ((lane & stride) == 0) == ((lane & size) == 0);
+      b = (o < b) == keep_min ? o : b;
     }
   }
-}
-
-template <int KPL>
-__device__ __forceinline__ float kth_distance(const float (&d)[KPL], int k) {
-  const int owner = (k - 1) / KPL;
-  const int slot = (k - 1) % KPL;
-  float v = 0.f;
+  // A candidate passed d2 < threshold, the k-th key's distance, so fewer
+  // than k <= kMaxK keys are below it.
+  int rank = 0;
 #pragma unroll
-  for (int s = 0; s < KPL; ++s) {
-    if (s == slot) v = d[s];
+  for (int step = kMaxK / 2; step >= 1; step >>= 1) {
+    if (topk[rank + step - 1] < b) rank += step;
   }
-  return __shfl_sync(kFull, v, owner);
+  const int rank_or_max = lane < cnt ? rank : kMaxK;
+  const int last = __shfl_sync(kFull, rank_or_max, 31);
+  uint64_t key[kKeysPerLane];
+  int dest[kKeysPerLane];
+#pragma unroll
+  for (int s = 0; s < kKeysPerLane; ++s) {
+    const int p = lane * kKeysPerLane + s;
+    key[s] = topk[p];
+    int below = 0;  // candidates smaller than key p: those of rank <= p
+#pragma unroll
+    for (int step = 16; step >= 1; step >>= 1) {
+      if (__shfl_sync(kFull, rank_or_max, below + step - 1) <= p) below += step;
+    }
+    dest[s] = p + (last <= p ? 32 : below);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int s = 0; s < kKeysPerLane; ++s) {
+    if (dest[s] < kMaxK) topk[dest[s]] = key[s];
+  }
+  if (lane < cnt && lane + rank < kMaxK) topk[lane + rank] = b;
+  __syncwarp();
+  return __uint_as_float(static_cast<uint32_t>(topk[k - 1] >> 32));
 }
 
-template <int KPL>
-__global__ void __launch_bounds__(kWarps * 32)
-knn_topk_kernel(const float* __restrict__ pts, int n, int f, int k,
-                float* __restrict__ out_d, int* __restrict__ out_i) {
-  constexpr int kTile = 1024;
-  __shared__ float tile[kFeatPad][kTile];
-  __shared__ float tile_sq[kTile];
-
+__global__ void __launch_bounds__(kThreads, 1)
+knn_topk_kernel(const float* __restrict__ pts, const float* __restrict__ tiles, int n, int f,
+                int k, int n_tiles, float* __restrict__ out_d, int* __restrict__ out_i) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);
+  uint64_t* topk_keys = reinterpret_cast<uint64_t*>(smem + size_t(kStages) * kTileBytes);
+  uint64_t* buf_keys = topk_keys + kRowsPerBlock * kMaxK;
+  uint64_t* full = buf_keys + kRowsPerBlock * kBuf;
+  unsigned* released = reinterpret_cast<unsigned*>(full + kStages);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int row0 = blockIdx.x * kRowsPerBlock + warp * kRowsPerWarp;
-  const float inf = __int_as_float(0x7f800000);
 
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      released[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    for (int t = 0; t < kStages && t < n_tiles; ++t) {
+      load_tile(ring + t * kTileFloats, tiles + (size_t)t * kTileFloats, &full[t]);
+    }
+  }
+  __syncthreads();
+
+  const int row0 = blockIdx.x * kRowsPerBlock + warp * kRowsPerWarp;
+  uint64_t* my_topk = topk_keys + warp * kRowsPerWarp * kMaxK;
+  uint64_t* my_buf = buf_keys + warp * kRowsPerWarp * kBuf;
+  for (int i = lane; i < kRowsPerWarp * kMaxK; i += 32) my_topk[i] = kSentinelKey;
+  __syncwarp();
+
+  const float inf = __int_as_float(0x7f800000);
+  const unsigned lanes_below = (1u << lane) - 1;
   float q[kRowsPerWarp][kFeatPad];
   float q_sq[kRowsPerWarp];
   float thr[kRowsPerWarp];
-  float best_d[kRowsPerWarp][KPL];
-  int best_i[kRowsPerWarp][KPL];
+  int cnt[kRowsPerWarp];
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int row = row0 + r;
+    const bool real = row < n;
 #pragma unroll
-    for (int c = 0; c < kFeatPad; ++c) {
-      q[r][c] = (row < n && c < f) ? pts[(size_t)row * f + c] : 0.f;
-    }
-    float s = __fmul_rn(q[r][0], q[r][0]);
-#pragma unroll
-    for (int c = 1; c < kFeatPad; ++c) s = __fadd_rn(s, __fmul_rn(q[r][c], q[r][c]));
-    q_sq[r] = s;
-    thr[r] = inf;
-#pragma unroll
-    for (int s2 = 0; s2 < KPL; ++s2) {
-      best_d[r][s2] = inf;
-      best_i[r][s2] = -1;
-    }
+    for (int c = 0; c < kFeatPad; ++c) q[r][c] = (real && c < f) ? pts[(size_t)row * f + c] : 0.f;
+    // The prologue's norm; a padded row gets 0 and a threshold of -inf,
+    // so its distances are finite and never pass.
+    q_sq[r] = real ? tiles[(size_t)(row / kTile) * kTileFloats + 8 * kTile + row % kTile] : 0.f;
+    thr[r] = real ? inf : -inf;
+    cnt[r] = 0;
   }
 
-  for (int base = 0; base < n; base += kTile) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int t = threadIdx.x; t < kTile; t += blockDim.x) {
-      const int j = base + t;
-      float s = 0.f;
+  for (int t = 0, s = 0, phase = 0; t < n_tiles; ++t) {
+    mbar_wait(&full[s], phase);
+    const float4* fa = reinterpret_cast<const float4*>(ring + s * kTileFloats);
+    const float4* fb = fa + kTile;
+    const float* fn = reinterpret_cast<const float*>(fb + kTile);
+    const int base = t * kTile;
+    float4 a = fa[lane];
+    float4 b = fb[lane];
+    float c_sq = fn[lane];
+    for (int t0 = 0; t0 < kTile; t0 += 32) {
+      // The next step's point, loaded while this one computes (the last
+      // step of a tile reloads the tile's first point, unused).
+      const int next = (t0 + 32) % kTile + lane;
+      const float4 a_next = fa[next];
+      const float4 b_next = fb[next];
+      const float c_sq_next = fn[next];
+      const float x[kFeatPad] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+      float d2[kRowsPerWarp];
 #pragma unroll
-      for (int c = 0; c < kFeatPad; ++c) {
-        const float v = (j < n && c < f) ? pts[(size_t)j * f + c] : 0.f;
-        tile[c][t] = v;
-        s = c == 0 ? __fmul_rn(v, v) : __fadd_rn(s, __fmul_rn(v, v));
+      for (int r = 0; r < kRowsPerWarp; ++r) d2[r] = __fmul_rn(q[r][0], x[0]);
+#pragma unroll
+      for (int c = 1; c < kFeatPad; ++c) {
+#pragma unroll
+        for (int r = 0; r < kRowsPerWarp; ++r) d2[r] = __fadd_rn(d2[r], __fmul_rn(q[r][c], x[c]));
       }
-      tile_sq[t] = s;
-    }
-    __syncthreads();
-    const int lim = min(kTile, n - base);
-    for (int t0 = 0; t0 < lim; t0 += 32) {
-      const int t = t0 + lane;
-      const int j = base + t;
-      float c[kFeatPad];
-#pragma unroll
-      for (int cc = 0; cc < kFeatPad; ++cc) c[cc] = tile[cc][t];
-      const float c_sq = tile_sq[t];
+      bool hit = false;
 #pragma unroll
       for (int r = 0; r < kRowsPerWarp; ++r) {
-        float cross = __fmul_rn(q[r][0], c[0]);
+        d2[r] = __fadd_rn(__fsub_rn(q_sq[r], __fmul_rn(2.f, d2[r])), c_sq);
+        hit |= !(d2[r] >= thr[r]);
+      }
+      if (__any_sync(kFull, hit)) {
+        const int j = base + t0 + lane;
 #pragma unroll
-        for (int cc = 1; cc < kFeatPad; ++cc) cross = __fadd_rn(cross, __fmul_rn(q[r][cc], c[cc]));
-        float d2 = __fadd_rn(__fsub_rn(q_sq[r], __fmul_rn(2.f, cross)), c_sq);
-        d2 = d2 > 0.f ? d2 : 0.f;
-        const int row = row0 + r;
-        const bool cand = t < lim && row < n && j != row && d2 < thr[r];
-        unsigned mask = __ballot_sync(kFull, cand);
-        while (mask) {
-          const int src = __ffs(mask) - 1;
-          mask &= mask - 1;
-          const float nd = __shfl_sync(kFull, d2, src);
-          if (nd < thr[r]) {
-            insert_sorted<KPL>(best_d[r], best_i[r], nd, base + t0 + src, lane, k);
-            thr[r] = kth_distance<KPL>(best_d[r], k);
+        for (int r = 0; r < kRowsPerWarp; ++r) {
+          const float nd = d2[r] > 0.f ? d2[r] : 0.f;  // the plain version's clamp
+          bool pass = nd < thr[r] && j != row0 + r;
+          unsigned mask = __ballot_sync(kFull, pass);
+          if (!mask) continue;
+          uint64_t* row_buf = my_buf + r * kBuf;
+          if (cnt[r] + __popc(mask) > kBuf) {
+            thr[r] = merge_buffer(my_topk + r * kMaxK, row_buf, cnt[r], k, lane);
+            cnt[r] = 0;
+            pass = pass && nd < thr[r];
+            mask = __ballot_sync(kFull, pass);
           }
+          if (pass) {
+            row_buf[cnt[r] + __popc(mask & lanes_below)] =
+                (uint64_t(__float_as_uint(nd)) << 32) | uint32_t(j);
+          }
+          cnt[r] += __popc(mask);
         }
       }
+      a = a_next;
+      b = b_next;
+      c_sq = c_sq_next;
+    }
+    // Release the stage; the last warp to release it refills it with the
+    // tile kStages ahead.
+    __syncwarp();
+    if (lane == 0) {
+      __threadfence_block();
+      if (atomicAdd(&released[s], 1u) % kWarps == kWarps - 1 && t + kStages < n_tiles) {
+        __threadfence_block();
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        load_tile(ring + s * kTileFloats, tiles + (size_t)(t + kStages) * kTileFloats, &full[s]);
+      }
+    }
+    if (++s == kStages) {
+      s = 0;
+      phase ^= 1;
     }
   }
 
@@ -173,34 +344,36 @@ knn_topk_kernel(const float* __restrict__ pts, int n, int f, int k,
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int row = row0 + r;
     if (row >= n) continue;
-#pragma unroll
-    for (int s = 0; s < KPL; ++s) {
-      const int p = lane * KPL + s;
-      if (p < k) {
-        out_d[(size_t)row * k + p] = best_d[r][s];
-        out_i[(size_t)row * k + p] = best_i[r][s];
-      }
+    uint64_t* row_topk = my_topk + r * kMaxK;
+    if (cnt[r] > 0) merge_buffer(row_topk, my_buf + r * kBuf, cnt[r], k, lane);
+    for (int p = lane; p < k; p += 32) {
+      const uint64_t key = row_topk[p];
+      out_d[(size_t)row * k + p] = __uint_as_float(static_cast<uint32_t>(key >> 32));
+      out_i[(size_t)row * k + p] = static_cast<int>(static_cast<uint32_t>(key));
     }
-  }
-}
-
-void launch(const float* pts, int n, int f, int k, float* out_d, int* out_i,
-            cudaStream_t stream) {
-  const dim3 grid((n + kRowsPerBlock - 1) / kRowsPerBlock);
-  const dim3 block(kWarps * 32);
-  if (k <= 32) {
-    knn_topk_kernel<1><<<grid, block, 0, stream>>>(pts, n, f, k, out_d, out_i);
-  } else {
-    knn_topk_kernel<4><<<grid, block, 0, stream>>>(pts, n, f, k, out_d, out_i);
   }
 }
 
 }  // namespace
 
-// points: float32 [n, f] row-major; out_d float32 [n, k]; out_i int32 [n, k].
+// Bytes of the packed copy (tiles of points and norms) knn_topk_f32 takes
+// as `scratch`.
+extern "C" size_t knn_topk_scratch_bytes(int n) { return size_t(num_tiles(n)) * kTileBytes; }
+
+// points: float32 [n, f] row-major; out_d float32 [n, k]; out_i int32 [n, k];
+// scratch: knn_topk_scratch_bytes(n) bytes, 16-byte aligned.
 // Requires 0 < k < n, k <= 128, f <= 8 (checked by the Python wrapper).
-extern "C" int knn_topk_f32(const float* points, int n, int f, int k,
-                            float* out_d, int* out_i, void* stream) {
-  launch(points, n, f, k, out_d, out_i, static_cast<cudaStream_t>(stream));
+extern "C" int knn_topk_f32(const float* points, int n, int f, int k, float* out_d, int* out_i,
+                            float* scratch, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n_pad = num_tiles(n) * kTile;
+  pack_kernel<<<(n_pad + 255) / 256, 256, 0, s>>>(points, n, f, n_pad, scratch);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(knn_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             int(kSmemBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  knn_topk_kernel<<<(n + kRowsPerBlock - 1) / kRowsPerBlock, kThreads, kSmemBytes, s>>>(
+      points, scratch, n, f, k, num_tiles(n), out_d, out_i);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,9 +2,11 @@
 
 The source is compiled with ``nvcc`` for ``sm_90a`` into
 ``build/graphmine_tpu_torch/`` under the checkout at first use, loaded with
-``ctypes`` and launched on PyTorch's current stream. ``launches`` counts
-the launches of this process; the chip smoke resets and reads it to show
-that the pipeline went through the kernel.
+``ctypes`` and launched on PyTorch's current stream. One call launches a
+prologue that packs the points and their norms into scratch the wrapper
+allocates, then the main kernel. ``launches`` counts the calls of this
+process; the chip smoke resets and reads it to show that the pipeline
+went through the kernel.
 """
 
 from __future__ import annotations
@@ -39,12 +41,17 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the kNN kernel is built from source on the card's host")
 
 
-def build(verbose: bool = False) -> float:
-    """Compile the kernel if the library for this source is missing;
-    returns the seconds spent. The library's name carries a hash of the
+def library_path() -> Path:
+    """Where :func:`build` puts the library. Its name carries a hash of the
     source and flags, so an edited source is rebuilt."""
     digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libknn_topk_{digest}.so"
+    return BUILD_DIR / f"libknn_topk_{digest}.so"
+
+
+def build(verbose: bool = False) -> float:
+    """Compile the kernel if the library for this source is missing;
+    returns the seconds spent."""
+    lib = library_path()
     t0 = time.perf_counter()
     if not lib.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -68,8 +75,10 @@ def _load(lib: Path) -> None:
     handle = ctypes.CDLL(str(lib))
     fn = handle.knn_topk_f32
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    handle.knn_topk_scratch_bytes.argtypes = [ctypes.c_int]
+    handle.knn_topk_scratch_bytes.restype = ctypes.c_size_t
     _lib = handle
 
 
@@ -93,10 +102,14 @@ def knn_topk(points: torch.Tensor, k: int):
         build()
     out_d = torch.empty((n, k), dtype=torch.float32, device=points.device)
     out_i = torch.empty((n, k), dtype=torch.int32, device=points.device)
+    # Freed on return while the kernel may still run: safe, since the
+    # caching allocator hands it out again only to later work on this stream.
+    scratch = torch.empty(_lib.knn_topk_scratch_bytes(n) // 4, dtype=torch.float32,
+                          device=points.device)
     with torch.cuda.device(points.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib.knn_topk_f32(points.data_ptr(), n, f, k, out_d.data_ptr(),
-                                out_i.data_ptr(), stream)
+                                out_i.data_ptr(), scratch.data_ptr(), stream)
     if err:
         raise RuntimeError(f"knn_topk_f32 launch failed: cudaError {err}")
     launches += 1

@@ -3,7 +3,8 @@
 ``chip_smoke.py`` runs only on a CUDA card. Here: it exits non-zero with
 no result line on a machine without CUDA and in a directory that holds it
 alone, its bulk edge-list writer gives the ids the port's loader reads
-back, and its kNN bound and parity check compute what they say.
+back, its arguments parse, and its kNN bound, floor and parity check compute
+what they say.
 """
 
 import json
@@ -38,6 +39,22 @@ def test_exits_nonzero_without_cuda():
     assert '"ok"' not in out.stdout and "CUDA is not available" in out.stderr
 
 
+def test_kernels_only_exits_nonzero_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the smoke would run")
+    out = subprocess.run([sys.executable, "chip_smoke.py", "--kernels-only"], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and "CUDA is not available" in out.stderr
+
+
+def test_parses_kernels_only():
+    assert not chip_smoke.parse_args([]).kernels_only
+    assert chip_smoke.parse_args(["--kernels-only"]).kernels_only
+    with pytest.raises(SystemExit):
+        chip_smoke.parse_args(["--kernel-only-typo"])
+
+
 def test_exits_nonzero_alone(tmp_path):
     shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
     out = _run(tmp_path)
@@ -63,6 +80,27 @@ def test_knn_bound_is_operations_at_the_main_path_shape():
     assert by == "operations"
     assert ms == pytest.approx(1e3 * 262_144 * 262_143 * 19 / 67e12)
     assert chip_smoke.knn_bound_ms(1000, 1, 999)[1] == "bytes"
+
+
+def test_unfused_floor_is_twice_the_bound_at_the_main_path_shape():
+    bound, _ = chip_smoke.knn_bound_ms(262_144, 8, 128)
+    floor = chip_smoke.knn_unfused_floor_ms(262_144, 8, 128)
+    assert floor == pytest.approx(2 * bound, rel=1e-12)
+    assert floor == pytest.approx(38.98, abs=0.005)
+    # where bytes bind, the floor is the bytes' time, as the bound is
+    assert chip_smoke.knn_unfused_floor_ms(1000, 1, 999) == chip_smoke.knn_bound_ms(1000, 1, 999)[0]
+
+
+def test_kernels_line_holds_measured_keys_and_the_floor_its_own_line(capsys):
+    entry = {"name": "knn_topk", "route": "cuda", "source": chip_smoke.KNN_SOURCE,
+             "replaces": chip_smoke.KNN_REPLACES, "shape": {"n": 262_144, "f": 8, "k": 128},
+             "launches": 1, "max_abs_err": 0.0, "ms": 68.0, "plain_ms": 8000.0,
+             "bound_ms": 19.49, "bound_by": "operations", "library_ms": 1300.0}
+    chip_smoke.print_kernels([entry])
+    kernels, floor = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert kernels == {"kernels": [entry]}
+    assert floor == {"unfused_floor_ms": {
+        "knn_topk": chip_smoke.knn_unfused_floor_ms(262_144, 8, 128)}}
 
 
 def test_check_knn_accepts_equal_and_rejects_a_swap():

@@ -96,3 +96,19 @@ def test_kernel_wrapper_takes_only_cuda_tensors():
     assert knn_cuda.launches == before
     with pytest.raises(ValueError, match="CUDA or CPU"):
         knn(torch.zeros(8, 2, device="meta"), 3)
+
+
+def test_kernel_keeps_the_unfused_float32_contract():
+    """The kernel's distances are bit-equal to the plain version's only if
+    it rounds every product and sum on its own: no FMA contraction, no
+    fused or tensor-core instruction in the source."""
+    import re
+
+    from graphmine_tpu_torch.kernels import knn_cuda
+
+    assert "--fmad=false" in knn_cuda.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in knn_cuda.NVCC_FLAGS
+    code = re.sub(r"//[^\n]*", "", knn_cuda.SOURCE.read_text())
+    assert not re.search(r"\b(fmaf?|__fmaf?_r[nzud]|__fma_r[nzud]|wmma|mma|wgmma)\b", code)
+    assert "__fmul_rn" in code and "__fadd_rn" in code and "__fsub_rn" in code
+    assert knn_cuda.MAX_K == 128 and knn_cuda.MAX_F == 8
