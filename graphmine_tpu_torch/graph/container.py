@@ -5,7 +5,8 @@ dense int32 index tensors on one device. Every superstep consumes the
 *message CSR*: the 2E-long (receiver, sender) pair sorted by receiver.
 Messages flow along both directions of every directed edge and duplicate
 edges are kept with multiplicity, exactly as in the JAX package, so the
-CSR arrays of the two packages are array-equal.
+CSR arrays of the two packages are array-equal. A weighted graph carries
+each edge's weight on both of its messages (``msg_weight``).
 """
 
 from __future__ import annotations
@@ -28,7 +29,9 @@ class Graph:
 
     ``src, dst`` [E] directed edge endpoints; ``msg_recv`` [M] receiver of
     each message, ascending; ``msg_send`` [M] its sender; ``msg_ptr``
-    [V+1] CSR row pointers; ``symmetric``: messages flow both directions.
+    [V+1] CSR row pointers; ``symmetric``: messages flow both directions;
+    ``msg_weight`` [M] float32 weight of each message (its edge's), or
+    ``None`` on an unweighted graph.
     """
 
     src: torch.Tensor
@@ -38,6 +41,7 @@ class Graph:
     msg_ptr: torch.Tensor
     num_vertices: int
     symmetric: bool = True
+    msg_weight: torch.Tensor | None = None
 
     @property
     def num_edges(self) -> int:
@@ -57,12 +61,8 @@ class Graph:
         return self.msg_ptr[1:] - self.msg_ptr[:-1]
 
 
-def _prepare_edges(src, dst, num_vertices, edge_weights=None):
+def _prepare_edges(src, dst, num_vertices):
     """Shared endpoint coercion/validation/V-inference for graph builders."""
-    if edge_weights is not None:
-        raise NotImplementedError(
-            "weighted graphs: ROADMAP.md queue 1 item 1 (weighted LPA)"
-        )
     src = np.asarray(src, dtype=np.int32)
     dst = np.asarray(dst, dtype=np.int32)
     if src.shape != dst.shape or src.ndim != 1:
@@ -76,18 +76,33 @@ def _prepare_edges(src, dst, num_vertices, edge_weights=None):
     return src, dst, num_vertices
 
 
+def _prepare_weights(edge_weights, src: np.ndarray):
+    """Edge weights as float32 ``[E]``, one per edge, each >= 0 and not
+    NaN; ``None`` stays ``None``."""
+    if edge_weights is None:
+        return None
+    w = np.asarray(edge_weights, dtype=np.float32)
+    if w.shape != src.shape:
+        raise ValueError("edge_weights must be one float per edge")
+    if len(w) and not np.all(w >= 0):  # NaN >= 0 is False
+        raise ValueError("edge_weights must be non-negative and not NaN")
+    return w
+
+
 def _message_csr(src: torch.Tensor, dst: torch.Tensor, num_vertices: int,
-                 symmetric: bool):
-    """``(ptr int64 [V+1], recv_sorted, send_sorted int32 [M])``: messages
-    grouped by receiver in stable order, built on ``src``'s device. A
-    stable sort keeps the senders of one receiver in message order, the
-    order NumPy's stable argsort and the JAX package's native counting
-    sort produce."""
+                 symmetric: bool, weights: torch.Tensor | None = None):
+    """``(ptr int64 [V+1], recv_sorted, send_sorted int32 [M], w_sorted
+    float32 [M] | None)``: messages grouped by receiver in stable order,
+    built on ``src``'s device. A stable sort keeps the senders of one
+    receiver in message order, the order NumPy's stable argsort and the
+    JAX package's native counting sort produce; both messages of an edge
+    carry its weight through the same permutation."""
     if symmetric:
         recv = torch.cat([dst, src])
         send = torch.cat([src, dst])
+        w = None if weights is None else torch.cat([weights, weights])
     else:
-        recv, send = dst, src
+        recv, send, w = dst, src, weights
     ptr = torch.zeros(num_vertices + 1, dtype=torch.int64, device=src.device)
     ptr[1:] = torch.cumsum(torch.bincount(recv, minlength=num_vertices), 0)
     if int(ptr[-1]) > _INT32_MAX:
@@ -96,28 +111,40 @@ def _message_csr(src: torch.Tensor, dst: torch.Tensor, num_vertices: int,
             f"{_INT32_MAX:,} for a single device"
         )
     order = torch.argsort(recv, stable=True)
-    return ptr, recv[order], send[order]
+    return ptr, recv[order], send[order], None if w is None else w[order]
 
 
 def build_graph(src, dst, num_vertices: int | None = None, symmetric: bool = True,
                 edge_weights=None, device=None) -> Graph:
     """Build a :class:`Graph` from host endpoint arrays on ``device``
-    (CUDA unless the caller asks for another device)."""
+    (CUDA unless the caller asks for another device); ``edge_weights``
+    (one float >= 0 per edge) makes it weighted."""
+    graph, _ = _build_with_csr(src, dst, num_vertices, symmetric, edge_weights, device)
+    return graph
+
+
+def _build_with_csr(src, dst, num_vertices, symmetric, edge_weights, device):
+    """``(Graph, host int64 ptr)``: the shared body of the graph builders."""
     dev = resolve_device(device)
-    src, dst, num_vertices = _prepare_edges(src, dst, num_vertices, edge_weights)
+    src, dst, num_vertices = _prepare_edges(src, dst, num_vertices)
+    w = _prepare_weights(edge_weights, src)
     src_t = torch.from_numpy(src).to(dev)
     dst_t = torch.from_numpy(dst).to(dev)
-    ptr, recv, send = _message_csr(src_t, dst_t, num_vertices, symmetric)
-    return Graph(
+    w_t = None if w is None else torch.from_numpy(w).to(dev)
+    ptr, recv, send, w_sorted = _message_csr(src_t, dst_t, num_vertices, symmetric, w_t)
+    graph = Graph(
         src=src_t, dst=dst_t, msg_recv=recv, msg_send=send,
         msg_ptr=ptr.to(torch.int32), num_vertices=num_vertices, symmetric=symmetric,
+        msg_weight=w_sorted,
     )
+    return graph, ptr.cpu().numpy()
 
 
 def graph_from_edge_table(table, symmetric: bool = True, device=None) -> Graph:
-    """Build a graph from an :class:`~graphmine_tpu_torch.io.edges.EdgeTable`."""
+    """Build a graph from an :class:`~graphmine_tpu_torch.io.edges.EdgeTable`;
+    its weights, if any, make the graph weighted."""
     return build_graph(table.src, table.dst, num_vertices=table.num_vertices,
-                       symmetric=symmetric, device=device)
+                       symmetric=symmetric, edge_weights=table.weights, device=device)
 
 
 def simple_undirected_edges(graph: Graph) -> tuple[np.ndarray, np.ndarray]:

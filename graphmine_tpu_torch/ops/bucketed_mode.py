@@ -11,6 +11,12 @@ Every path breaks ties toward the smallest label, so the labels are
 bit-equal to the sort-based :func:`~graphmine_tpu_torch.ops.segment.segment_mode`
 superstep and to the JAX package.
 
+On a weighted graph the plan carries slot-aligned weight matrices (padding
+weighs 0) and every path takes the label of largest weight sum instead:
+narrow rows by pairwise sums, wide rows by a row sort and a segmented scan
+that sums each run on its own, hubs by a histogram whose sums come from a
+sort of the hub messages, each run summed on its own in message order.
+
 The plan's matrices are gathered on the graph's device from the resident
 sender array; only row starts and degrees are computed on the host.
 """
@@ -22,12 +28,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from graphmine_tpu_torch.graph.container import (
-    Graph,
-    _message_csr,
-    _prepare_edges,
-)
-from graphmine_tpu_torch.device import resolve_device
+from graphmine_tpu_torch.graph.container import Graph, _build_with_csr
+from graphmine_tpu_torch.ops.segment import run_totals
 
 _SENTINEL = (1 << 31) - 1
 
@@ -53,14 +55,15 @@ def _extend_widths(max_deg: int) -> np.ndarray:
     return np.asarray(ws, dtype=np.int64)
 
 
-def _gather_rows(send: torch.Tensor, starts: torch.Tensor, degs: torch.Tensor,
-                 w: int, fill: int) -> torch.Tensor:
-    """``[n, w]`` int32 matrix of each row's senders, padded with ``fill``."""
-    offs = torch.arange(w, dtype=torch.int64, device=send.device)[None, :]
+def _gather_rows(values: torch.Tensor, starts: torch.Tensor, degs: torch.Tensor,
+                 w: int, fill) -> torch.Tensor:
+    """``[n, w]`` matrix of each row's CSR entries of ``values`` (its
+    dtype), padded with ``fill``."""
+    offs = torch.arange(w, dtype=torch.int64, device=values.device)[None, :]
     idx = starts[:, None] + offs
     valid = offs < degs[:, None]
-    safe = torch.clamp(idx, max=send.shape[0] - 1)
-    return torch.where(valid, send[safe], fill).to(torch.int32)
+    safe = torch.clamp(idx, max=values.shape[0] - 1)
+    return values[safe].masked_fill_(~valid, fill)
 
 
 @dataclass(frozen=True)
@@ -72,7 +75,9 @@ class BucketedModePlan:
     Hubs (degree > 2048, within ``_HIST_BUDGET``): ``hist_vertex_ids``
     int32 ``[n_hist]``, ``hist_send`` the exact sender ids of all hub
     messages, ``hist_row_offset`` the owning hub's ``row * V`` per message;
-    all ``None`` when no hub qualifies.
+    all ``None`` when no hub qualifies. Weighted plans: ``weight_mat[b]``
+    float32 ``[n_b, w_b]`` slot-aligned with ``send_idx[b]`` (padding 0)
+    and ``hist_weight`` the hub messages' weights; ``None`` otherwise.
     """
 
     vertex_ids: tuple
@@ -82,11 +87,14 @@ class BucketedModePlan:
     hist_vertex_ids: torch.Tensor | None = None
     hist_send: torch.Tensor | None = None
     hist_row_offset: torch.Tensor | None = None
+    weight_mat: tuple | None = None
+    hist_weight: torch.Tensor | None = None
 
     @classmethod
-    def from_ptr(cls, ptr: np.ndarray, num_vertices: int,
-                 send: torch.Tensor) -> "BucketedModePlan":
-        """Plan from the host row pointers and the device sender array."""
+    def from_ptr(cls, ptr: np.ndarray, num_vertices: int, send: torch.Tensor,
+                 weights: torch.Tensor | None = None) -> "BucketedModePlan":
+        """Plan from the host row pointers and the device sender array, with
+        the weight payload when ``weights`` (``[M]``, CSR order) is given."""
         ptr = np.asarray(ptr).astype(np.int64)
         deg = ptr[1:] - ptr[:-1]
         m = int(ptr[-1])
@@ -102,24 +110,26 @@ class BucketedModePlan:
         widths = _extend_widths(int(deg[~hist_mask].max(initial=1)))
         classes = np.searchsorted(widths, np.maximum(deg, 1))
         bucketed = (deg > 0) & ~hist_mask
-        vertex_ids, send_idx = [], []
+        vertex_ids, send_idx, weight_mat = [], [], []
         for c in np.unique(classes[bucketed]):
             rows = np.nonzero((classes == c) & bucketed)[0]
-            send_idx.append(_gather_rows(
-                send, torch.from_numpy(ptr[rows]).to(dev),
-                torch.from_numpy(deg[rows]).to(dev), int(widths[c]), num_vertices,
-            ))
+            starts = torch.from_numpy(ptr[rows]).to(dev)
+            degs = torch.from_numpy(deg[rows]).to(dev)
+            send_idx.append(_gather_rows(send, starts, degs, int(widths[c]), num_vertices))
+            if weights is not None:
+                weight_mat.append(_gather_rows(weights, starts, degs, int(widths[c]), 0.0))
             vertex_ids.append(torch.from_numpy(rows.astype(np.int32)).to(dev))
 
-        hist_vertex_ids = hist_send = hist_row_offset = None
+        hist_vertex_ids = hist_send = hist_row_offset = hist_weight = None
         if hist_mask.any():
             hubs = np.nonzero(hist_mask)[0]
             rows = np.repeat(np.arange(len(hubs), dtype=np.int64), deg[hubs])
             hist_vertex_ids = torch.from_numpy(hubs.astype(np.int32)).to(dev)
             # hub messages are contiguous CSR spans: device slices
-            hist_send = torch.cat(
-                [send[int(ptr[h]):int(ptr[h + 1])] for h in hubs]
-            ).to(torch.int32)
+            spans = [slice(int(ptr[h]), int(ptr[h + 1])) for h in hubs]
+            hist_send = torch.cat([send[sl] for sl in spans]).to(torch.int32)
+            if weights is not None:
+                hist_weight = torch.cat([weights[sl] for sl in spans])
             hist_row_offset = torch.from_numpy(
                 (rows * num_vertices).astype(np.int32)
             ).to(dev)
@@ -128,23 +138,19 @@ class BucketedModePlan:
             num_vertices=num_vertices, num_messages=m,
             hist_vertex_ids=hist_vertex_ids, hist_send=hist_send,
             hist_row_offset=hist_row_offset,
+            weight_mat=tuple(weight_mat) if weights is not None else None,
+            hist_weight=hist_weight,
         )
 
 
 def build_graph_and_plan(src, dst, num_vertices: int | None = None,
                          symmetric: bool = True, edge_weights=None, device=None):
     """Build the :class:`Graph` and its fused plan from ONE message-CSR
-    pass on ``device`` — the pipeline's single-device build."""
-    dev = resolve_device(device)
-    src, dst, num_vertices = _prepare_edges(src, dst, num_vertices, edge_weights)
-    src_t = torch.from_numpy(src).to(dev)
-    dst_t = torch.from_numpy(dst).to(dev)
-    ptr, recv, send = _message_csr(src_t, dst_t, num_vertices, symmetric)
-    graph = Graph(
-        src=src_t, dst=dst_t, msg_recv=recv, msg_send=send,
-        msg_ptr=ptr.to(torch.int32), num_vertices=num_vertices, symmetric=symmetric,
-    )
-    return graph, BucketedModePlan.from_ptr(ptr.cpu().numpy(), num_vertices, send)
+    pass on ``device`` — the pipeline's single-device build.
+    ``edge_weights`` builds a weighted graph and the plan's weight payload."""
+    graph, ptr = _build_with_csr(src, dst, num_vertices, symmetric, edge_weights, device)
+    return graph, BucketedModePlan.from_ptr(ptr, graph.num_vertices, graph.msg_send,
+                                            weights=graph.msg_weight)
 
 
 def _rowwise_mode(lbl: torch.Tensor) -> torch.Tensor:
@@ -190,10 +196,94 @@ def _bucket_mode(mat: torch.Tensor) -> torch.Tensor:
     return _rowwise_mode(mat)
 
 
+def _segmented_row_cumsum(new_run: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumulative sum along each row that restarts where
+    ``new_run`` is set: a Hillis-Steele scan of log2(w) shifted adds, so
+    every prefix is a sum of its own run's elements only (never a
+    difference of a row-wide cumsum, whose rounding at wide rows would
+    misrank labels)."""
+    flag, val = new_run, vals
+    n, w = vals.shape
+    d = 1
+    while d < w:
+        # combine x[p-d] into x[p]; the identity (False, 0) pads the left
+        a_f = torch.cat([flag.new_zeros((n, d)), flag[:, :-d]], dim=1)
+        a_v = torch.cat([val.new_zeros((n, d)), val[:, :-d]], dim=1)
+        val = torch.where(flag, val, a_v + val)
+        flag = flag | a_f
+        d *= 2
+    return val
+
+
+def _rowwise_wmode(lbl: torch.Tensor, wgt: torch.Tensor) -> torch.Tensor:
+    """Weighted mode of each ``[n, w]`` row: the label of largest weight
+    sum, ties toward the smallest; sentinel slots weigh 0 and are
+    excluded. Weights are non-negative, so each run's last prefix is its
+    total and the row maximum of the scan is attained at a run's end."""
+    s, order = torch.sort(lbl, dim=1, stable=True)
+    ws = torch.gather(torch.where(lbl == _SENTINEL, 0.0, wgt), 1, order)
+    new_run = torch.ones_like(s, dtype=torch.bool)
+    new_run[:, 1:] = s[:, 1:] != s[:, :-1]
+    score = torch.where(s == _SENTINEL, -1.0, _segmented_row_cumsum(new_run, ws))
+    best = score.max(dim=1).values
+    cand = torch.where(score == best[:, None], s, _SENTINEL)
+    return cand.min(dim=1).values
+
+
+def _rowwise_wmode_pairwise(lbl: torch.Tensor, wgt: torch.Tensor) -> torch.Tensor:
+    """Same contract as :func:`_rowwise_wmode` via O(w^2) pairwise weight
+    sums — no sort for narrow rows."""
+    valid = lbl != _SENTINEL
+    wz = torch.where(valid, wgt, 0.0)
+    eq = (lbl[:, :, None] == lbl[:, None, :]) & valid[:, None, :]
+    scores = torch.where(valid, (eq * wz[:, None, :]).sum(dim=2), -1.0)
+    best = scores.max(dim=1).values
+    cand = torch.where(scores == best[:, None], lbl, _SENTINEL)
+    return cand.min(dim=1).values
+
+
+def _bucket_wmode(mat: torch.Tensor, wmat: torch.Tensor) -> torch.Tensor:
+    """Weighted :func:`_bucket_mode`: the cheapest method per bucket width."""
+    w = mat.shape[1]
+    if w == 1:
+        return mat[:, 0]
+    if w == 2:
+        # degree-2 rows are exact: equal labels -> that label; else the
+        # heavier label wins, equal weights tie toward the smaller label
+        l0, l1 = mat[:, 0], mat[:, 1]
+        w0, w1 = wmat[:, 0], wmat[:, 1]
+        pick0 = (w0 > w1) | ((w0 == w1) & (l0 <= l1))
+        return torch.where(l0 == l1, l0, torch.where(pick0, l0, l1))
+    if w <= _PAIRWISE_MAX_W:
+        return _rowwise_wmode_pairwise(mat, wmat)
+    return _rowwise_wmode(mat, wmat)
+
+
+def _hub_weight_hist(flat: torch.Tensor, weights: torch.Tensor, size: int) -> torch.Tensor:
+    """Float32 ``[size]`` histogram: each received slot of ``flat`` holds
+    the sum of its messages' weights, every other slot -inf, so a hub
+    whose weights are all 0 still picks a label it received. The sums come
+    from a stable sort of the slots, each run summed on its own in message
+    order: the bits depend on the data, not on atomics' order."""
+    key, order = torch.sort(flat.to(torch.int64), stable=True)
+    new_run = torch.ones_like(key, dtype=torch.bool)
+    new_run[1:] = key[1:] != key[:-1]
+    hist = torch.full((size,), float("-inf"), dtype=torch.float32, device=flat.device)
+    hist[key[new_run]] = run_totals(new_run, weights[order])[new_run]
+    return hist
+
+
 def lpa_superstep_bucketed(labels: torch.Tensor, graph: Graph,
                            plan: BucketedModePlan) -> torch.Tensor:
     """One LPA superstep via the bucketed plan — labels identical to
-    :func:`graphmine_tpu_torch.ops.lpa.lpa_superstep`."""
+    :func:`graphmine_tpu_torch.ops.lpa.lpa_superstep`, weighted when the
+    plan carries weights."""
+    if graph.msg_weight is not None and plan.weight_mat is None:
+        raise ValueError(
+            "graph carries msg_weight but the plan has no weight payload; "
+            "build it with build_graph_and_plan(edge_weights=...) or "
+            "BucketedModePlan.from_ptr(weights=...)"
+        )
     if labels.shape[0] != plan.num_vertices or graph.num_messages != plan.num_messages:
         raise ValueError(
             f"plan built for V={plan.num_vertices}, M={plan.num_messages} "
@@ -203,17 +293,22 @@ def lpa_superstep_bucketed(labels: torch.Tensor, graph: Graph,
     labels = labels.to(torch.int32)
     lbl_pad = torch.cat([labels, labels.new_full((1,), _SENTINEL)])
     out = labels.clone()
-    for ids, sidx in zip(plan.vertex_ids, plan.send_idx):
-        out[ids] = _bucket_mode(lbl_pad[sidx])
+    wmats = plan.weight_mat or (None,) * len(plan.vertex_ids)
+    for ids, sidx, wmat in zip(plan.vertex_ids, plan.send_idx, wmats):
+        mat = lbl_pad[sidx]
+        out[ids] = _bucket_mode(mat) if wmat is None else _bucket_wmode(mat, wmat)
     if plan.hist_vertex_ids is not None:
         # Mega-hub mode: per-hub label histogram + argmax. torch.argmax
         # returns the FIRST maximal index, i.e. the smallest label among
-        # the most frequent ones — the smallest-label tie-break.
+        # the most frequent (heaviest) ones — the smallest-label tie-break.
         n_hist = plan.hist_vertex_ids.shape[0]
         flat = plan.hist_row_offset + labels[plan.hist_send]
-        hist = torch.zeros(n_hist * plan.num_vertices, dtype=torch.int32,
-                           device=labels.device)
-        hist.index_add_(0, flat, torch.ones_like(flat))
+        if plan.hist_weight is not None:
+            hist = _hub_weight_hist(flat, plan.hist_weight, n_hist * plan.num_vertices)
+        else:
+            hist = torch.zeros(n_hist * plan.num_vertices, dtype=torch.int32,
+                               device=labels.device)
+            hist.index_add_(0, flat, torch.ones_like(flat))
         modes = torch.argmax(hist.view(n_hist, plan.num_vertices), dim=1)
         out[plan.hist_vertex_ids] = modes.to(torch.int32)
     return out

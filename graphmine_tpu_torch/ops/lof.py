@@ -9,25 +9,26 @@ Counterpart of ``graphmine_tpu/ops/lof.py``. Standard LOF (Breunig et al.):
 
 with reach distances floored at 1e-3 x the mean positive kNN distance
 (discrete graph features produce many identical rows, whose k-distance 0
-would make lrd unbounded).
+would make lrd unbounded). The kNN is the exact one
+(:func:`~graphmine_tpu_torch.ops.knn.knn`, the hand-written kernel on
+CUDA) or the IVF index (:func:`~graphmine_tpu_torch.ops.ann.ivf_knn`),
+by the JAX package's policy.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
+from graphmine_tpu_torch.ops.ann import ivf_knn
 from graphmine_tpu_torch.ops.knn import knn
 
-# The JAX package's exact -> IVF crossover for impl="auto". The port has no
-# IVF index yet, so "auto" at or above it raises instead of quietly
-# switching to exact.
+# The JAX package's exact -> IVF crossover for impl="auto" (measured there
+# on a TPU, not on the card); GRAPHMINE_LOF_IVF_MIN_N overrides it, as in
+# the JAX package.
 LOF_IVF_MIN_POINTS = 1 << 17
-
-_IVF_MISSING = (
-    "IVF kNN: ROADMAP.md queue 1 item 3 (port ops/ann.py); "
-    "pass impl='exact' for the exact scorer"
-)
 
 
 def select_lof_impl(n: int, k: int, impl: str = "auto",
@@ -38,7 +39,7 @@ def select_lof_impl(n: int, k: int, impl: str = "auto",
         raise ValueError(f"unknown LOF impl {impl!r}; use 'auto', 'ivf' or 'exact'")
     if impl != "auto":
         return impl, f"impl={impl!r} requested explicitly"
-    threshold = LOF_IVF_MIN_POINTS if ivf_min_points is None else int(ivf_min_points)
+    threshold = resolved_ivf_min_points(ivf_min_points)
     if n >= threshold:
         if 0 < k < n:
             return "ivf", f"n={n} >= crossover {threshold}"
@@ -46,18 +47,30 @@ def select_lof_impl(n: int, k: int, impl: str = "auto",
     return "exact", f"n={n} < crossover {threshold}"
 
 
+def resolved_ivf_min_points(ivf_min_points: int | None = None) -> int:
+    """The active exact -> IVF crossover: the argument, else
+    ``$GRAPHMINE_LOF_IVF_MIN_N``, else :data:`LOF_IVF_MIN_POINTS`."""
+    if ivf_min_points is not None:
+        return int(ivf_min_points)
+    return int(os.environ.get("GRAPHMINE_LOF_IVF_MIN_N", LOF_IVF_MIN_POINTS))
+
+
 def lof_scores(points: torch.Tensor, k: int = 20, row_tile: int = 1024,
                impl: str = "auto", sink=None,
                ivf_min_points: int | None = None) -> torch.Tensor:
-    """LOF score per point, shape ``[N]`` (higher = more outlying)."""
+    """LOF score per point, shape ``[N]`` (higher = more outlying).
+    ``sink`` gets the ``impl_selected`` record and, from the IVF index, its
+    ``ivf_index`` record or any ``ivf_fallback``."""
     n = int(points.shape[0])
     family, reason = select_lof_impl(n, k, impl=impl, ivf_min_points=ivf_min_points)
     if sink is not None:
         sink.emit("impl_selected", op="lof_knn", impl=family, requested=impl,
-                  n=n, k=k, reason=reason)
+                  n=n, k=k, reason=reason,
+                  thresholds={"lof_ivf_min_points": resolved_ivf_min_points(ivf_min_points)})
     if family == "ivf":
-        raise NotImplementedError(_IVF_MISSING)
-    d2, idx = knn(points, k=k, row_tile=row_tile)
+        d2, idx = ivf_knn(points, k=k, sink=sink)
+    else:
+        d2, idx = knn(points, k=k, row_tile=row_tile)
     return lof_from_knn(d2, idx, k)
 
 

@@ -4,7 +4,8 @@ Counterpart of ``graphmine_tpu/ops/lpa.py``: GraphX Pregel LPA semantics —
 initial label = own id; synchronous supersteps in which every vertex
 adopts the mode of its neighbours' labels (messages along both directions
 of every edge, duplicates counted); exactly ``max_iter`` supersteps;
-isolated vertices keep their label; ties toward the smallest label.
+isolated vertices keep their label; ties toward the smallest label. On a
+weighted graph the mode is the label of largest incoming weight sum.
 """
 
 from __future__ import annotations
@@ -16,9 +17,10 @@ from graphmine_tpu_torch.ops.segment import segment_mode
 
 
 def lpa_superstep(labels: torch.Tensor, graph: Graph) -> torch.Tensor:
-    """One synchronous LPA superstep: gather → segment mode → select."""
+    """One synchronous LPA superstep: gather → segment mode → select; the
+    mode weighs each message by ``graph.msg_weight`` when the graph has it."""
     msg = labels[graph.msg_send]
-    mode, _ = segment_mode(graph.msg_recv, msg, graph.num_vertices)
+    mode, _ = segment_mode(graph.msg_recv, msg, graph.num_vertices, weights=graph.msg_weight)
     return torch.where(graph.degrees() > 0, mode, labels).to(torch.int32)
 
 

@@ -1,8 +1,8 @@
 """Newman modularity of a community partition (PyTorch).
 
-Counterpart of ``graphmine_tpu/ops/modularity.py::modularity`` for
-unweighted graphs: the symmetric message list with unit weights, where a
-self-loop message carries weight 0 in the list and adds half its weight
+Counterpart of ``graphmine_tpu/ops/modularity.py::modularity``: the
+symmetric message list with each message's edge weight (1 on an
+unweighted graph), where a self-loop message carries weight 0 in the list and adds half its weight
 per appearance to its vertex's self weight (so a self-loop adds 2 to the
 vertex's degree and 2 to its community's internal weight). Accumulates in
 float64; the JAX package accumulates in float32.
@@ -25,9 +25,11 @@ def modularity(labels: torch.Tensor, graph: Graph, gamma: float = 1.0) -> float:
     v = graph.num_vertices
     recv, send = graph.msg_recv, graph.msg_send
     is_self = recv == send
-    w = (~is_self).to(torch.float64)
+    base = (torch.ones(recv.shape[0], dtype=torch.float64, device=recv.device)
+            if graph.msg_weight is None else graph.msg_weight.to(torch.float64))
+    w = torch.where(is_self, 0.0, base)
     self_w = torch.zeros(v, dtype=torch.float64, device=recv.device).index_add_(
-        0, recv, 0.5 * is_self.to(torch.float64)
+        0, recv, torch.where(is_self, 0.5 * base, 0.0)
     )
     k = torch.zeros(v, dtype=torch.float64, device=recv.device).index_add_(0, recv, w)
     k = k + 2.0 * self_w

@@ -5,7 +5,10 @@ algorithm and the same answers: sort (segment, value) pairs, rank each
 element within its run of equal pairs, take the maximal rank per segment,
 and among the values reaching it the smallest (the deterministic
 smallest-label tie-break). ``torch.mode`` is not used: its tie rule is not
-documented.
+documented. The weighted mode takes the value of largest weight sum; each
+run's sum is accumulated over that run alone, in message order, never as a
+difference of a global cumsum, so it has the same bits on every device
+and in every run.
 """
 
 from __future__ import annotations
@@ -23,11 +26,13 @@ def segment_mode(segment_ids: torch.Tensor, values: torch.Tensor,
     Out-of-range segment ids (e.g. ``num_segments`` as a drop sentinel) are
     dropped. Empty segments yield ``(INT32_MAX, 0)``. Returns int32
     ``(mode, count)`` of shape ``[num_segments]``.
+
+    ``weights``: non-negative per-element weights; the winner is then the
+    value of largest weight sum and ``count`` that sum (float32).
     """
     if weights is not None:
-        raise NotImplementedError(
-            "weighted segment mode: ROADMAP.md queue 1 item 1 (weighted LPA)"
-        )
+        return _segment_mode_weighted(segment_ids, values, weights.to(torch.float32),
+                                      num_segments)
     seg = segment_ids.to(torch.int64)
     val = values.to(torch.int64)
     # One int64 key sorts (segment, value) lexicographically: the segment
@@ -54,3 +59,43 @@ def segment_mode(segment_ids: torch.Tensor, values: torch.Tensor,
     mode.scatter_reduce_(0, seg_x, cand, "amin")
     count = torch.clamp(best[:num_segments] + 1, min=0)
     return mode[:num_segments].to(torch.int32), count.to(torch.int32)
+
+
+def run_totals(new_run: torch.Tensor, w_sorted: torch.Tensor) -> torch.Tensor:
+    """Per-element sum of its run's weights, where ``new_run`` marks the
+    first element of each run of a sorted array. Each run is summed on its
+    own from its first element to its last (``torch.segment_reduce``, one
+    sequential loop per run on either device), so the bits depend on the
+    data only."""
+    starts = torch.nonzero(new_run).flatten()
+    ends = torch.cat([starts[1:], starts.new_full((1,), new_run.shape[0])])
+    totals = torch.segment_reduce(w_sorted, "sum", lengths=ends - starts)
+    return totals[torch.cumsum(new_run.to(torch.int64), 0) - 1]
+
+
+def _segment_mode_weighted(segment_ids, values, weights, num_segments: int):
+    """Argmax of per-(segment, value) weight sums, ties toward the smallest
+    value. A stable sort keeps each run's weights in message order."""
+    dev = values.device
+    m = values.shape[0]
+    if m == 0:
+        return (torch.full((num_segments,), _INT32_MAX, dtype=torch.int32, device=dev),
+                torch.zeros(num_segments, dtype=torch.float32, device=dev))
+    seg = segment_ids.to(torch.int64)
+    val = values.to(torch.int64)
+    key, order = torch.sort((seg << 32) | (val - _INT32_MIN), stable=True)
+    seg_s = key >> 32
+    val_s = (key & 0xFFFFFFFF) + _INT32_MIN
+    new_run = torch.ones(m, dtype=torch.bool, device=dev)
+    new_run[1:] = key[1:] != key[:-1]
+    total = run_totals(new_run, weights[order])
+    valid = (seg_s >= 0) & (seg_s < num_segments)
+    seg_x = torch.where(valid, seg_s, num_segments)
+    best = torch.full((num_segments + 1,), float("-inf"), dtype=torch.float32, device=dev)
+    best.scatter_reduce_(0, seg_x, torch.where(valid, total, float("-inf")), "amax")
+    # every element of a winning run is a candidate (one value per run)
+    is_cand = (total == best[seg_x]) & valid
+    cand = torch.where(is_cand, val_s, _INT32_MAX)
+    mode = torch.full((num_segments + 1,), _INT32_MAX, dtype=torch.int64, device=dev)
+    mode.scatter_reduce_(0, seg_x, cand, "amin")
+    return mode[:num_segments].to(torch.int32), torch.clamp(best[:num_segments], min=0.0)

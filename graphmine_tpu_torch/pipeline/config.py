@@ -13,9 +13,12 @@ from dataclasses import dataclass
 
 @dataclass
 class PipelineConfig:
-    # data (edge lists only; parquet: ROADMAP.md queue 1 item 2)
+    # data (edge lists only; parquet waits for a later slice, ROADMAP.md)
     data_path: str = ""
     data_format: str = "edgelist"
+    # 0-based column holding a per-edge float weight (weighted LPA: mode =
+    # argmax of incoming weight sums)
+    edge_weight_col: int | None = None
     # community detection: exactly max_iter LPA supersteps
     max_iter: int = 5
     # outlier detection
@@ -24,9 +27,9 @@ class PipelineConfig:
     decile: float = 0.1
     # LOF neighbourhood size; clamped to num_vertices - 1 on small graphs
     lof_k: int = 128
-    # "auto" follows the JAX package's policy, which picks the IVF index
-    # from 2^17 points — not ported yet, so it raises there; "exact" runs
-    # the exact kNN (the hand-written kernel on CUDA).
+    # "auto" follows the JAX package's policy: the IVF index from 2^17
+    # points (GRAPHMINE_LOF_IVF_MIN_N moves the crossover), the exact kNN
+    # (the hand-written kernel on CUDA) below; "exact"/"ivf" force one.
     lof_impl: str = "auto"  # auto | exact | ivf
     # exact clustering coefficient while the oriented wedge count stays
     # under this budget (~28 B of host scratch per wedge), else sampled
@@ -34,11 +37,15 @@ class PipelineConfig:
     show: int = 10
     metrics_out: str | None = None  # JSON lines of every record
     device: str = "cuda"
+    # count and set aside malformed rows and NaN weights at ingestion (a
+    # "quarantine" record) instead of failing; --no-quarantine-inputs
+    # parses strictly
+    quarantine_inputs: bool = True
 
     def validate(self) -> "PipelineConfig":
         if self.data_format == "parquet":
             raise NotImplementedError(
-                "parquet input: ROADMAP.md queue 1 item 2; use --data-format edgelist"
+                "parquet input waits for a later slice (ROADMAP.md); use --data-format edgelist"
             )
         if self.data_format != "edgelist":
             raise ValueError(f"unknown data_format {self.data_format!r}")
@@ -46,6 +53,8 @@ class PipelineConfig:
             raise ValueError(f"unknown outlier_method {self.outlier_method!r}")
         if self.lof_impl not in ("auto", "exact", "ivf"):
             raise ValueError(f"unknown lof_impl {self.lof_impl!r}")
+        if self.edge_weight_col is not None and self.edge_weight_col < 2:
+            raise ValueError("edge_weight_col must be >= 2: columns 0-1 are the endpoints")
         if self.max_iter < 0 or self.sub_max_iter < 0:
             raise ValueError("max_iter must be >= 0")
         if not 0 < self.decile < 1:
@@ -58,8 +67,11 @@ def parse_args(argv=None) -> PipelineConfig:
         prog="graphmine_tpu_torch.pipeline",
         description="Community + outlier detection pipeline on one CUDA device",
     )
-    types = {"int": int, "float": float, "str": str, "str | None": str}
+    types = {"int": int, "float": float, "str": str, "str | None": str, "int | None": int}
     for f in dataclasses.fields(PipelineConfig):
-        parser.add_argument("--" + f.name.replace("_", "-"), type=types[f.type],
-                            default=f.default)
+        name = "--" + f.name.replace("_", "-")
+        if f.type == "bool":
+            parser.add_argument(name, action=argparse.BooleanOptionalAction, default=f.default)
+        else:
+            parser.add_argument(name, type=types[f.type], default=f.default)
     return PipelineConfig(**vars(parser.parse_args(argv))).validate()

@@ -1,5 +1,5 @@
 """End-to-end single-device pipeline: load → build → LPA → census →
-recursive-LPA outliers → features → exact kNN/LOF.
+recursive-LPA outliers → features → kNN/LOF.
 
 Counterpart of ``graphmine_tpu/pipeline/driver.py::run_pipeline`` on one
 device, with the same phases in the same order and the same record names.
@@ -68,18 +68,23 @@ def _run_pipeline(config: PipelineConfig, m: MetricsSink,
 
     # ---- load -----------------------------------------------------------
     with m.span("load"), m.timed("load", path=config.data_path, format=config.data_format):
-        table = load_edge_list(config.data_path)
+        table = load_edge_list(config.data_path, weight_col=config.edge_weight_col,
+                               quarantine=config.quarantine_inputs)
     m.emit("counts", rows_raw=table.num_rows_raw, edges=table.num_edges,
            vertices=table.num_vertices)
+    if table.quarantine and config.quarantine_inputs:
+        m.emit("quarantine", **table.quarantine)
 
     # ---- build: message CSR + degree-bucketed plan, one pass -----------
     with m.span("build_graph"), m.timed("build_graph"):
         graph, plan = build_graph_and_plan(
-            table.src, table.dst, num_vertices=table.num_vertices, device=device
+            table.src, table.dst, num_vertices=table.num_vertices,
+            edge_weights=table.weights, device=device,
         )
         _sync(device)
     m.emit("impl_selected", op="lpa_superstep", impl="bucketed",
-           n=graph.num_messages, reason="single-device fused plan")
+           n=graph.num_messages, reason="single-device fused plan",
+           weighted=graph.msg_weight is not None)
     m.emit("plan_build", op="lpa_superstep", buckets=len(plan.vertex_ids),
            hub_vertices=0 if plan.hist_vertex_ids is None else len(plan.hist_vertex_ids),
            max_degree=int(graph.degrees().max()) if graph.num_vertices else 0)
@@ -124,7 +129,7 @@ def _run_pipeline(config: PipelineConfig, m: MetricsSink,
                flagged_vertices=int(result.outliers.outlier_vertices.sum()),
                sub_communities=len(result.outliers.sub_sizes))
 
-    # ---- features + exact kNN/LOF --------------------------------------
+    # ---- features + kNN/LOF (exact or IVF, by config.lof_impl) ---------
     if config.outlier_method in ("lof", "both"):
         from graphmine_tpu_torch.graph.container import simple_undirected_edges
         from graphmine_tpu_torch.ops.features import standardize, vertex_features

@@ -127,3 +127,57 @@ def test_check_knn_rejects_a_swap_between_tied_neighbours():
     swapped[row, col], swapped[row, col + 1] = i[row, col + 1], i[row, col]
     with pytest.raises(RuntimeError, match="2 kernel indices differ"):
         chip_smoke.check_knn(pts, 20, d, swapped, d, i)
+
+
+def test_weighted_edge_list_writer_round_trips_through_the_native_loader(tmp_path):
+    rng = np.random.default_rng(7)
+    src = rng.integers(0, 100_000, 5000).astype(np.int32)
+    dst = rng.integers(0, 100_000, 5000).astype(np.int32)
+    w = rng.integers(1, 16, 5000) / 4
+    w[:2] = [0.0, 123.45]
+    path = tmp_path / "w.txt"
+    chip_smoke.write_edge_list(path, src, dst, w)
+    et = load_edge_list(str(path), weight_col=2)
+    names = et.names.astype(np.int64)
+    np.testing.assert_array_equal(names[et.src], src)
+    np.testing.assert_array_equal(names[et.dst], dst)
+    np.testing.assert_array_equal(et.weights, w.astype(np.float32))
+    with pytest.raises(ValueError, match="multiples of 0.01"):
+        chip_smoke.write_edge_list(path, src[:2], dst[:2], np.array([0.125, 1.0]))
+
+
+def test_ivf_quality_accepts_equal_and_rejects_a_swapped_neighbour():
+    # 100 x 8 neighbours: one wrong neighbour is a recall of 0.99875
+    pts, _ = chip_smoke.blob_cloud(100, f=4, seed=1)
+    pts = torch.from_numpy(pts)
+    is_out = np.arange(100) < 5
+    d, i = _tiled_knn(pts, 8)
+    q = chip_smoke.ivf_quality(pts, 8, (d, i), (d, i), is_out)
+    assert q["recall"] == q["index_recall"] == 1.0 and q["delta_auroc"] == 0.0
+    json.dumps(q)
+    # one true neighbour of row 0 swapped for the farthest point
+    far = int(torch.argmax(((pts - pts[0]) ** 2).sum(1)))
+    swapped = i.clone()
+    swapped[0, 3] = far
+    with pytest.raises(RuntimeError, match="recall"):
+        chip_smoke.ivf_quality(pts, 8, (d, i), (d, swapped), is_out)
+    repeated = i.clone()
+    repeated[0, 3] = i[0, 2]
+    with pytest.raises(RuntimeError, match="repeats"):
+        chip_smoke.ivf_quality(pts, 8, (d, i), (d, repeated), is_out)
+
+
+def test_ivf_quality_counts_a_tied_neighbour_as_found():
+    # an exact duplicate of row 0's 8th neighbour: either twin is a
+    # correct 8th neighbour, so recall stays 1 while the index recall drops
+    pts, is_out = chip_smoke.blob_cloud(600, f=4, seed=1)
+    pts = torch.from_numpy(pts)
+    _, i = _tiled_knn(pts, 8)
+    twin = int(i[0, 7])
+    pts = torch.cat([pts, pts[twin:twin + 1]])
+    is_out = np.append(is_out, is_out[twin])
+    d, i = _tiled_knn(pts, 8)
+    other = i.clone()
+    other[0, 7] = len(pts) - 1 if int(i[0, 7]) == twin else twin
+    q = chip_smoke.ivf_quality(pts, 8, (d, i), (d, other), is_out)
+    assert q["recall"] == 1.0 and q["index_recall"] < 1.0

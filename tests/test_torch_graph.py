@@ -53,10 +53,11 @@ def test_edge_list_ids_match(tmp_path):
     src, dst, _, _ = tdatasets.planted_anomaly_graph(512, 4000, seed=4)
     p = tmp_path / "e.txt"
     np.savetxt(p, np.stack([src * 7 + 3, dst * 7 + 3], 1), fmt="%d")
-    # bulk, and chunked (interned chunk by chunk, as the JAX chunked path)
+    # the NumPy paths, bulk and chunked (interned chunk by chunk, as the
+    # JAX chunked path); tests/test_torch_native.py holds the native parsers
     for chunk in (None, 1 << 12):
         ref = jload_edge_list(str(p), use_native=False, chunk_bytes=chunk)
-        et = load_edge_list(str(p), chunk_bytes=chunk)
+        et = load_edge_list(str(p), use_native=False, chunk_bytes=chunk)
         np.testing.assert_array_equal(et.names.astype(str), ref.names.astype(str))
         np.testing.assert_array_equal(et.src, ref.src)
         np.testing.assert_array_equal(et.dst, ref.dst)
@@ -113,5 +114,10 @@ def test_default_device_is_cuda():
 
 
 def test_weighted_build_waits_for_its_slice():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_graph([0], [1], edge_weights=[1.0], device=CPU)
+    # weighted graphs have landed: good weights build, bad ones raise
+    g = build_graph([0, 1], [1, 2], edge_weights=[1.0, 0.5], device=CPU)
+    assert g.msg_weight.tolist() == [1.0, 1.0, 0.5, 0.5]
+    for bad, match in (([1.0], "one float per edge"), ([1.0, -1.0], "non-negative"),
+                       ([1.0, float("nan")], "non-negative")):
+        with pytest.raises(ValueError, match=match):
+            build_graph([0, 1], [1, 2], edge_weights=bad, device=CPU)

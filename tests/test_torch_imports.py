@@ -55,3 +55,33 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 15
+
+
+_BLOCKED = "import sys\nsys.modules['jax'] = None\nsys.modules['graphmine_tpu'] = None\n"
+
+
+@pytest.mark.parametrize("module", ["graphmine_tpu_torch.io.native", "graphmine_tpu_torch.ops.ann",
+                                    "graphmine_tpu_torch.io.edges", "graphmine_tpu_torch.ops.lof"])
+def test_slice_modules_import_without_jax(module):
+    code = _BLOCKED + f"import importlib\nimportlib.import_module({module!r})\nprint('ok')\n"
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_parser_is_the_ports_own_library(tmp_path):
+    # the port loads its own build of csrc/graph_builder.cpp, never the
+    # JAX package's native/libgraphbuild.so
+    path = tmp_path / "e.txt"
+    path.write_text("a b 1.5\nb c 2\n")
+    code = _BLOCKED + (
+        "from graphmine_tpu_torch.io.edges import load_edge_list\n"
+        f"et = load_edge_list({str(path)!r}, weight_col=2)\n"
+        "assert et.names.tolist() == ['a', 'b', 'c'], et.names\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "print('libgraphbuild' in maps, 'libgraph_builder_' in maps)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False", "True"]

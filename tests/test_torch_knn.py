@@ -81,8 +81,12 @@ def test_lof_auto_raises_where_ivf_would_run():
     assert select_lof_impl(1 << 17, 128)[0] == "ivf"
     assert select_lof_impl(1000, 128)[0] == "exact"
     assert select_lof_impl(1 << 17, 128, impl="exact")[0] == "exact"
-    with pytest.raises(NotImplementedError, match="IVF"):
-        lof_scores(torch.zeros(64, 2), k=4, ivf_min_points=32)
+    # where IVF would run but no k-means cluster can fill k, "auto" takes
+    # the IVF index, whose guard raises a warning and runs the exact kNN
+    pts = torch.from_numpy(np.random.default_rng(4).normal(size=(64, 4)).astype(np.float32))
+    with pytest.warns(UserWarning, match="ivf_knn guard 'k_unfillable'"):
+        scores = lof_scores(pts, k=40, ivf_min_points=50)
+    np.testing.assert_array_equal(scores.numpy(), lof_scores(pts, k=40, impl="exact").numpy())
     with pytest.raises(ValueError, match="unknown LOF impl"):
         select_lof_impl(10, 2, impl="xla")
 

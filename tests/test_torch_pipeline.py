@@ -13,11 +13,13 @@ the port's feature-by-feature sums round differently, and the
 reach-distance sums and density ratios amplify that. The AUROC against the
 planted anomalies agrees within 1e-3.
 
-The JAX loader is held to its NumPy path, which the port copies: its
-optional native parser interns ids line by line (source, then
-destination), another first-appearance order than the NumPy path's
-column by column.
+Both loaders are held to their NumPy paths here: the native parsers
+intern ids line by line (source, then destination), another
+first-appearance order than the NumPy paths' column by column. The
+default-config cases below run both packages' native parsers.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -29,6 +31,8 @@ from graphmine_tpu.pipeline.driver import run_pipeline as jrun_pipeline
 from graphmine_tpu_torch import datasets
 from graphmine_tpu_torch.ops.lof import auroc
 from graphmine_tpu_torch.pipeline import PipelineConfig, run_pipeline
+from graphmine_tpu_torch.io.edges import load_edge_list
+from graphmine_tpu_torch.pipeline import driver
 from graphmine_tpu_torch.pipeline.config import parse_args
 from graphmine_tpu_torch.pipeline.driver import main
 
@@ -47,10 +51,11 @@ def runs(tmp_path_factory):
             data_path=str(path), data_format="edgelist", num_devices=1,
             max_iter=5, outlier_method="both", lof_k=LOF_K, lof_impl="xla",
         ))
-    port = run_pipeline(PipelineConfig(
-        data_path=str(path), data_format="edgelist", max_iter=5,
-        outlier_method="both", lof_k=LOF_K, lof_impl="exact", device="cpu",
-    ))
+        mp.setattr(driver, "load_edge_list", functools.partial(load_edge_list, use_native=False))
+        port = run_pipeline(PipelineConfig(
+            data_path=str(path), data_format="edgelist", max_iter=5,
+            outlier_method="both", lof_k=LOF_K, lof_impl="exact", device="cpu",
+        ))
     # ingestion renumbers vertices by first appearance; names carry the
     # generator's ids
     orig = port.edge_table.names.astype(np.int64)
@@ -105,8 +110,9 @@ def test_metrics_records(runs):
         assert phases[phase] >= 0
 
 
-def test_cli_runs_on_the_cpu(runs, capsys):
+def test_cli_runs_on_the_cpu(runs, capsys, monkeypatch):
     _, port, _, path = runs
+    monkeypatch.setattr(driver, "load_edge_list", functools.partial(load_edge_list, use_native=False))
     cfg = parse_args(["--data-path", path, "--data-format", "edgelist",
                       "--lof-impl", "exact", "--lof-k", str(LOF_K), "--device", "cpu"])
     assert cfg.device == "cpu" and cfg.lof_impl == "exact" and cfg.max_iter == 5
@@ -118,16 +124,26 @@ def test_cli_runs_on_the_cpu(runs, capsys):
 
 def test_auto_lof_raises_at_ivf_scale(runs, monkeypatch):
     # "auto" resolves to IVF from the crossover (2^17 points; lowered here
-    # to the test graph's size); the port has no IVF index and never
-    # switches to exact on its own
+    # to the test graph's size). It raised while the port had no IVF
+    # index; now the index runs, and a guard that sends it to the exact
+    # kNN says so with a warning and a record, never quietly
+    import warnings
+
     from graphmine_tpu_torch.ops import lof
 
     _, port, _, path = runs
     monkeypatch.setattr(lof, "LOF_IVF_MIN_POINTS", port.graph.num_vertices)
     cfg = PipelineConfig(data_path=path, max_iter=0, outlier_method="lof",
                          lof_impl="auto", device="cpu", wedge_budget=0)
-    with pytest.raises(NotImplementedError, match="IVF"):
-        run_pipeline(cfg)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        res = run_pipeline(cfg)
+    m = res.metrics
+    assert [r["impl"] for r in m.of_phase("impl_selected") if r["op"] == "lof_knn"] == ["ivf"]
+    guard_warnings = [w for w in caught if "ivf_knn guard" in str(w.message)]
+    assert len(m.of_phase("ivf_index")) + len(m.of_phase("ivf_fallback")) == 1
+    assert len(guard_warnings) == len(m.of_phase("ivf_fallback"))
+    assert np.isfinite(res.lof).all() and res.lof.shape == (port.graph.num_vertices,)
 
 
 def test_config_rejects_what_waits():
@@ -135,3 +151,112 @@ def test_config_rejects_what_waits():
         PipelineConfig(data_format="parquet").validate()
     with pytest.raises(ValueError, match="lof_impl"):
         PipelineConfig(lof_impl="xla").validate()
+
+
+# ---- the JAX package's default pipeline: native ingest, IVF LOF --------
+#
+# Both packages run their default config on an edge list, each through
+# its own native parser (ids in the same line-by-line order), with the
+# IVF crossover lowered to 2,048 points on both (GRAPHMINE_LOF_IVF_MIN_N)
+# so that "auto" takes the IVF index at this CPU size, and lof_k=32: at
+# 4,096 vertices the default k=128 exceeds every k-means cluster, and the
+# k_unfillable guard would send both to the exact kNN. The weighted case
+# reads a third column of quarter weights (sums exact in float32).
+# Labels and flags must be equal. LOF agrees to rtol 1e-4 on 99.9% of
+# vertices and to 1e-2 on all: the kNN distances round differently in the
+# JAX matrix product and the port's feature-by-feature sums, and one
+# vertex of the weighted graph (2.1e-3) sits on a near-tie of its
+# neighbour list that rounds apart; the rest agree within 1.1e-6.
+
+DEFAULT_LOF_K = 32
+
+
+@pytest.fixture(scope="module", params=["unweighted", "weighted"])
+def default_runs(request, tmp_path_factory):
+    import subprocess
+    from pathlib import Path
+
+    if not jnative.available():
+        subprocess.run(["make", "-C", str(Path(__file__).resolve().parent.parent / "native")],
+                       check=True, capture_output=True)
+        jnative._LIB_TRIED = False  # probe again after the build
+    assert jnative.available()
+    src, dst, is_anomaly, _ = datasets.planted_anomaly_graph(4096, 60_000, seed=9)
+    weighted = request.param == "weighted"
+    path = tmp_path_factory.mktemp("default") / "edges.txt"
+    cols = [src, dst]
+    if weighted:
+        cols.append(np.random.default_rng(7).integers(1, 16, len(src)) / 4)
+    np.savetxt(path, np.stack(cols, axis=1), fmt=["%d", "%d", "%.2f"][:len(cols)])
+    wcol = 2 if weighted else None
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("GRAPHMINE_LOF_IVF_MIN_N", "2048")
+        ref = jrun_pipeline(JPipelineConfig(
+            data_path=str(path), data_format="edgelist", num_devices=1,
+            lof_k=DEFAULT_LOF_K, edge_weight_col=wcol,
+        ))
+        port = run_pipeline(PipelineConfig(data_path=str(path), lof_k=DEFAULT_LOF_K,
+                                           edge_weight_col=wcol, device="cpu"))
+    return ref, port, weighted
+
+
+def test_default_config_labels_and_flags_equal(default_runs):
+    ref, port, weighted = default_runs
+    assert (port.graph.msg_weight is not None) == weighted
+    np.testing.assert_array_equal(port.edge_table.names, ref.edge_table.names)
+    np.testing.assert_array_equal(port.edge_table.src, ref.edge_table.src)
+    np.testing.assert_array_equal(port.labels, np.asarray(ref.labels))
+    assert port.num_communities == ref.num_communities
+    np.testing.assert_array_equal(port.outliers.outlier_vertices,
+                                  ref.outliers.outlier_vertices)
+
+
+def test_default_config_lof_agrees(default_runs):
+    ref, port, _ = default_runs
+    ref_lof = np.asarray(ref.lof)
+    assert np.isfinite(port.lof).all() and port.lof.shape == ref_lof.shape
+    rel = np.abs(port.lof - ref_lof) / np.abs(ref_lof)
+    assert (rel <= 1e-4).mean() >= 0.999 and rel.max() <= 1e-2, rel.max()
+
+
+def test_default_config_takes_ivf_and_records_quarantine(default_runs):
+    ref, port, weighted = default_runs
+    jrecords = [r for r in ref.metrics.records if r["phase"] in ("impl_selected", "quarantine")]
+    for m in (port.metrics.records, jrecords):
+        assert [r["impl"] for r in m if r["phase"] == "impl_selected"
+                and r.get("op") == "lof_knn"] == ["ivf"]
+    (q,) = port.metrics.of_phase("quarantine")
+    (jq,) = [r for r in jrecords if r["phase"] == "quarantine"]
+    keys = ("bad_rows", "nan_weights") if weighted else ("bad_rows",)
+    assert {k: q[k] for k in keys} == {k: jq[k] for k in keys} == dict.fromkeys(keys, 0)
+    assert port.metrics.of_phase("ivf_index") and not port.metrics.of_phase("ivf_fallback")
+
+
+def test_config_parses_weight_col_and_quarantine():
+    cfg = parse_args(["--data-path", "x.txt", "--edge-weight-col", "2", "--device", "cpu"])
+    assert cfg.edge_weight_col == 2 and cfg.quarantine_inputs and cfg.lof_impl == "auto"
+    cfg = parse_args(["--data-path", "x.txt", "--no-quarantine-inputs"])
+    assert cfg.edge_weight_col is None and not cfg.quarantine_inputs
+    with pytest.raises(ValueError, match="edge_weight_col"):
+        PipelineConfig(edge_weight_col=1).validate()
+    # the JAX package's defaults for the fields both have
+    ref, port = JPipelineConfig(), PipelineConfig()
+    for name in ("edge_weight_col", "quarantine_inputs", "max_iter", "outlier_method",
+                 "sub_max_iter", "decile", "lof_k", "lof_impl"):
+        assert getattr(port, name) == getattr(ref, name), name
+
+
+def test_quarantine_record_counts_set_aside_rows(tmp_path):
+    path = tmp_path / "dirty.txt"
+    rows = [f"{i} {(i * 7) % 50} {1 + i % 4}" for i in range(300)]
+    rows[10] = "3 4 nan"
+    rows[20] = "5"
+    path.write_text("\n".join(rows) + "\n")
+    res = run_pipeline(PipelineConfig(data_path=str(path), edge_weight_col=2, lof_k=8,
+                                      device="cpu"))
+    (q,) = res.metrics.of_phase("quarantine")
+    assert (q["bad_rows"], q["nan_weights"]) == (1, 1)
+    assert res.graph.num_edges == 298 and res.graph.msg_weight is not None
+    with pytest.raises(ValueError):
+        run_pipeline(PipelineConfig(data_path=str(path), edge_weight_col=2, lof_k=8,
+                                    quarantine_inputs=False, device="cpu"))
