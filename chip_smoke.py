@@ -14,52 +14,67 @@ In order, and failing on the first phase that fails:
    ``graphmine_tpu_torch/csrc/knn_topk.cu`` (``nvcc``) and the edge-list
    parser from ``csrc/graph_builder.cpp`` (the host C++ compiler), and
    prints both build times on the ``build_seconds`` line;
-3. holds the kernel against its plain PyTorch version on the card, on
-   tie-free normal clouds and on clouds of points on the integer grid
-   [0, 4)^F, full of exact distance ties (one of 4,096 points and, in the
-   full run, one at the main path's shape, 262,144 x 8): kNN indices
-   equal, distances within rtol 1e-5 / atol 1e-5, rows ascending, self
+3. holds the kernel against its plain PyTorch version on the card: the
+   fast instance (F <= 8, k <= 128) on tie-free normal clouds and on clouds
+   of points on the integer grid [0, 4)^F, full of exact distance ties (one
+   of 4,096 points and, in the full run, one at the main path's shape,
+   262,144 x 8); the general instance at (4096, 8, 200), (4096, 8, 1024),
+   (20000, 12, 64), (2000, 33, 300), on a [0, 4)^16 grid at k = 256, and at
+   (4096, 8, 2000), whose keys live in device scratch: distances bit-equal
+   (max_abs_err 0), kNN indices equal, ties included, rows ascending, self
    excluded;
 4. runs the port's pipeline on the card and on the CPU on small planted
    graphs (4,096 vertices): unweighted with the exact kNN, with edge
-   weights in quarters (sums exact in float32) and with the IVF kNN: labels
-   and recursive-LPA flags equal, features within rtol 1e-5 / atol 1e-6,
-   LOF within rtol 1e-4 on 99.9% of vertices and 1e-2 on all (the
-   features' last bits differ between the card's and the CPU's math
-   libraries, and LOF amplifies a near-tie that rounds apart), and the IVF
+   weights in quarters (sums exact in float32), with the IVF kNN, from a
+   parquet file, with the exact kNN at lof_k = 200 (the kernel's general
+   instance, its launch counts set to 0 before and read after), and with a
+   snapshot publish: labels and recursive-LPA flags equal, CC labels
+   equal, features within rtol 1e-5 / atol 1e-6, LOF within rtol 1e-4 on
+   99.9% of vertices and 1e-2 on all (the features' last bits differ
+   between the card's and the CPU's math libraries, and LOF amplifies a
+   near-tie that rounds apart), the published store loaded back through
+   the port's ``SnapshotStore`` under the graph's fingerprint, and the IVF
    run twice on the card bit-equal;
-5. drives the main path, the JAX package's default pipeline:
-   ``run_pipeline`` on an edge list of
-   ``planted_anomaly_graph(1 << 18, 25_000_000, seed=9)`` (the JAX
-   package's e2e bench size) with ``max_iter=5``, ``outlier_method="both"``,
-   ``lof_k=128``, ``lof_impl="auto"`` (the IVF index at this size), native
-   ingest with quarantine on, the launch counts set to 0 just before and
-   read just after; prints the ``main_path`` line with the resolved LOF
-   impl, any ``ivf_fallback`` and the ``quarantine`` record;
-5b. drives the weighted exact path: the same graph with a third column of
-   weights ``default_rng(7).integers(1, 16, E) / 4``, ``edge_weight_col=2``
-   and ``lof_impl="exact"``, counts reset and read the same way; prints the
+5. drives the main path, the JAX package's default pipeline on the JAX
+   e2e tier's input: ``run_pipeline`` on a parquet file of
+   ``planted_anomaly_graph(1 << 18, 25_000_000, seed=9)`` written as
+   ``bench.py`` writes it (dictionary-encoded ``_c1``/``_c2`` string
+   columns of ``d<id>.example`` names) with the default config
+   (``max_iter=5``, ``outlier_method="both"``, ``lof_k=128``,
+   ``lof_impl="auto"``: the IVF index at this size), ``batch_rows=4_000_000``
+   and ``snapshot_out`` in the work directory, the launch counts set to 0
+   just before and read just after; prints the ``main_path`` line with the
+   resolved LOF impl, any ``ivf_fallback``, the ``quarantine`` record, the
+   CC count and giant component, the publish's seconds and bytes and the
+   ``canary_score`` record (its probe runs ``knn_topk``: launches >= 1),
+   after loading the store back under the graph's fingerprint;
+5b. drives the weighted exact path on an edge list (native ingest): the
+   same graph with a third column of weights
+   ``default_rng(7).integers(1, 16, E) / 4``, ``edge_weight_col=2`` and
+   ``lof_impl="exact"``, counts reset and read the same way; prints the
    ``weighted_path`` line (``launches.knn_topk`` >= 1);
-6. holds the kernel against its plain version at the shape 5b gave it (the
-   pipeline's own feature matrix, whose duplicate rows tie; indices equal
-   there too), times the kernel, the plain version and one library call
-   (``cdist`` + ``topk``) with CUDA events, and prints the ``kernels`` line,
-   with the operations bound, then the unfused floor on a line of its own;
-   then holds the IVF kNN of phase 5's features and of clustered clouds
-   with planted outliers (262,144 x 8 at k = 128, and the JAX package's
-   gate cloud, 20,000 x 8 at k = 32) against the kernel's exact kNN:
-   |AUROC(IVF LOF) - AUROC(exact LOF)| <= 0.005 and the same indices with
-   TF32 allowed on all three, recall >= 0.999 on the gate cloud (the
-   recall at k = 128 is reported); prints the ``ivf`` line;
+6. holds the fast instance against its plain version at the shape 5b
+   gave it (the pipeline's own feature matrix, whose duplicate rows tie;
+   indices equal there too) and the general instance on normal clouds at
+   (65536, 8, 256) and (65536, 16, 128), times each instance, the plain
+   version and one library call (``cdist`` + ``topk``) with CUDA events, and
+   prints the ``kernels`` line, with the operations bound, then the
+   unfused floors on a line of their own; then holds the IVF kNN of phase
+   5's features and of clustered clouds with planted outliers (262,144 x 8
+   at k = 128, and the JAX package's gate cloud, 20,000 x 8 at k = 32)
+   against the kernel's exact kNN: |AUROC(IVF LOF) - AUROC(exact LOF)| <=
+   0.005 and the same indices with TF32 allowed on all three, recall >=
+   0.999 on the gate cloud (the recall at k = 128 is reported); prints the
+   ``ivf`` line;
 7. prints the last line, ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only`` skips the pipelines: after phase 3 it holds and times
-the kernel at the main path's shape (262,144 x 8, k = 128) on a normal
-cloud (the ``kernels`` entry, with its plain and library times), on the
-[0, 4)^8 grid cloud and on a constant cloud (every distance 0, so each
+the fast instance at the main path's shape (262,144 x 8, k = 128) on a
+normal cloud (the ``kernels`` entry, with its plain and library times), on
+the [0, 4)^8 grid cloud and on a constant cloud (every distance 0, so each
 row inserts only its first k candidates: the kernel's time with next to no
-top-k work), then prints the ``kernels`` line, the floor line and the last
-line.
+top-k work), and the general instance at phase 6's shapes, then prints the
+``kernels`` line, the floor line and the last line.
 
 It exits non-zero, printing no result, where CUDA is absent or where the
 port's package is not beside this file.
@@ -88,7 +103,15 @@ PARITY_CASES = ((130, 4, 3), (513, 3, 20), (2000, 5, 50), (4096, 8, 8), (4096, 8
                 (65536, 8, 128))
 TIED_CASE = (4096, 8, 128)  # integer points in [0, 4)^8: most distances tie
 FULL_SHAPE = (V_MAIN, 8, LOF_K)  # the kNN's shape on the main path
-RTOL = ATOL = 1e-5
+# The general instance (F > 8 or k > 128): normal clouds, a [0, 4)^16 grid
+# at k = 256, and one case whose keys exceed shared memory.
+GENERAL_CASES = ((4096, 8, 200), (4096, 8, 1024), (20000, 12, 64), (2000, 33, 300))
+GENERAL_TIED_CASE = (4096, 16, 256)
+GLOBAL_SCRATCH_CASE = (4096, 8, 2000)
+GENERAL_TIMED = ((65536, 8, 256), (65536, 16, 128))
+SMALL_LOF_K = 32
+WIDE_LOF_K = 200  # phase 4's exact run past the fast instance's k
+BATCH_ROWS = 4_000_000  # the JAX e2e tier's streaming batch
 # The IVF gates of the JAX package's LOF policy tests
 IVF_MIN_RECALL = 0.999
 IVF_MAX_DELTA_AUROC = 0.005
@@ -165,9 +188,10 @@ def require(cond, msg: str) -> None:
 def check_knn(pts, k: int, d_k, i_k, d_p, i_p) -> dict:
     """Hold the kernel's kNN (``d_k, i_k``) against the plain version's.
 
-    Distances must agree within RTOL/ATOL and every row must be ascending,
+    Distances must be bit-equal (max_abs_err 0) and every row ascending,
     in range and free of self. Indices must be equal, ties included: both
-    compute bit-equal distances and send ties to the smaller index."""
+    compute the same float32 operations in the same order and send ties
+    to the smaller index."""
     import torch
 
     n = pts.shape[0]
@@ -175,7 +199,8 @@ def check_knn(pts, k: int, d_k, i_k, d_p, i_p) -> dict:
     require(d_k.dtype == torch.float32 and i_k.dtype == torch.int32, "kernel output types")
     require(bool(torch.isfinite(d_k).all()), "kernel distances not finite")
     err = (d_k - d_p).abs()
-    require(bool((err <= ATOL + RTOL * d_p.abs()).all()), f"distances differ by {float(err.max())}")
+    require(torch.equal(d_k.view(torch.int32), d_p.view(torch.int32)),
+            f"distances differ by up to {float(err.max())}")
     require(bool((d_k[:, 1:] >= d_k[:, :-1]).all()), "kernel rows not ascending")
     require(bool(((i_k >= 0) & (i_k < n)).all()), "kernel index out of range")
     rows = torch.arange(n, device=pts.device)[:, None]
@@ -235,7 +260,7 @@ def library_knn(pts, k: int, row_tile: int = 4096):
 
 def hold(pts, k: int) -> dict:
     """The kernel held against its plain version on ``pts`` (see
-    :func:`check_knn`)."""
+    :func:`check_knn`), with the instance that ran."""
     import torch
 
     from graphmine_tpu_torch.kernels import knn_cuda
@@ -244,7 +269,9 @@ def hold(pts, k: int) -> dict:
     d_k, i_k = knn_cuda.knn_topk(pts, k)
     d_p, i_p = _tiled_knn(pts, k)
     torch.cuda.synchronize()
-    return check_knn(pts, k, d_k, i_k, d_p, i_p)
+    plan = knn_cuda.launch_plan(pts.shape[0], pts.shape[1], k)
+    return {**check_knn(pts, k, d_k, i_k, d_p, i_p), "instance": plan["instance"],
+            "topk": plan["topk"]}
 
 
 def kernel_ms(pts, k: int) -> float:
@@ -255,9 +282,9 @@ def kernel_ms(pts, k: int) -> float:
 
 
 def kernel_entry(pts, k: int, cloud: str, launches) -> dict:
-    """The ``kernels`` line's entry for ``knn_topk`` on ``pts``: parity, the
-    kernel's, the plain version's and the library call's times, and the
-    bound."""
+    """The ``kernels`` line's entry for ``knn_topk`` on ``pts``: the
+    instance, parity, the kernel's, the plain version's and the library
+    call's times, and the bound."""
     from graphmine_tpu_torch.ops.knn import _tiled_knn
 
     n, f = pts.shape
@@ -267,7 +294,8 @@ def kernel_entry(pts, k: int, cloud: str, launches) -> dict:
     library_ms = cuda_ms(lambda: library_knn(pts, k), reps=1)
     bound_ms, bound_by = knn_bound_ms(n, f, k)
     return {
-        "name": "knn_topk", "route": "cuda", "source": KNN_SOURCE, "replaces": KNN_REPLACES,
+        "name": "knn_topk", "instance": parity["instance"], "route": "cuda",
+        "source": KNN_SOURCE, "replaces": KNN_REPLACES,
         "cloud": cloud, "shape": {"n": n, "f": f, "k": k}, "launches": launches,
         "max_abs_err": parity["max_abs_err"], "index_mismatches": parity["index_mismatches"],
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -345,13 +373,56 @@ def blob_cloud(n: int, f: int = 8, seed: int = 42):
     return pts, is_out
 
 
+def floor_key(entry: dict) -> str:
+    """``"<name> <instance> n=.. f=.. k=.."``: an entry's key on the floor
+    line."""
+    sh = entry["shape"]
+    return f"{entry['name']} {entry['instance']} n={sh['n']} f={sh['f']} k={sh['k']}"
+
+
 def print_kernels(entries: list) -> None:
-    """The ``kernels`` line, then each kernel's unfused floor (computed from
+    """The ``kernels`` line, then each entry's unfused floor (computed from
     its shape, not measured) on a line of its own."""
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"unfused_floor_ms": {
-        e["name"]: knn_unfused_floor_ms(e["shape"]["n"], e["shape"]["f"], e["shape"]["k"])
+        floor_key(e): knn_unfused_floor_ms(e["shape"]["n"], e["shape"]["f"], e["shape"]["k"])
         for e in entries}}), flush=True)
+
+
+def general_entries(launches) -> list:
+    """The ``kernels`` entries of the general instance at
+    :data:`GENERAL_TIMED` on seeded normal clouds; ``launches``: its count
+    in phase 4's lof_k = 200 run, or None."""
+    import torch
+
+    rng = np.random.default_rng(6)
+    out = []
+    for n, f, k in GENERAL_TIMED:
+        pts = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).cuda()
+        out.append(kernel_entry(pts, k, "normal", launches))
+        require(out[-1]["instance"] == "general", f"({n}, {f}, {k}) did not run the general instance")
+    return out
+
+
+def write_parquet(path: Path, src: np.ndarray, dst: np.ndarray, num_vertices: int) -> None:
+    """An outlinks parquet file as ``bench.py``'s e2e tier writes one:
+    ``_c1``/``_c2`` string columns of ``d<id:07d>.example`` names,
+    dictionary-encoded on disk."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    names = pa.array([f"d{i:07d}.example" for i in range(num_vertices)])
+    col = lambda ids: pa.DictionaryArray.from_arrays(pa.array(ids, pa.int32()),
+                                                     names).cast(pa.string())
+    pq.write_table(pa.table({"_c1": col(src), "_c2": col(dst)}), path)
+
+
+def generator_ids(names: np.ndarray) -> np.ndarray:
+    """The generator's vertex ids behind the loaded names: integers as
+    they are, ``d<id>.example`` parquet names by their digits."""
+    if len(names) and isinstance(names[0], str) and names[0].startswith("d"):
+        return np.array([int(s[1:8]) for s in names], np.int64)
+    return names.astype(np.int64)
 
 
 def main(argv=None) -> int:
@@ -397,10 +468,19 @@ def main(argv=None) -> int:
     if not args.kernels_only:  # --kernels-only holds this one in its own phase
         n, f, k = FULL_SHAPE
         clouds.append((rng.integers(0, 4, size=(n, f)), k, "grid"))
+    clouds += [(rng.normal(size=(n, f)), k, "normal") for n, f, k in GENERAL_CASES]
+    n, f, k = GENERAL_TIED_CASE
+    clouds.append((rng.integers(0, 4, size=(n, f)), k, "grid"))
+    n, f, k = GLOBAL_SCRATCH_CASE
+    clouds.append((rng.normal(size=(n, f)), k, "normal"))
     for cloud, k, kind in clouds:
         pts = torch.from_numpy(cloud.astype(np.float32)).to(dev)
         res = hold(pts, k)
-        log(f"knn_topk parity {kind} n={cloud.shape[0]} f={cloud.shape[1]} k={k}: {res}")
+        n, f = cloud.shape
+        require(res["instance"] == ("fast" if f <= 8 and k <= 128 else "general"),
+                f"({n}, {f}, {k}) ran the {res['instance']} instance")
+        log(f"knn_topk parity {kind} n={n} f={f} k={k}: {res}")
+    require(res["topk"] == "global", "the last parity case did not keep its keys in scratch")
     del pts
 
     if args.kernels_only:
@@ -415,7 +495,8 @@ def main(argv=None) -> int:
             parity, ms = hold(pts, k), kernel_ms(pts, k)
             log(f"knn_topk on the {kind} cloud n={n} f={f} k={k}: {parity}, {ms:.3f} ms")
             entry["other_clouds"].append({"cloud": kind, "ms": ms, **parity})
-        print_kernels([entry])
+        del full, pts
+        print_kernels([entry] + general_entries(launches=None))
     else:
         work = ROOT / "build" / "chip_smoke"
         shutil.rmtree(work, ignore_errors=True)
@@ -433,25 +514,62 @@ def main(argv=None) -> int:
     return 0
 
 
-def small_pipelines(work: Path) -> None:
+def reset_launches() -> None:
+    """Set every launch count to 0."""
+    from graphmine_tpu_torch.kernels import knn_cuda
+
+    knn_cuda.launches = 0
+    knn_cuda.instance_launches = dict.fromkeys(knn_cuda.instance_launches, 0)
+
+
+def read_launches() -> dict:
+    """The launch counts since :func:`reset_launches`: ``knn_topk`` (all
+    instances) and one count per instance."""
+    from graphmine_tpu_torch.kernels import knn_cuda
+
+    return {"knn_topk": knn_cuda.launches,
+            **{f"knn_topk_{name}": n for name, n in knn_cuda.instance_launches.items()}}
+
+
+def small_pipelines(work: Path) -> dict:
     """Phase 4: the pipeline on the card against the CPU on 4,096-vertex
-    planted graphs: exact kNN, quarter weights, and the IVF index."""
+    planted graphs: exact kNN, quarter weights, the IVF index, parquet
+    input, the exact kNN at lof_k = 200 and a snapshot publish. Returns the
+    launch counts of the lof_k = 200 run on the card."""
     import torch
 
     from graphmine_tpu_torch import datasets
     from graphmine_tpu_torch.pipeline import PipelineConfig, run_pipeline
+    from graphmine_tpu_torch.pipeline.checkpoint import graph_fingerprint
+    from graphmine_tpu_torch.serve.snapshot import SnapshotStore
 
-    src, dst, _, _ = datasets.planted_anomaly_graph(4096, 60_000, seed=SEED_MAIN)
-    small = work / "small.txt"
+    v = 4096
+    src, dst, _, _ = datasets.planted_anomaly_graph(v, 60_000, seed=SEED_MAIN)
+    small, small_pq = work / "small.txt", work / "small.parquet"
     write_edge_list(small, src, dst, np.random.default_rng(7).integers(1, 16, len(src)) / 4)
-    cases = {"exact": dict(lof_impl="exact"),
-             "weighted": dict(lof_impl="exact", edge_weight_col=2),
-             "ivf": dict(lof_impl="ivf")}
+    write_parquet(small_pq, src, dst, v)
+    edges = dict(data_path=str(small), data_format="edgelist")
+    cases = {"exact": dict(edges, lof_impl="exact"),
+             "weighted": dict(edges, lof_impl="exact", edge_weight_col=2),
+             "ivf": dict(edges, lof_impl="ivf"),
+             "parquet": dict(data_path=str(small_pq), batch_rows=20_000),
+             "wide_k": dict(edges, lof_impl="exact", lof_k=WIDE_LOF_K),
+             "snapshot": dict(edges, lof_impl="exact", snapshot_out="store")}
+    wide_launches = None
     for case, kw in cases.items():
-        runs = {d: run_pipeline(PipelineConfig(data_path=str(small), outlier_method="both",
-                                               lof_k=32, device=d, **kw))
-                for d in ("cuda", "cpu")}
+        runs = {}
+        for d in ("cuda", "cpu"):
+            cfg = {"outlier_method": "both", "lof_k": SMALL_LOF_K, "device": d, **kw}
+            if "snapshot_out" in kw:
+                cfg["snapshot_out"] = str(work / f"store_{d}")
+            reset_launches()
+            runs[d] = run_pipeline(PipelineConfig(**cfg))
+            if d == "cuda":
+                torch.cuda.synchronize()
+                if case == "wide_k":
+                    wide_launches = read_launches()
         gpu, cpu = runs["cuda"], runs["cpu"]
+        require(np.array_equal(gpu.edge_table.names, cpu.edge_table.names), f"{case}: names")
         require(np.array_equal(gpu.labels, cpu.labels), f"{case}: LPA labels differ from the CPU's")
         require(np.array_equal(gpu.outliers.outlier_vertices, cpu.outliers.outlier_vertices),
                 f"{case}: recursive-LPA flags differ from the CPU's")
@@ -463,14 +581,29 @@ def small_pipelines(work: Path) -> None:
         require((rel <= 1e-4).mean() >= 0.999 and rel.max() <= 1e-2,
                 f"{case}: LOF differs from the CPU's beyond rtol 1e-4 for 0.1% of vertices")
         require((gpu.graph.msg_weight is not None) == ("edge_weight_col" in kw), f"{case}: weights")
+        if case == "snapshot":
+            fp = graph_fingerprint(gpu.edge_table.src, gpu.edge_table.dst)
+            snaps = {d: SnapshotStore(str(work / f"store_{d}")).load(fingerprint=fp)
+                     for d in ("cuda", "cpu")}
+            require(np.array_equal(snaps["cuda"]["cc_labels"], snaps["cpu"]["cc_labels"]),
+                    "snapshot: CC labels differ from the CPU's")
+            require(np.array_equal(snaps["cuda"]["labels"], gpu.labels), "snapshot: labels")
+            require(gpu.metrics.of_phase("cc_summary") and
+                    gpu.metrics.of_phase("canary_score"), "snapshot: records")
+            log(f"small pipeline, snapshot: {gpu.metrics.of_phase('cc_summary')[0]}, "
+                f"store version {snaps['cuda'].version}")
         log(f"small pipeline, {case}: card == CPU ({gpu.num_communities} communities)")
+    require(wide_launches["knn_topk_general"] >= 1,
+            f"the lof_k={WIDE_LOF_K} run never launched the general instance: {wide_launches}")
+    log(f"lof_k={WIDE_LOF_K} run launches: {wide_launches}")
     from graphmine_tpu_torch.ops.ann import ivf_knn
 
-    feats = gpu.features
+    feats = runs["cuda"].features
     first, again = ivf_knn(feats, 32), ivf_knn(feats, 32)
     torch.cuda.synchronize()
     require(torch.equal(first[0], again[0]) and torch.equal(first[1], again[1]),
             "two IVF runs on the card differ")
+    return wide_launches
 
 
 def drive(cfg, label: str) -> tuple:
@@ -478,16 +611,15 @@ def drive(cfg, label: str) -> tuple:
     read just after: ``(result, wall seconds, launches, peak bytes)``."""
     import torch
 
-    from graphmine_tpu_torch.kernels import knn_cuda
     from graphmine_tpu_torch.pipeline import run_pipeline
 
     torch.cuda.reset_peak_memory_stats()
-    knn_cuda.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     res = run_pipeline(cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"knn_topk": knn_cuda.launches}
+    launches = read_launches()
     log(f"{label}: {wall:.1f} s, launches {launches}")
     return res, wall, launches, torch.cuda.max_memory_allocated()
 
@@ -509,10 +641,11 @@ def path_summary(res, is_anomaly, wall: float, launches: dict, peak: int) -> dic
     flagged = int(res.outliers.outlier_vertices.sum())
     require(flagged > 0 and len(res.outliers.thresholds) >= 10,
             "recursive LPA populated no bottom decile")
-    lof_auroc = auroc(res.lof, is_anomaly[res.edge_table.names.astype(np.int64)])
+    lof_auroc = auroc(res.lof, is_anomaly[generator_ids(res.edge_table.names)])
     require(lof_auroc > 0.5, f"LOF AUROC {lof_auroc} no better than chance")
     m = res.metrics
-    (lof_sel,) = [r for r in m.of_phase("impl_selected") if r["op"] == "lof_knn"]
+    # the pipeline's LOF comes first; a publish's canary probe adds its own
+    lof_sel = [r for r in m.of_phase("impl_selected") if r["op"] == "lof_knn"][0]
     return {
         "graph": f"planted_anomaly_graph({V_MAIN}, {E_MAIN}, seed={SEED_MAIN})",
         "wall_seconds": wall, "phase_seconds": m.phase_seconds(),
@@ -570,53 +703,98 @@ def ivf_entry(pts, is_outlier, cloud: str, k: int = LOF_K,
     return entry
 
 
+def publish_summary(res, store: Path) -> dict:
+    """Load the main path's store back under the graph's fingerprint,
+    check it against the run, and summarise the publish: CC count and
+    giant component, the publish's seconds and bytes, the store's version
+    and the ``canary_score`` record."""
+    from graphmine_tpu_torch.pipeline.checkpoint import graph_fingerprint
+    from graphmine_tpu_torch.serve.snapshot import SnapshotStore
+
+    m = res.metrics
+    t0 = time.perf_counter()
+    snap = SnapshotStore(str(store)).load(
+        fingerprint=graph_fingerprint(res.edge_table.src, res.edge_table.dst))
+    load_s = time.perf_counter() - t0
+    require(snap is not None and np.array_equal(snap["labels"], res.labels), "store labels")
+    require(np.array_equal(snap["lof"], res.lof), "store LOF")
+    cc = snap["cc_labels"]
+    v = res.graph.num_vertices
+    require(cc.shape == (v,) and (cc <= np.arange(v)).all() and (cc[cc] == cc).all(),
+            "CC labels are not each component's smallest vertex")
+    sizes = np.bincount(cc)
+    (cc_rec,) = m.of_phase("cc_summary")
+    require(cc_rec["components"] == int((sizes > 0).sum()) and cc_rec["largest"] == sizes.max(),
+            "cc_summary disagrees with the store")
+    (published,) = [r for r in m.of_phase("snapshot_publish") if "bytes" in r]
+    (canary,) = records(m, "canary_score")
+    require(canary["recall_at_k"] > 0, f"canary recall {canary['recall_at_k']}")
+    cc_plan = [r for r in records(m, "impl_selected") if r["op"] == "cc_superstep"]
+    return {"cc_components": cc_rec["components"], "cc_giant": cc_rec["largest"],
+            "cc_supersteps": cc_rec["iterations"], "cc_plan": cc_plan[0]["impl"],
+            "snapshot_publish_seconds": m.phase_seconds()["snapshot_publish"],
+            "store_write_seconds": published["seconds"], "store_bytes": published["bytes"],
+            "store_version": snap.version, "store_load_seconds": load_s,
+            "canary_score": canary}
+
+
 def run_main_path(work: Path) -> None:
     """Phases 4-6: small pipelines on the card against the CPU, the main
-    path, the weighted exact path, the kernel at its shape and the IVF kNN
-    against the exact one."""
+    path, the weighted exact path, the kernel at its shapes and the IVF
+    kNN against the exact one."""
     import torch
 
     from graphmine_tpu_torch import datasets
     from graphmine_tpu_torch.pipeline import PipelineConfig
 
     # ---- 4. the pipeline on the card against the CPU, small graphs ------
-    small_pipelines(work)
+    wide_launches = small_pipelines(work)
 
     # ---- 5. the main path: the JAX package's default pipeline ----------
     t0 = time.perf_counter()
     src, dst, is_anomaly, _ = datasets.planted_anomaly_graph(V_MAIN, E_MAIN, seed=SEED_MAIN)
-    edges, weighted = work / "edges.txt", work / "edges_weighted.txt"
-    write_edge_list(edges, src, dst)
+    edges_pq, weighted = work / "edges.parquet", work / "edges_weighted.txt"
+    write_parquet(edges_pq, src, dst, V_MAIN)
     write_edge_list(weighted, src, dst, np.random.default_rng(7).integers(1, 16, len(src)) / 4)
     gen_s = time.perf_counter() - t0
     del src, dst
-    log(f"main-path edge lists written in {gen_s:.1f} s")
+    log(f"main-path parquet file and weighted edge list written in {gen_s:.1f} s")
+    store = work / "store"
     res, wall, launches, peak = drive(
-        PipelineConfig(data_path=str(edges), max_iter=5, outlier_method="both",
-                       lof_k=LOF_K, device="cuda"), "main path")
+        PipelineConfig(data_path=str(edges_pq), batch_rows=BATCH_ROWS, max_iter=5,
+                       outlier_method="both", lof_k=LOF_K, snapshot_out=str(store),
+                       device="cuda"), "main path")
     summary = path_summary(res, is_anomaly, wall, launches, peak)
     require(summary["lof_impl"] == "ivf", "lof_impl='auto' did not resolve to IVF at this size")
-    print(json.dumps({"main_path": {**summary, "edge_list_seconds": gen_s}}), flush=True)
+    require(launches["knn_topk"] >= 1, "the main path's canary never launched knn_topk")
+    summary.update(publish_summary(res, store))
+    print(json.dumps({"main_path": {**summary, "data_format": "parquet",
+                                    "batch_rows": BATCH_ROWS, "input_write_seconds": gen_s}}),
+          flush=True)
+    main_launches = launches
     feats_main = res.features
-    orig_main = res.edge_table.names.astype(np.int64)
+    orig_main = generator_ids(res.edge_table.names)
     del res
 
-    # ---- 5b. the weighted exact path ------------------------------------
+    # ---- 5b. the weighted exact path, on the edge list -------------------
     res, wall, launches, peak = drive(
-        PipelineConfig(data_path=str(weighted), max_iter=5, outlier_method="both",
-                       lof_k=LOF_K, lof_impl="exact", edge_weight_col=2, device="cuda"),
+        PipelineConfig(data_path=str(weighted), data_format="edgelist", max_iter=5,
+                       outlier_method="both", lof_k=LOF_K, lof_impl="exact",
+                       edge_weight_col=2, device="cuda"),
         "weighted path")
-    for name, count in launches.items():
-        require(count > 0, f"the weighted exact path never launched {name}")
+    require(launches["knn_topk"] > 0, "the weighted exact path never launched knn_topk")
     print(json.dumps({"weighted_path": path_summary(res, is_anomaly, wall, launches, peak)}),
           flush=True)
     feats = res.features
     del res
 
     # ---- 6. the kernel at its path's shape; IVF against exact ------------
-    entry = kernel_entry(feats, LOF_K, "weighted_path_features", launches["knn_topk"])
-    print_kernels([entry])
+    # launches: the fast instance's count on the main path (the canary),
+    # the general instance's in phase 4's lof_k = 200 run
+    entry = kernel_entry(feats, LOF_K, "weighted_path_features", main_launches["knn_topk_fast"])
+    entry["weighted_path_launches"] = launches["knn_topk_fast"]
     del feats
+    print_kernels([entry] + general_entries(wide_launches["knn_topk_general"]))
     # The JAX package gates the index's recall at 0.999 on its LOF policy
     # tests' cloud (20,000 x 8, k = 32); at the main path's size, k = 128,
     # the index (its algorithm with its defaults) measured recall 0.998 on

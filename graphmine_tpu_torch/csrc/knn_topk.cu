@@ -74,10 +74,36 @@
 //    distance than k points already seen, or the same distance and a
 //    larger index, so it is not among the k nearest.
 //
+// The general instance (any F >= 1, any 0 < k < N): the fast instance's
+// shared memory and registers are sized for F <= 8 and k <= 128 (a ring of
+// 4 x 18 KB tiles beside 96 rows x 160 keys is 197 KB of the 227 KB a block
+// may have; kMaxK/32 keys a lane in registers while merging). The general
+// instance keeps the contract (the same 2F+3 operations in the same order,
+// keys of distance bits over index, ties to the smaller index, the self
+// pair dropped on the rare path) and only has to be right:
+// - A prologue (pack_general_kernel) computes the norms in _sq_norms' order
+//   and copies the points into rows of F rounded up to 8, zero-padded. The
+//   cross term runs over those 8-feature chunks, carrying the sum across
+//   chunks in feature order; the padding adds exact zeros.
+// - No ring: each lane reads its reference point's chunk and the warp's
+//   query rows' chunk (one address for the warp, a broadcast) straight
+//   from the packed copy, through L1 and L2; there is no tile padding, so
+//   points past N are masked by `valid`.
+// - 16 warps of R query rows (R = 6, 3 or 1, a template parameter). Each
+//   row keeps kcap = k rounded up to 32 sorted keys: in shared memory while
+//   16 R (kcap + 32) keys fit in 227 KB, else in device scratch that the
+//   wrapper allocates (one row a warp). The wrapper picks R and the place
+//   (kernels/knn_cuda.py::launch_plan) and passes them here.
+// - merge_general walks the sorted keys in chunks of 32 from the top down
+//   (every key moves up, so no chunk overwrites one not yet read), where
+//   merge_buffer holds all kMaxK keys in registers.
+//
 // C interface (bound with ctypes): knn_topk_scratch_bytes gives the size
-// of the packed copy the caller allocates; knn_topk_f32 launches the
-// prologue and the main kernel on the given stream and returns the first
-// launch error (cudaGetLastError()), 0 if none.
+// of the packed copy the caller allocates; knn_topk_f32 launches the fast
+// instance's prologue and main kernel on the given stream, and
+// knn_general_f32 the general instance's; both return the first launch
+// error (cudaGetLastError()), 0 if none. knn_general_smem_bytes gives the
+// general kernel's dynamic shared memory for a plan.
 
 #include <cuda_runtime.h>
 
@@ -354,6 +380,198 @@ knn_topk_kernel(const float* __restrict__ pts, const float* __restrict__ tiles, 
   }
 }
 
+// ---- the general instance (see the note at the top) ----------------------
+
+constexpr int kGenWarps = 16;
+constexpr int kGenThreads = kGenWarps * 32;
+constexpr int kChunk = 8;  // features per step of the cross-term sum
+
+size_t general_smem_bytes(int rows_per_warp, int kcap, bool global_topk) {
+  return size_t(kGenWarps) * rows_per_warp * (kBuf + (global_topk ? 0 : kcap)) *
+         sizeof(uint64_t);
+}
+
+// Norms in _sq_norms' order and the points copied into rows of fpad
+// (F rounded up to 8) floats, zero-padded.
+__global__ void pack_general_kernel(const float* __restrict__ pts, int n, int f, int fpad,
+                                    float* __restrict__ packed, float* __restrict__ norms) {
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  const float* p = pts + (size_t)j * f;
+  float* out = packed + (size_t)j * fpad;
+  float s = __fmul_rn(p[0], p[0]);
+  out[0] = p[0];
+  for (int c = 1; c < f; ++c) {
+    const float x = p[c];
+    out[c] = x;
+    s = __fadd_rn(s, __fmul_rn(x, x));
+  }
+  for (int c = f; c < fpad; ++c) out[c] = 0.f;
+  norms[j] = s;
+}
+
+// merge_buffer for any kcap (a multiple of 32): the same sort and ranks,
+// then the sorted keys are walked in chunks of 32 from the top down, each
+// chunk read whole before it is written; keys below the smallest
+// candidate's rank stay in place. `topk` may point to shared or global
+// memory.
+__device__ float merge_general(uint64_t* topk, const uint64_t* buf, int cnt, int k, int kcap,
+                               int lane) {
+  __syncwarp();
+  uint64_t b = lane < cnt ? buf[lane] : kSentinelKey;
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const uint64_t o = __shfl_xor_sync(kFull, b, stride);
+      const bool keep_min = ((lane & stride) == 0) == ((lane & size) == 0);
+      b = (o < b) == keep_min ? o : b;
+    }
+  }
+  int rank = 0;  // keys below b
+  int top = 1;
+  while (top * 2 <= kcap) top *= 2;
+  for (int step = top; step >= 1; step >>= 1) {
+    if (rank + step <= kcap && topk[rank + step - 1] < b) rank += step;
+  }
+  const int rank_or_max = lane < cnt ? rank : kcap;
+  const int first = __shfl_sync(kFull, rank_or_max, 0);
+  const int last = __shfl_sync(kFull, rank_or_max, 31);
+  for (int base = kcap - 32; base >= (first / 32) * 32; base -= 32) {
+    const int p = base + lane;
+    const uint64_t key = topk[p];
+    int below = 0;  // candidates smaller than key p: those of rank <= p
+#pragma unroll
+    for (int step = 16; step >= 1; step >>= 1) {
+      if (__shfl_sync(kFull, rank_or_max, below + step - 1) <= p) below += step;
+    }
+    const int dest = p + (last <= p ? 32 : below);
+    __syncwarp();
+    if (dest < kcap) topk[dest] = key;
+    __syncwarp();
+  }
+  if (lane < cnt && lane + rank < kcap) topk[lane + rank] = b;
+  __syncwarp();
+  return __uint_as_float(static_cast<uint32_t>(topk[k - 1] >> 32));
+}
+
+__device__ __forceinline__ void load8(const float* p, float x[kChunk]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
+  x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
+}
+
+template <int R>
+__global__ void __launch_bounds__(kGenThreads, 1)
+knn_general_kernel(const float* __restrict__ packed, const float* __restrict__ norms, int n,
+                   int fpad, int k, int kcap, uint64_t* __restrict__ topk_global,
+                   float* __restrict__ out_d, int* __restrict__ out_i) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* buf_keys = reinterpret_cast<uint64_t*>(smem);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long row0 = ((long long)blockIdx.x * kGenWarps + warp) * R;
+  uint64_t* my_buf = buf_keys + warp * R * kBuf;
+  uint64_t* my_topk = topk_global != nullptr
+                          ? topk_global + (size_t)row0 * kcap
+                          : buf_keys + kGenWarps * R * kBuf + (size_t)warp * R * kcap;
+  for (int i = lane; i < R * kcap; i += 32) my_topk[i] = kSentinelKey;
+  __syncwarp();
+
+  const float inf = __int_as_float(0x7f800000);
+  const unsigned lanes_below = (1u << lane) - 1;
+  const int n_chunks = fpad / kChunk;
+  float q_sq[R];
+  float thr[R];
+  int cnt[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const bool real = row0 + r < n;
+    // a padded row reads the last real row and gets a threshold of -inf,
+    // so nothing passes
+    q_sq[r] = real ? norms[row0 + r] : 0.f;
+    thr[r] = real ? inf : -inf;
+    cnt[r] = 0;
+  }
+
+  for (long long base = 0; base < n; base += 32) {
+    const long long j = base + lane;
+    const bool valid = j < n;
+    const float* pj = packed + (size_t)(valid ? j : 0) * fpad;
+    float d2[R] = {};
+    for (int c = 0; c < n_chunks; ++c) {
+      float x[kChunk];
+      load8(pj + c * kChunk, x);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const long long row = row0 + r < n ? row0 + r : n - 1;
+        float q[kChunk];
+        load8(packed + (size_t)row * fpad + c * kChunk, q);
+        float s = c == 0 ? __fmul_rn(q[0], x[0]) : __fadd_rn(d2[r], __fmul_rn(q[0], x[0]));
+#pragma unroll
+        for (int e = 1; e < kChunk; ++e) s = __fadd_rn(s, __fmul_rn(q[e], x[e]));
+        d2[r] = s;
+      }
+    }
+    const float c_sq = valid ? norms[j] : inf;
+    bool hit = false;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      d2[r] = __fadd_rn(__fsub_rn(q_sq[r], __fmul_rn(2.f, d2[r])), c_sq);
+      hit |= valid && !(d2[r] >= thr[r]);
+    }
+    if (__any_sync(kFull, hit)) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float nd = d2[r] > 0.f ? d2[r] : 0.f;  // the plain version's clamp
+        bool pass = valid && nd < thr[r] && j != row0 + r;
+        unsigned mask = __ballot_sync(kFull, pass);
+        if (!mask) continue;
+        uint64_t* row_buf = my_buf + r * kBuf;
+        if (cnt[r] + __popc(mask) > kBuf) {
+          thr[r] = merge_general(my_topk + (size_t)r * kcap, row_buf, cnt[r], k, kcap, lane);
+          cnt[r] = 0;
+          pass = pass && nd < thr[r];
+          mask = __ballot_sync(kFull, pass);
+        }
+        if (pass) {
+          row_buf[cnt[r] + __popc(mask & lanes_below)] =
+              (uint64_t(__float_as_uint(nd)) << 32) | uint32_t(j);
+        }
+        cnt[r] += __popc(mask);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const long long row = row0 + r;
+    if (row >= n) continue;
+    uint64_t* row_topk = my_topk + (size_t)r * kcap;
+    if (cnt[r] > 0) merge_general(row_topk, my_buf + r * kBuf, cnt[r], k, kcap, lane);
+    for (int p = lane; p < k; p += 32) {
+      const uint64_t key = row_topk[p];
+      out_d[(size_t)row * k + p] = __uint_as_float(static_cast<uint32_t>(key >> 32));
+      out_i[(size_t)row * k + p] = static_cast<int>(static_cast<uint32_t>(key));
+    }
+  }
+}
+
+template <int R>
+int launch_general(const float* packed, const float* norms, int n, int fpad, int k, int kcap,
+                   uint64_t* topk_global, float* out_d, int* out_i, size_t smem,
+                   cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(knn_general_kernel<R>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long rows_per_block = kGenWarps * R;
+  const unsigned blocks = static_cast<unsigned>((n + rows_per_block - 1) / rows_per_block);
+  knn_general_kernel<R><<<blocks, kGenThreads, smem, s>>>(packed, norms, n, fpad, k, kcap,
+                                                          topk_global, out_d, out_i);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Bytes of the packed copy (tiles of points and norms) knn_topk_f32 takes
@@ -376,4 +594,39 @@ extern "C" int knn_topk_f32(const float* points, int n, int f, int k, float* out
   knn_topk_kernel<<<(n + kRowsPerBlock - 1) / kRowsPerBlock, kThreads, kSmemBytes, s>>>(
       points, scratch, n, f, k, num_tiles(n), out_d, out_i);
   return static_cast<int>(cudaGetLastError());
+}
+
+// General instance (any f >= 1, 0 < k < n): rows_per_warp (6, 3 or 1) and
+// kcap (k rounded up to 32) from the wrapper's launch plan; topk_scratch
+// holds ceil(n / (16 rows_per_warp)) * 16 rows_per_warp * kcap keys, or is
+// null to keep the keys in shared memory; smem_bytes must be
+// knn_general_smem_bytes of the same plan. packed: n * fpad floats (f
+// rounded up to 8), norms: n floats, both 16-byte aligned.
+extern "C" size_t knn_general_smem_bytes(int rows_per_warp, int kcap, int global_topk) {
+  return general_smem_bytes(rows_per_warp, kcap, global_topk != 0);
+}
+
+extern "C" int knn_general_f32(const float* points, int n, int f, int k, int rows_per_warp,
+                               int kcap, size_t smem_bytes, float* packed, float* norms,
+                               void* topk_scratch, float* out_d, int* out_i, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kcap < k || kcap % 32 != 0 || f < 1 || !(0 < k && k < n) ||
+      smem_bytes != general_smem_bytes(rows_per_warp, kcap, topk_scratch != nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int fpad = (f + kChunk - 1) / kChunk * kChunk;
+  pack_general_kernel<<<(n + 255) / 256, 256, 0, s>>>(points, n, f, fpad, packed, norms);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  uint64_t* topk = static_cast<uint64_t*>(topk_scratch);
+  switch (rows_per_warp) {
+    case 6:
+      return launch_general<6>(packed, norms, n, fpad, k, kcap, topk, out_d, out_i, smem_bytes, s);
+    case 3:
+      return launch_general<3>(packed, norms, n, fpad, k, kcap, topk, out_d, out_i, smem_bytes, s);
+    case 1:
+      return launch_general<1>(packed, norms, n, fpad, k, kcap, topk, out_d, out_i, smem_bytes, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,18 +1,19 @@
-"""Edge-table ingestion from whitespace edge lists (host side).
+"""Edge-table ingestion from parquet and whitespace edge lists (host side).
 
-Counterpart of ``graphmine_tpu/io/edges.py`` for edge lists:
-``EdgeTable`` (with optional weights and quarantine counts),
-``edge_table_from_parts``, ``quarantine_nonfinite_weights``,
-``from_arrays`` and ``load_edge_list``. By default the streaming C++ parser
+Counterpart of ``graphmine_tpu/io/edges.py``: ``EdgeTable`` (with
+optional weights and quarantine counts), ``edge_table_from_parts``,
+``quarantine_nonfinite_weights``, ``from_arrays``, ``load_parquet_edges``
+and ``load_edge_list``. Edge lists: by default the streaming C++ parser
 (:mod:`graphmine_tpu_torch.io.native`) reads the file; ``use_native=False``
 takes the NumPy paths (bulk, and chunked above 256 MB). Each path assigns
 the ids its JAX counterpart assigns on the same file: the native parser
-line by line, the NumPy paths column by column. Parquet waits for a later
-slice (ROADMAP.md).
+line by line, the NumPy paths column by column, and parquet column by
+column over the dictionary values (per batch with ``batch_rows``).
 """
 
 from __future__ import annotations
 
+import glob as _glob
 import io as _io
 import os
 from dataclasses import dataclass
@@ -32,8 +33,8 @@ class EdgeTable:
     names: np.ndarray  # [V] vertex id -> name
     num_rows_raw: int = 0
     weights: np.ndarray | None = None  # float32 [E], optional edge weights
-    # Rows set aside instead of failing the load (keys bad_rows,
-    # nan_weights); None when the loader kept no such count.
+    # Rows set aside instead of failing the load (keys null_rows,
+    # bad_rows, nan_weights); None when the loader kept no such count.
     quarantine: dict | None = None
 
     @property
@@ -76,6 +77,98 @@ def edge_table_from_parts(src_parts, dst_parts, names, num_rows_raw,
         names=np.asarray(names), num_rows_raw=num_rows_raw,
         weights=None if w_parts is None else cat(w_parts, np.float32),
     )
+
+
+def _column_codes(col, interner: IncrementalFactorizer) -> np.ndarray:
+    """Intern one Arrow column (Array or ChunkedArray) into int32 codes,
+    through the dictionary indices where the column is dictionary-encoded
+    (the same ids as the per-row strings, without building one Python
+    string per row). Nulls are dropped here too, so none is ever interned
+    as a vertex; callers that pair columns filter null rows first."""
+    import pyarrow as pa
+
+    chunks = col.chunks if isinstance(col, pa.ChunkedArray) else [col]
+    parts = []
+    for c in chunks:
+        if c.null_count:
+            c = c.drop_null()
+        if pa.types.is_dictionary(c.type):
+            parts.append(interner.add_dictionary(np.asarray(c.indices),
+                                                 c.dictionary.to_numpy(zero_copy_only=False)))
+        else:
+            parts.append(interner.add(c.to_numpy(zero_copy_only=False)))
+    if not parts:
+        return np.empty(0, np.int32)
+    return (np.concatenate(parts) if len(parts) != 1 else parts[0]).astype(np.int32, copy=False)
+
+
+def load_parquet_edges(path: str, batch_rows: int | None = None) -> EdgeTable:
+    """Read a parquet file, directory or glob of outlinks: edges are
+    (``_c1`` -> ``_c2``) string columns, duplicates kept, rows with a null
+    endpoint set aside and counted as ``null_rows``. Columns are read
+    dictionary-encoded and interned through their indices, source column
+    first, so ids follow first appearance over the dictionary values.
+
+    ``batch_rows``: stream the files in batches of at most this many rows
+    through one incremental interner (host memory O(batch + vocabulary +
+    edges)); ids then come batch by batch, source column first in each.
+    """
+    if batch_rows is not None:
+        return _load_parquet_edges_streaming(path, batch_rows)
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+
+    tables = [pq.read_table(p, columns=["_c1", "_c2"], read_dictionary=["_c1", "_c2"])
+              for p in _resolve_paths(path)]
+    try:
+        table = pa.concat_tables(tables, promote_options="permissive")
+    except TypeError:
+        # pyarrow < 14 has no promote_options; promote=True is its
+        # permissive schema unification
+        table = pa.concat_tables(tables, promote=True)
+    num_rows_raw = table.num_rows
+    valid = pc.and_(pc.is_valid(table.column("_c1")), pc.is_valid(table.column("_c2")))
+    table = table.filter(valid)
+    interner = IncrementalFactorizer()
+    src = _column_codes(table.column("_c1"), interner)
+    dst = _column_codes(table.column("_c2"), interner)
+    et = EdgeTable(src=src, dst=dst, names=interner.names(), num_rows_raw=num_rows_raw)
+    return _add_quarantine(et, "null_rows", num_rows_raw - table.num_rows)
+
+
+def _load_parquet_edges_streaming(path: str, batch_rows: int) -> EdgeTable:
+    """Batched parquet scan through one incremental interner."""
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+
+    if batch_rows <= 0:
+        raise ValueError(f"batch_rows must be positive, got {batch_rows}")
+    interner = IncrementalFactorizer()
+    src_parts, dst_parts = [], []
+    num_rows_raw = 0
+    for p in _resolve_paths(path):
+        pf = pq.ParquetFile(p, read_dictionary=["_c1", "_c2"])
+        for batch in pf.iter_batches(batch_size=batch_rows, columns=["_c1", "_c2"]):
+            num_rows_raw += batch.num_rows
+            valid = pc.and_(pc.is_valid(batch.column(0)), pc.is_valid(batch.column(1)))
+            batch = batch.filter(valid)
+            src_parts.append(_column_codes(batch.column(0), interner))
+            dst_parts.append(_column_codes(batch.column(1), interner))
+    et = edge_table_from_parts(src_parts, dst_parts, interner.names(), num_rows_raw)
+    return _add_quarantine(et, "null_rows", num_rows_raw - et.num_edges)
+
+
+def _resolve_paths(path: str) -> list[str]:
+    """The parquet files of a directory (``*.parquet``, sorted), of a glob,
+    or the path itself."""
+    if os.path.isdir(path):
+        paths = sorted(_glob.glob(os.path.join(path, "*.parquet")))
+    else:
+        paths = sorted(_glob.glob(path)) or [path]
+    if not paths:
+        raise FileNotFoundError(f"no parquet files at {path!r}")
+    return paths
 
 
 def iter_line_chunks(path: str, chunk_bytes: int):

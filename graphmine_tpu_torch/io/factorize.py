@@ -56,6 +56,18 @@ class IncrementalFactorizer:
 
     def add(self, column: np.ndarray) -> np.ndarray:
         codes_batch, uniques = _factorize_first_appearance(np.asarray(column))
+        return self._intern_uniques(codes_batch, uniques)
+
+    def add_dictionary(self, indices: np.ndarray, dictionary: np.ndarray) -> np.ndarray:
+        """Encode a batch given as ``dictionary[indices]`` without building
+        the per-row strings: equal to ``add(dictionary[indices])``, since a
+        dictionary's values are unique, so first appearance over the index
+        stream is first appearance over the values. Only the batch's
+        distinct values touch Python."""
+        codes_batch, uniq_idx = _factorize_first_appearance(np.asarray(indices))
+        return self._intern_uniques(codes_batch, np.asarray(dictionary)[uniq_idx])
+
+    def _intern_uniques(self, codes_batch, uniques) -> np.ndarray:
         lut = np.empty(len(uniques), dtype=np.int32)
         index, names = self._index, self._names
         for i, val in enumerate(uniques.tolist()):

@@ -25,9 +25,10 @@ def community_edge_counts(labels: torch.Tensor, graph: Graph) -> torch.Tensor:
 
 
 def census_table(labels: torch.Tensor, graph: Graph):
-    """Host summary over present labels only: ``(label values, vertex
-    counts, intra-edge counts)`` as NumPy arrays."""
+    """Host summary over present labels only: ``(label values int64,
+    vertex counts int32, intra-edge counts int32)`` as NumPy arrays, the
+    JAX package's types (the snapshot store writes them as they are)."""
     sizes = community_sizes(labels).cpu().numpy()
     edges = community_edge_counts(labels, graph).cpu().numpy()
     present = np.flatnonzero(sizes > 0)
-    return present, sizes[present], edges[present]
+    return present, sizes[present].astype(np.int32), edges[present].astype(np.int32)

@@ -31,14 +31,22 @@ from graphmine_tpu_torch.ops.knn import knn
 LOF_IVF_MIN_POINTS = 1 << 17
 
 
+# The JAX package's names: "xla" and "pallas" chose one of its exact
+# kernels; here both, like "exact", mean the exact kNN (the hand-written
+# kernel on CUDA, the plain version on the CPU).
+LOF_IMPLS = ("auto", "ivf", "exact", "xla", "pallas")
+
+
 def select_lof_impl(n: int, k: int, impl: str = "auto",
                     ivf_min_points: int | None = None) -> tuple[str, str]:
     """Resolve the kNN family (``"ivf"`` / ``"exact"``) for an ``[n, F]``
     cloud, with the reason: the JAX package's policy."""
-    if impl not in ("auto", "ivf", "exact"):
-        raise ValueError(f"unknown LOF impl {impl!r}; use 'auto', 'ivf' or 'exact'")
+    if impl not in LOF_IMPLS:
+        raise ValueError(f"unknown LOF impl {impl!r}; use 'auto', 'ivf', 'exact', "
+                         "'xla' or 'pallas'")
     if impl != "auto":
-        return impl, f"impl={impl!r} requested explicitly"
+        family = "ivf" if impl == "ivf" else "exact"
+        return family, f"impl={impl!r} requested explicitly"
     threshold = resolved_ivf_min_points(ivf_min_points)
     if n >= threshold:
         if 0 < k < n:

@@ -1,10 +1,11 @@
 """End-to-end single-device pipeline: load → build → LPA → census →
-recursive-LPA outliers → features → kNN/LOF.
+recursive-LPA outliers → features → kNN/LOF, then, with ``snapshot_out``,
+connected components and the snapshot publish.
 
 Counterpart of ``graphmine_tpu/pipeline/driver.py::run_pipeline`` on one
 device, with the same phases in the same order and the same record names.
-The resilience ladders, checkpointing, the multi-device planner, Louvain,
-CC and snapshot publish wait for later slices (ROADMAP.md queue 1).
+The resilience ladders, checkpointing, the multi-device planner and
+Louvain wait for later slices (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ import torch
 
 from graphmine_tpu_torch.device import resolve_device
 from graphmine_tpu_torch.graph.container import Graph
-from graphmine_tpu_torch.io.edges import EdgeTable, load_edge_list
+from graphmine_tpu_torch.io.edges import EdgeTable, load_edge_list, load_parquet_edges
+from graphmine_tpu_torch.pipeline import resilience
 from graphmine_tpu_torch.pipeline.config import PipelineConfig
 from graphmine_tpu_torch.pipeline.metrics import MetricsSink
 
@@ -49,6 +51,8 @@ def run_pipeline(config: PipelineConfig) -> PipelineResult:
            max_iter=config.max_iter)
     try:
         result = _run_pipeline(config, m, device)
+        if config.snapshot_out:
+            _publish_snapshot(config, result, m, device)
     except BaseException as e:
         m.emit("run_end", ok=False, error_detail=repr(e))
         raise
@@ -68,10 +72,15 @@ def _run_pipeline(config: PipelineConfig, m: MetricsSink,
 
     # ---- load -----------------------------------------------------------
     with m.span("load"), m.timed("load", path=config.data_path, format=config.data_format):
-        table = load_edge_list(config.data_path, weight_col=config.edge_weight_col,
-                               quarantine=config.quarantine_inputs)
+        resilience.fault_point("load", path=config.data_path)
+        if config.data_format == "parquet":
+            table = load_parquet_edges(config.data_path, batch_rows=config.batch_rows)
+        else:
+            table = load_edge_list(config.data_path, weight_col=config.edge_weight_col,
+                                   quarantine=config.quarantine_inputs)
     m.emit("counts", rows_raw=table.num_rows_raw, edges=table.num_edges,
            vertices=table.num_vertices)
+    # gated on the flag: the parquet loader always counts its null filter
     if table.quarantine and config.quarantine_inputs:
         m.emit("quarantine", **table.quarantine)
 
@@ -164,6 +173,79 @@ def _run_pipeline(config: PipelineConfig, m: MetricsSink,
         m.emit("outlier_summary", method="lof", max_score=float(result.lof.max()),
                over_1_5=int((result.lof > 1.5).sum()))
     return result
+
+
+def _publish_snapshot(config: PipelineConfig, result: PipelineResult, m: MetricsSink,
+                      device: torch.device) -> None:
+    """Publish the run's outputs as one snapshot generation at
+    ``config.snapshot_out``: the edges, labels, CC labels (computed here,
+    the pipeline's only CC), census and LOF, and the weights of a weighted
+    run. The quality pass re-scores the store's canary probe on ``device``
+    (``GRAPHMINE_QUALITY=0`` turns it off, ``GRAPHMINE_CANARY_SEED`` seeds
+    a new probe); its failures are warnings, never a failed publish."""
+    import os
+
+    from graphmine_tpu_torch.obs.quality import CanaryProbe, run_quality_pass
+    from graphmine_tpu_torch.ops.cc import connected_components
+    from graphmine_tpu_torch.pipeline.checkpoint import graph_fingerprint
+    from graphmine_tpu_torch.serve.snapshot import SnapshotStore
+
+    table, graph = result.edge_table, result.graph
+    with m.span("snapshot_publish"), m.timed("snapshot_publish", path=config.snapshot_out):
+        resilience.fault_point("snapshot_publish")
+        cc_t, iters = connected_components(graph, return_iterations=True, sink=m)
+        cc = cc_t.cpu().numpy().astype(np.int32)
+        cc_sizes = np.bincount(cc, minlength=1)
+        m.emit("cc_summary", components=int((cc_sizes > 0).sum()),
+               largest=int(cc_sizes.max()), iterations=iters)
+        present, sizes, edge_counts = result.community_table
+        arrays = {
+            "src": np.asarray(table.src, np.int32),
+            "dst": np.asarray(table.dst, np.int32),
+            "labels": np.asarray(result.labels, np.int32),
+            "cc_labels": cc,
+            "census_present": np.asarray(present),
+            "census_sizes": np.asarray(sizes),
+            "census_edges": np.asarray(edge_counts),
+        }
+        if result.lof is not None:
+            arrays["lof"] = np.asarray(result.lof, np.float32)
+        if table.weights is not None:
+            arrays["weights"] = np.asarray(table.weights, np.float32)
+        store = SnapshotStore(config.snapshot_out)
+        quality_on = os.environ.get("GRAPHMINE_QUALITY", "1") != "0"
+        parent_arrays, parent_meta, canary = {}, {}, None
+        if quality_on:
+            try:
+                peeked = store.peek_arrays(("labels", "lof", "canary_features",
+                                            "canary_is_anomaly"))
+                if peeked is not None:
+                    parent_arrays, parent_meta = peeked
+                canary = CanaryProbe.from_arrays(parent_arrays, parent_meta)
+                if canary is None:
+                    canary = CanaryProbe.generate(
+                        seed=int(os.environ.get("GRAPHMINE_CANARY_SEED", "0")))
+                arrays.update(canary.arrays())
+            except Exception as e:  # noqa: BLE001 — telemetry only
+                m.emit("warning", message=f"canary probe unavailable: {e!r}")
+                canary = None
+        snap = store.publish(
+            arrays, fingerprint=graph_fingerprint(table.src, table.dst, table.weights),
+            run_id="", mesh_shape=[1],
+            extra_meta={"canary": canary.meta()} if canary is not None else None, sink=m,
+        )
+        if quality_on:
+            try:
+                run_quality_pass(
+                    arrays["labels"], arrays.get("lof"), snap.version,
+                    parent_labels=parent_arrays.get("labels"),
+                    parent_lof=parent_arrays.get("lof"),
+                    parent_version=parent_meta.get("version"),
+                    canary=canary, sink=m, device=device,
+                )
+            except Exception as e:  # noqa: BLE001 — the publish has committed
+                m.emit("warning", message=f"quality pass failed: {e!r}")
+        _sync(device)
 
 
 def main(argv=None) -> None:

@@ -92,7 +92,8 @@ def test_unfused_floor_is_twice_the_bound_at_the_main_path_shape():
 
 
 def test_kernels_line_holds_measured_keys_and_the_floor_its_own_line(capsys):
-    entry = {"name": "knn_topk", "route": "cuda", "source": chip_smoke.KNN_SOURCE,
+    entry = {"name": "knn_topk", "instance": "fast", "route": "cuda",
+             "source": chip_smoke.KNN_SOURCE,
              "replaces": chip_smoke.KNN_REPLACES, "shape": {"n": 262_144, "f": 8, "k": 128},
              "launches": 1, "max_abs_err": 0.0, "ms": 68.0, "plain_ms": 8000.0,
              "bound_ms": 19.49, "bound_by": "operations", "library_ms": 1300.0}
@@ -100,7 +101,7 @@ def test_kernels_line_holds_measured_keys_and_the_floor_its_own_line(capsys):
     kernels, floor = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
     assert kernels == {"kernels": [entry]}
     assert floor == {"unfused_floor_ms": {
-        "knn_topk": chip_smoke.knn_unfused_floor_ms(262_144, 8, 128)}}
+        "knn_topk fast n=262144 f=8 k=128": chip_smoke.knn_unfused_floor_ms(262_144, 8, 128)}}
 
 
 def test_check_knn_accepts_equal_and_rejects_a_swap():

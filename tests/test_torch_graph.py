@@ -113,8 +113,7 @@ def test_default_device_is_cuda():
         build_graph([0], [1])
 
 
-def test_weighted_build_waits_for_its_slice():
-    # weighted graphs have landed: good weights build, bad ones raise
+def test_weighted_build_takes_good_weights_and_refuses_bad_ones():
     g = build_graph([0, 1], [1, 2], edge_weights=[1.0, 0.5], device=CPU)
     assert g.msg_weight.tolist() == [1.0, 1.0, 0.5, 0.5]
     for bad, match in (([1.0], "one float per edge"), ([1.0, -1.0], "non-negative"),

@@ -61,7 +61,16 @@ _BLOCKED = "import sys\nsys.modules['jax'] = None\nsys.modules['graphmine_tpu'] 
 
 
 @pytest.mark.parametrize("module", ["graphmine_tpu_torch.io.native", "graphmine_tpu_torch.ops.ann",
-                                    "graphmine_tpu_torch.io.edges", "graphmine_tpu_torch.ops.lof"])
+                                    "graphmine_tpu_torch.io.edges", "graphmine_tpu_torch.ops.lof",
+                                    "graphmine_tpu_torch.io.factorize", "graphmine_tpu_torch.ops.cc",
+                                    "graphmine_tpu_torch.pipeline.checkpoint",
+                                    "graphmine_tpu_torch.pipeline.resilience",
+                                    "graphmine_tpu_torch.serve.snapshot",
+                                    "graphmine_tpu_torch.serve.tenancy",
+                                    "graphmine_tpu_torch.obs.histogram",
+                                    "graphmine_tpu_torch.obs.sketch",
+                                    "graphmine_tpu_torch.obs.quality",
+                                    "graphmine_tpu_torch.kernels.knn_cuda"])
 def test_slice_modules_import_without_jax(module):
     code = _BLOCKED + f"import importlib\nimportlib.import_module({module!r})\nprint('ok')\n"
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -122,10 +122,9 @@ def test_cli_runs_on_the_cpu(runs, capsys, monkeypatch):
     assert f"There are {port.num_communities} Communities in the Dataset." in out
 
 
-def test_auto_lof_raises_at_ivf_scale(runs, monkeypatch):
+def test_auto_lof_takes_ivf_at_ivf_scale(runs, monkeypatch):
     # "auto" resolves to IVF from the crossover (2^17 points; lowered here
-    # to the test graph's size). It raised while the port had no IVF
-    # index; now the index runs, and a guard that sends it to the exact
+    # to the test graph's size); a guard that sends the index to the exact
     # kNN says so with a warning and a record, never quietly
     import warnings
 
@@ -133,8 +132,8 @@ def test_auto_lof_raises_at_ivf_scale(runs, monkeypatch):
 
     _, port, _, path = runs
     monkeypatch.setattr(lof, "LOF_IVF_MIN_POINTS", port.graph.num_vertices)
-    cfg = PipelineConfig(data_path=path, max_iter=0, outlier_method="lof",
-                         lof_impl="auto", device="cpu", wedge_budget=0)
+    cfg = PipelineConfig(data_path=path, data_format="edgelist", max_iter=0,
+                         outlier_method="lof", lof_impl="auto", device="cpu", wedge_budget=0)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         res = run_pipeline(cfg)
@@ -146,11 +145,29 @@ def test_auto_lof_raises_at_ivf_scale(runs, monkeypatch):
     assert np.isfinite(res.lof).all() and res.lof.shape == (port.graph.num_vertices,)
 
 
-def test_config_rejects_what_waits():
-    with pytest.raises(NotImplementedError, match="parquet"):
-        PipelineConfig(data_format="parquet").validate()
+def test_config_takes_parquet_and_the_jax_lof_names():
+    assert PipelineConfig(data_format="parquet").validate().data_format == "parquet"
+    for name in ("auto", "xla", "pallas", "exact", "ivf"):
+        assert PipelineConfig(lof_impl=name).validate().lof_impl == name
+        JPipelineConfig(lof_impl=name if name != "exact" else "xla").validate()
     with pytest.raises(ValueError, match="lof_impl"):
-        PipelineConfig(lof_impl="xla").validate()
+        PipelineConfig(lof_impl="triton").validate()
+    with pytest.raises(ValueError, match="data_format"):
+        PipelineConfig(data_format="csv").validate()
+
+
+@pytest.mark.parametrize("name", ["xla", "pallas"])
+def test_jax_lof_names_run_the_exact_knn(runs, name, monkeypatch):
+    # the JAX CLI's names run on the port: the exact kNN, with the name the
+    # caller gave in the impl_selected record
+    ref, port, _, path = runs
+    monkeypatch.setattr(driver, "load_edge_list", functools.partial(load_edge_list, use_native=False))
+    res = run_pipeline(parse_args(["--data-path", path, "--data-format", "edgelist",
+                                   "--lof-impl", name, "--lof-k", str(LOF_K),
+                                   "--device", "cpu", "--outlier-method", "lof"]))
+    (sel,) = [r for r in res.metrics.of_phase("impl_selected") if r["op"] == "lof_knn"]
+    assert (sel["impl"], sel["requested"]) == ("exact", name)
+    np.testing.assert_array_equal(res.lof, port.lof)
 
 
 # ---- the JAX package's default pipeline: native ingest, IVF LOF --------
@@ -195,8 +212,9 @@ def default_runs(request, tmp_path_factory):
             data_path=str(path), data_format="edgelist", num_devices=1,
             lof_k=DEFAULT_LOF_K, edge_weight_col=wcol,
         ))
-        port = run_pipeline(PipelineConfig(data_path=str(path), lof_k=DEFAULT_LOF_K,
-                                           edge_weight_col=wcol, device="cpu"))
+        port = run_pipeline(PipelineConfig(data_path=str(path), data_format="edgelist",
+                                           lof_k=DEFAULT_LOF_K, edge_weight_col=wcol,
+                                           device="cpu"))
     return ref, port, weighted
 
 
@@ -233,7 +251,8 @@ def test_default_config_takes_ivf_and_records_quarantine(default_runs):
 
 
 def test_config_parses_weight_col_and_quarantine():
-    cfg = parse_args(["--data-path", "x.txt", "--edge-weight-col", "2", "--device", "cpu"])
+    cfg = parse_args(["--data-path", "x.txt", "--data-format", "edgelist",
+                      "--edge-weight-col", "2", "--device", "cpu"])
     assert cfg.edge_weight_col == 2 and cfg.quarantine_inputs and cfg.lof_impl == "auto"
     cfg = parse_args(["--data-path", "x.txt", "--no-quarantine-inputs"])
     assert cfg.edge_weight_col is None and not cfg.quarantine_inputs
@@ -242,7 +261,8 @@ def test_config_parses_weight_col_and_quarantine():
     # the JAX package's defaults for the fields both have
     ref, port = JPipelineConfig(), PipelineConfig()
     for name in ("edge_weight_col", "quarantine_inputs", "max_iter", "outlier_method",
-                 "sub_max_iter", "decile", "lof_k", "lof_impl"):
+                 "sub_max_iter", "decile", "lof_k", "lof_impl", "data_format", "batch_rows",
+                 "snapshot_out"):
         assert getattr(port, name) == getattr(ref, name), name
 
 
@@ -252,11 +272,12 @@ def test_quarantine_record_counts_set_aside_rows(tmp_path):
     rows[10] = "3 4 nan"
     rows[20] = "5"
     path.write_text("\n".join(rows) + "\n")
-    res = run_pipeline(PipelineConfig(data_path=str(path), edge_weight_col=2, lof_k=8,
-                                      device="cpu"))
+    res = run_pipeline(PipelineConfig(data_path=str(path), data_format="edgelist",
+                                      edge_weight_col=2, lof_k=8, device="cpu"))
     (q,) = res.metrics.of_phase("quarantine")
     assert (q["bad_rows"], q["nan_weights"]) == (1, 1)
     assert res.graph.num_edges == 298 and res.graph.msg_weight is not None
     with pytest.raises(ValueError):
-        run_pipeline(PipelineConfig(data_path=str(path), edge_weight_col=2, lof_k=8,
-                                    quarantine_inputs=False, device="cpu"))
+        run_pipeline(PipelineConfig(data_path=str(path), data_format="edgelist",
+                                    edge_weight_col=2, lof_k=8, quarantine_inputs=False,
+                                    device="cpu"))
