@@ -35,6 +35,17 @@ In order, and failing on the first phase that fails:
    near-tie that rounds apart), the published store loaded back through
    the port's ``SnapshotStore`` under the graph's fingerprint, and the IVF
    run twice on the card bit-equal;
+4b. drives the run harness on the same small graph, on the card and on
+   the CPU, with a snapshot publish in every run: a preemption (a fatal
+   fault at the third superstep, then a ``resume`` run), a corrupted
+   current checkpoint (rollback, then completion), a poisoned label
+   vector with ``tripwire_every_k=1`` (a ``tripwire`` record, a rollback,
+   then completion), a hung superstep (a fault hook that sleeps, bounded
+   by ``superstep_timeout_s``: ``watchdog_timeout`` with
+   ``checkpointed=true``, then a resume) and a real
+   ``torch.cuda.OutOfMemoryError`` at the second superstep (``degrade`` to
+   ``single_sort``): labels, flags and CC labels equal to the
+   uninterrupted run's and the CPU's, LOF within phase 4's tolerances;
 5. drives the main path, the JAX package's default pipeline on the JAX
    e2e tier's input: ``run_pipeline`` on a parquet file of
    ``planted_anomaly_graph(1 << 18, 25_000_000, seed=9)`` written as
@@ -48,6 +59,18 @@ In order, and failing on the first phase that fails:
    CC count and giant component, the publish's seconds and bytes and the
    ``canary_score`` record (its probe runs ``knn_topk``: launches >= 1),
    after loading the store back under the graph's fingerprint;
+5c. drives the main path again through the run harness at full width:
+   the config from the port's ``parse_args`` on the JAX CLI's flags
+   (:func:`harness_flags`: checkpoints every superstep, tripwires, the
+   watchdog, a heartbeat, a Prometheus textfile, the metrics stream, a run
+   id, a profiler trace of the LPA phase, a publish), with a transient
+   error planted at the third superstep (retried in process) and a real
+   ``torch.cuda.OutOfMemoryError`` at the first ``outliers_lof`` hit (the
+   IVF family), after which the planner's exact rung runs ``knn_topk``;
+   labels, flags and features bit-equal to phase 5's, LOF bit-equal to
+   the exact scorer on phase 5's features, and the records, checkpoints,
+   Prometheus file and trace as :func:`check_harness` lists; prints the
+   ``harness`` line (:func:`harness_summary`);
 5b. drives the weighted exact path on an edge list (native ingest): the
    same graph with a third column of weights
    ``default_rng(7).integers(1, 16, E) / 4``, ``edge_weight_col=2`` and
@@ -66,7 +89,8 @@ In order, and failing on the first phase that fails:
    0.005 and the same indices with TF32 allowed on all three, recall >=
    0.999 on the gate cloud (the recall at k = 128 is reported); prints the
    ``ivf`` line;
-7. prints the last line, ``{"ok": true, "device": {...}}``.
+7. prints the smoke's total seconds, the card line again and the last
+   line, ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only`` skips the pipelines: after phase 3 it holds and times
 the fast instance at the main path's shape (262,144 x 8, k = 128) on a
@@ -84,6 +108,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import shutil
 from concurrent.futures import ThreadPoolExecutor
 import subprocess
@@ -119,6 +144,8 @@ IVF_MAX_DELTA_AUROC = 0.005
 # One H100 SXM (the published dense peaks at the 700 W limit).
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
+HARNESS_RUN_ID = "smoke-5c"
+HARNESS_TIMEOUT_S = 2.0  # phase 4b's watchdog bound (a superstep there takes ms)
 KNN_SOURCE = "graphmine_tpu_torch/csrc/knn_topk.cu"
 KNN_REPLACES = "graphmine_tpu/pallas_kernels/knn_pallas.py:117"
 
@@ -426,6 +453,7 @@ def generator_ids(names: np.ndarray) -> np.ndarray:
 
 
 def main(argv=None) -> int:
+    t_start = time.perf_counter()
     args = parse_args(argv)
     if not (ROOT / "graphmine_tpu_torch" / "__init__.py").is_file():
         print(f"chip_smoke: no graphmine_tpu_torch package beside {__file__}", file=sys.stderr)
@@ -506,6 +534,7 @@ def main(argv=None) -> int:
         finally:
             shutil.rmtree(work, ignore_errors=True)
 
+    print(json.dumps({"smoke_seconds": time.perf_counter() - t_start}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -660,6 +689,10 @@ def path_summary(res, is_anomaly, wall: float, launches: dict, peak: int) -> dic
                  for key in ("buckets", "hub_vertices", "max_degree")},
         "wedges": m.of_phase("feature_mode")[0]["wedges"],
         "lof_k": LOF_K, "lof_auroc": lof_auroc, "peak_device_bytes": peak,
+        "memory_watermarks": [{k: r.get(k) for k in ("op", "impl", "iteration",
+                                                     "predicted_bytes", "achieved_bytes",
+                                                     "peak_bytes_in_use")}
+                              for r in m.of_phase("memory_watermark")],
         "launches": launches,
     }
 
@@ -738,10 +771,251 @@ def publish_summary(res, store: Path) -> dict:
             "canary_score": canary}
 
 
+def _jsonl(path: Path) -> list:
+    return [json.loads(line) for line in open(path)]
+
+
+def _planted(plan) -> object:
+    """A fault injector of the port with ``plan``'s ``(site, factory, at)``
+    rules."""
+    from graphmine_tpu_torch.testing import faults
+
+    inj = faults.FaultInjector()
+    for site, factory, at in plan:
+        inj.add(site, factory, at=at)
+    return inj
+
+
+def small_harness(work: Path, devices=("cuda", "cpu")) -> list:
+    """Phase 4b: the run harness on phase 4's small graph (``small.txt``
+    in ``work``), on each of ``devices``. Each case's completed run must
+    equal the uninterrupted run on its device (labels, flags and CC labels
+    bit-equal, LOF within phase 4's tolerances) and the card's must equal
+    the CPU's. Returns one summary per case."""
+    from graphmine_tpu_torch.pipeline import PipelineConfig, run_pipeline
+    from graphmine_tpu_torch.pipeline import checkpoint as ckpt
+    from graphmine_tpu_torch.pipeline.resilience import ResilienceConfig, SuperstepTimeout
+    from graphmine_tpu_torch.serve.snapshot import SnapshotStore
+    from graphmine_tpu_torch.testing import faults
+
+    def cfg(d, tag, resilience=None, **kw):
+        return PipelineConfig(
+            data_path=str(work / "small.txt"), data_format="edgelist", lof_impl="exact",
+            lof_k=SMALL_LOF_K, outlier_method="both", device=d,
+            snapshot_out=str(work / "harness" / d / tag / "store"),
+            resilience=ResilienceConfig(backoff_base_s=0.001, backoff_max_s=0.01,
+                                        **(resilience or {})), **kw)
+
+    def outcome(res, d, tag) -> dict:
+        store = SnapshotStore(str(work / "harness" / d / tag / "store"))
+        snap = store.load(fingerprint=ckpt.graph_fingerprint(res.edge_table.src,
+                                                             res.edge_table.dst))
+        return {"labels": res.labels, "flags": res.outliers.outlier_vertices,
+                "cc": snap["cc_labels"], "lof": res.lof, "metrics": res.metrics}
+
+    def fails(d, tag, plan, exc, **kw):
+        """A run that must die of ``exc``; returns its records."""
+        out = work / "harness" / d / f"{tag}.jsonl"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        with _planted(plan).installed():
+            try:
+                run_pipeline(cfg(d, tag, metrics_out=str(out), **kw))
+            except exc:
+                return _jsonl(out)
+        raise AssertionError(f"{tag} on {d}: the run did not fail with {exc.__name__}")
+
+    cases: dict = {}
+    for d in devices:
+        runs = {"base": outcome(run_pipeline(cfg(d, "base")), d, "base")}
+        ck = str(work / "harness" / d / "ck")
+        # a preemption: fatal at the third superstep, then a new run resumes
+        fails(d, "preempted", [("lpa_superstep", faults.preemption, 3)],
+              faults.SimulatedPreemption, checkpoint_dir=ck)
+        res = run_pipeline(cfg(d, "preemption", checkpoint_dir=ck, resume=True))
+        require(res.metrics.of_phase("resume")[0]["iteration"] == 2, f"{d}: resume iteration")
+        runs["preemption"] = outcome(res, d, "preemption")
+        # the current generation corrupted: rollback to the previous one
+        faults.corrupt_file(os.path.join(ck, "lpa_labels.npz"))
+        res = run_pipeline(cfg(d, "corrupt", checkpoint_dir=ck, resume=True))
+        require(res.metrics.of_phase("checkpoint_rollback")
+                and res.metrics.of_phase("checkpoint_rollback_ok")
+                and res.metrics.of_phase("resume")[0]["iteration"] == 4, f"{d}: rollback")
+        runs["corrupt"] = outcome(res, d, "corrupt")
+        # poisoned labels: the tripwire rolls back to the last checkpoint
+        with _planted([("lpa_superstep", faults.poison_labels(shard=1, num_shards=4), 3)]
+                      ).installed():
+            res = run_pipeline(cfg(d, "poison", checkpoint_dir=str(work / "harness" / d / "ck2"),
+                                   resilience={"tripwire_every_k": 1}))
+        (tw,) = res.metrics.of_phase("tripwire")
+        require(tw["iteration"] == 3 and tw["bad_vertices"] > 0
+                and res.metrics.of_phase("resume")[0]["reason"] == "tripwire", f"{d}: tripwire")
+        runs["poison"] = outcome(res, d, "poison")
+        # a hung superstep: the watchdog checkpoints from a host copy, aborts
+        ck3 = str(work / "harness" / d / "ck3")
+        recs = fails(d, "hung", [("lpa_superstep", faults.hang(60.0), 2)], SuperstepTimeout,
+                     checkpoint_dir=ck3, checkpoint_every=10,
+                     resilience={"superstep_timeout_s": HARNESS_TIMEOUT_S})
+        (wd,) = [r for r in recs if r["phase"] == "watchdog_timeout"]
+        require(wd["checkpointed"] is True and ckpt.load_labels(ck3)[1] == 1,
+                f"{d}: watchdog checkpoint")
+        res = run_pipeline(cfg(d, "hang", checkpoint_dir=ck3, resume=True))
+        runs["hang"] = outcome(res, d, "hang")
+        # a real out-of-memory error from the allocator: degrade to sort
+        with _planted([("lpa_superstep", lambda d=d: faults.device_oom(d), 2)]).installed():
+            res = run_pipeline(cfg(d, "oom"))
+        (deg,) = res.metrics.of_phase("degrade")
+        require(deg["to"] == "single_sort", f"{d}: degrade {deg}")
+        runs["oom"] = outcome(res, d, "oom")
+        for case, got in runs.items():
+            base = runs["base"]
+            for key in ("labels", "flags", "cc"):
+                require(np.array_equal(got[key], base[key]), f"{d} {case}: {key} differ from "
+                        "the uninterrupted run's")
+            _lof_close(got["lof"], base["lof"], f"{d} {case} against the uninterrupted run")
+        cases[d] = runs
+    summary = []
+    for case in cases[devices[0]]:
+        gpu, cpu = cases[devices[0]][case], cases[devices[-1]][case]
+        for key in ("labels", "flags", "cc"):
+            require(np.array_equal(gpu[key], cpu[key]), f"{case}: {key} differ from the CPU's")
+        _lof_close(gpu["lof"], cpu["lof"], f"{case}: card against CPU")
+        trail = [r["phase"] for r in gpu["metrics"].records
+                 if r["phase"] in ("retry", "degrade", "resume", "tripwire",
+                                   "checkpoint_rollback", "checkpoint_rollback_ok")]
+        summary.append({"case": case, "communities": int(len(np.unique(gpu["labels"]))),
+                        "recovery": trail})
+        log(f"harness small, {case}: card == CPU == uninterrupted, recovery {trail}")
+    return summary
+
+
+def _lof_close(got, want, what: str) -> None:
+    """Phase 4's LOF tolerance: rtol 1e-4 on 99.9% of vertices, 1e-2 on all."""
+    rel = np.abs(got - want) / np.abs(want)
+    require((rel <= 1e-4).mean() >= 0.999 and rel.max() <= 1e-2,
+            f"{what}: LOF beyond rtol 1e-4 for 0.1% of vertices (max {rel.max():.3g})")
+
+
+def harness_flags(work: Path, parquet: Path) -> list:
+    """Phase 5c's command line: flags of the JAX package's CLI, as
+    ``python -m graphmine_tpu.pipeline`` takes them."""
+    return ["--data-path", str(parquet), "--batch-rows", str(BATCH_ROWS),
+            "--checkpoint-dir", str(work / "ck"), "--checkpoint-every", "1",
+            "--tripwire-every-k", "1", "--superstep-timeout-s", "120",
+            "--heartbeat-every-s", "1", "--prom-out", str(work / "graphmine.prom"),
+            "--metrics-out", str(work / "metrics.jsonl"), "--run-id", HARNESS_RUN_ID,
+            "--profile-dir", str(work / "prof"), "--snapshot-out", str(work / "store5c")]
+
+
+def harness_summary(records: list, wall: float, peak: int, launches: dict) -> dict:
+    """The ``harness`` line from phase 5c's recorded stream: wall and
+    phase seconds (top-level spans), record counts, checkpoint bytes and
+    save seconds, the memory model's predicted peak beside the measured
+    one, heartbeats, and the ten ops with the most self device time in
+    the profiled LPA window."""
+    counts: dict = {}
+    for r in records:
+        counts[r["phase"]] = counts.get(r["phase"], 0) + 1
+    of = lambda phase: [r for r in records if r["phase"] == phase]
+    saves = of("checkpoint_save")
+    marks = of("memory_watermark")
+    prof = [r for r in of("profile_capture") if r.get("ok")]
+    return {
+        "run_id": records[0].get("run_id"),
+        "wall_seconds": wall,
+        "phase_seconds": {r["name"]: r["seconds"] for r in of("span")
+                          if r["span_path"].count("/") == 1},
+        "records": counts,
+        "checkpoint_bytes": saves[-1]["bytes"] if saves else None,
+        "checkpoint_save_seconds": [r.get("seconds") for r in saves],
+        "predicted_peak_bytes": max((r["predicted_bytes"] for r in marks), default=None),
+        "predicted_peak_op": max(marks, key=lambda r: r["predicted_bytes"])["op"] if marks
+        else None,
+        "max_memory_allocated": peak,
+        "heartbeats": counts.get("heartbeat", 0),
+        "lpa_superstep_seconds": [r["seconds"] for r in of("lpa_iter")],
+        "profile_trace": prof[0]["trace"] if prof else None,
+        "profile_start_seconds": prof[0].get("start_seconds") if prof else None,
+        "profile_stop_seconds": prof[0].get("seconds") if prof else None,
+        "top_kernels": [{"name": k["name"], "self_device_ms": k["self_device_ms"],
+                         "calls": k["calls"]} for k in (prof[0]["top_device_ops"][:10]
+                                                        if prof else [])],
+        "launches": launches,
+    }
+
+
+def check_harness(res, records: list, work: Path, phase5: dict, launches: dict) -> None:
+    """Phase 5c's requirements against phase 5's results."""
+    import torch
+
+    from graphmine_tpu_torch.obs.schema import validate_records
+    from graphmine_tpu_torch.ops.lof import lof_scores
+    from graphmine_tpu_torch.pipeline import checkpoint as ckpt
+
+    require(np.array_equal(res.labels, phase5["labels"]), "5c: labels differ from phase 5's")
+    require(np.array_equal(res.outliers.outlier_vertices, phase5["flags"]),
+            "5c: recursive-LPA flags differ from phase 5's")
+    require(torch.equal(res.features, phase5["features"]), "5c: features differ from phase 5's")
+    exact = lof_scores(phase5["features"], k=LOF_K, impl="exact").cpu().numpy()
+    require(np.array_equal(res.lof, exact), "5c: LOF differs from the exact scorer's")
+    require(launches["knn_topk"] >= 2, f"5c: knn_topk launches {launches}")
+    of = lambda phase: [r for r in records if r["phase"] == phase]
+    retries = of("retry")
+    require(len(retries) == 1 and retries[0]["stage"] == "lpa", f"5c: retries {retries}")
+    degrades = of("degrade")
+    require(len(degrades) == 1 and degrades[0]["stage"] == "outliers_lof"
+            and degrades[0]["to"] == "lof_exact", f"5c: degrades {degrades}")
+    require([r["iteration"] for r in of("checkpoint_save")] == [1, 2, 3, 4, 5],
+            "5c: checkpoint saves")
+    newest = ckpt.load_newest(str(work / "ck"))
+    require(newest is not None and newest[1] == 5 and np.array_equal(newest[0], res.labels),
+            "5c: the newest checkpoint is not the final labels at iteration 5")
+    require(not of("tripwire"), "5c: a tripwire fired")
+    require(len(of("heartbeat")) >= 1, "5c: no heartbeat")
+    prom = (work / "graphmine.prom").read_text()
+    require(f'graphmine_supersteps_total{{run_id="{HARNESS_RUN_ID}"}} 5' in prom,
+            "5c: graphmine_supersteps_total is not 5 in the Prometheus file")
+    prof = of("profile_capture")
+    require(len(prof) == 1 and prof[0]["ok"] and Path(prof[0]["trace"]).is_file(),
+            f"5c: profile capture {prof}")
+    ops = {r["op"] for r in of("superstep_timing")}
+    require({"lpa_superstep", "cc_superstep"} <= ops, f"5c: superstep_timing ops {ops}")
+    require(of("memory_watermark"), "5c: no memory_watermark record")
+    require(all(r.get("run_id") == HARNESS_RUN_ID for r in records), "5c: run ids")
+    problems = validate_records(records)
+    require(not problems, f"5c: the record stream does not validate: {problems[:5]}")
+
+
+def run_harness_path(work: Path, parquet: Path, phase5: dict) -> None:
+    """Phase 5c: the main path under the run harness, with a transient
+    error at the third superstep and a real out-of-memory error at the
+    IVF family's first hit; prints the ``harness`` line."""
+    import torch
+
+    from graphmine_tpu_torch.pipeline.config import parse_args
+    from graphmine_tpu_torch.testing import faults
+
+    hwork = work / "harness5c"
+    hwork.mkdir()
+    cfg = parse_args(harness_flags(hwork, parquet))
+    with _planted([("lpa_superstep", faults.transient_error, 3),
+                   ("outliers_lof", lambda: faults.device_oom("cuda"), 1)]).installed():
+        res, wall, launches, peak = drive(cfg, "harness path")
+    records = _jsonl(hwork / "metrics.jsonl")
+    check_harness(res, records, hwork, phase5, launches)
+    summary = harness_summary(records, wall, peak, launches)
+    summary["labels_equal_phase5"] = summary["features_equal_phase5"] = True
+    summary["lof_equal_exact"] = True
+    summary["communities"] = res.num_communities
+    print(json.dumps({"harness": summary}), flush=True)
+    del res
+    torch.cuda.empty_cache()
+
+
 def run_main_path(work: Path) -> None:
-    """Phases 4-6: small pipelines on the card against the CPU, the main
-    path, the weighted exact path, the kernel at its shapes and the IVF
-    kNN against the exact one."""
+    """Phases 4-6: small pipelines on the card against the CPU, the run
+    harness on them, the main path, the main path under the harness, the
+    weighted exact path, the kernel at its shapes and the IVF kNN against
+    the exact one."""
     import torch
 
     from graphmine_tpu_torch import datasets
@@ -749,6 +1023,9 @@ def run_main_path(work: Path) -> None:
 
     # ---- 4. the pipeline on the card against the CPU, small graphs ------
     wide_launches = small_pipelines(work)
+
+    # ---- 4b. the run harness on the small graph, card and CPU -----------
+    print(json.dumps({"harness_small": small_harness(work)}), flush=True)
 
     # ---- 5. the main path: the JAX package's default pipeline ----------
     t0 = time.perf_counter()
@@ -774,7 +1051,12 @@ def run_main_path(work: Path) -> None:
     main_launches = launches
     feats_main = res.features
     orig_main = generator_ids(res.edge_table.names)
+    phase5 = {"labels": res.labels, "flags": res.outliers.outlier_vertices,
+              "features": feats_main}
     del res
+
+    # ---- 5c. the main path under the run harness -------------------------
+    run_harness_path(work, edges_pq, phase5)
 
     # ---- 5b. the weighted exact path, on the edge list -------------------
     res, wall, launches, peak = drive(

@@ -13,11 +13,10 @@ publish:
 - :class:`CanaryProbe`: a seeded planted-anomaly probe (features frozen
   in the snapshot) re-scored through the port's LOF scorer on the run's
   device at every publish, so a recall drop is the scorer moving;
-- :func:`run_quality_pass`: computes all of it and emits the
-  ``quality_snapshot``, ``quality_drift`` and ``canary_score`` records.
-
-Gauges in a metrics registry wait for the observability slice
-(ROADMAP.md).
+- :func:`run_quality_pass`: computes all of it, emits the
+  ``quality_snapshot``, ``quality_drift`` and ``canary_score`` records
+  and mirrors the headline numbers into a registry's gauges
+  (:func:`export_gauges`).
 """
 
 from __future__ import annotations
@@ -299,17 +298,39 @@ class QualityReport:
     seconds: float = 0.0
 
 
+def export_gauges(registry, state: QualityState, drift: dict | None = None,
+                  canary: dict | None = None) -> None:
+    """Mirror the quality headline numbers into the registry's gauges,
+    under the JAX package's series names."""
+    g = registry.gauge
+    g("graphmine_quality_anomaly_rate",
+      "share of LOF scores above the anomaly threshold").set(state.anomaly_rate)
+    g("graphmine_quality_num_communities",
+      "present communities in the served snapshot").set(state.num_communities)
+    if drift is not None:
+        g("graphmine_quality_churn_frac",
+          "partition-matched churned-vertex fraction vs parent").set(drift["churn_frac"])
+        g("graphmine_quality_lof_psi",
+          "PSI drift of the LOF score distribution vs parent").set(drift["lof_psi"])
+        g("graphmine_quality_size_psi",
+          "PSI drift of the community-size distribution vs parent").set(drift["size_psi"])
+    if canary is not None:
+        g("graphmine_quality_canary_recall",
+          "planted-anomaly recall@k of the canary probe, last publish",
+          ).set(canary["recall_at_k"])
+
+
 def run_quality_pass(labels, lof, version: int, parent_labels=None, parent_lof=None,
                      parent_version: int | None = None,
                      parent_state: QualityState | None = None,
                      canary: CanaryProbe | None = None, threshold: float | None = None,
-                     sink=None, device="cuda") -> QualityReport:
+                     sink=None, device="cuda", registry=None) -> QualityReport:
     """The publish-time quality pass: the state of the published columns,
     the drift against a parent (``parent_labels``, with ``parent_state``
-    or ``parent_lof``), the canary's score on ``device``, and the
-    ``quality_snapshot`` / ``quality_drift`` / ``canary_score`` records.
-    A failure while emitting the records is swallowed: telemetry must not
-    fail a publish."""
+    or ``parent_lof``), the canary's score on ``device``, the
+    ``quality_snapshot`` / ``quality_drift`` / ``canary_score`` records and
+    the gauges of ``registry``. A failure while emitting the records or
+    the gauges is swallowed: telemetry must not fail a publish."""
     t0 = time.perf_counter()
     state = QualityState.from_arrays(labels, lof, version=version, threshold=threshold)
     drift = None
@@ -331,6 +352,8 @@ def run_quality_pass(labels, lof, version: int, parent_labels=None, parent_lof=N
                 sink.emit("quality_drift", **drift)
             if canary_out is not None:
                 sink.emit("canary_score", version=state.version, **canary_out)
+        if registry is not None:
+            export_gauges(registry, report.state, report.drift, report.canary)
     except Exception:  # noqa: BLE001 — telemetry must not fail a publish
         pass
     return report

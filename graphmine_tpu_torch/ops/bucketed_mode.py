@@ -153,6 +153,20 @@ def build_graph_and_plan(src, dst, num_vertices: int | None = None,
                                             weights=graph.msg_weight)
 
 
+def plan_build_stats(plan: BucketedModePlan, num_edges: int) -> dict:
+    """The ``plan_build`` record's payload for a plan: its family, width
+    classes and padded gather slots per edge (the JAX package's keys),
+    with the port's bucket and hub counts."""
+    from graphmine_tpu_torch.obs.costmodel import _bucketed_padded_slots
+
+    return {
+        "family": "bucketed", "bins": 0, "width_classes": len(plan.vertex_ids),
+        "padded_slots_per_edge": round(_bucketed_padded_slots(plan) / max(int(num_edges), 1), 3),
+        "buckets": len(plan.vertex_ids),
+        "hub_vertices": 0 if plan.hist_vertex_ids is None else len(plan.hist_vertex_ids),
+    }
+
+
 def _rowwise_mode(lbl: torch.Tensor) -> torch.Tensor:
     """Mode of each row of a ``[n, w]`` int32 matrix; sentinel entries
     ignored; ties break toward the smallest value. Rows must contain at

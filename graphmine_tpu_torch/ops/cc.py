@@ -13,7 +13,9 @@ Plans: ``plan="auto"`` picks the sort-based superstep below 2^16 messages
 and the degree-bucketed one from there (the JAX package's
 ``BUCKETED_MIN_MESSAGES``). The JAX package's third family, the blocked
 superstep (V >= 2^21 and M >= 2^22), is not ported yet (ROADMAP.md), so
-"auto" resolves to sort or bucketed only, and its records say so.
+"auto" resolves to sort or bucketed only, and its records say so. With a
+sink, the fixpoint's supersteps are timed against the cost model in a
+``superstep_timing`` record, as the JAX package's CC does.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ import time
 import torch
 
 from graphmine_tpu_torch.graph.container import Graph
-from graphmine_tpu_torch.ops.bucketed_mode import BucketedModePlan
+from graphmine_tpu_torch.obs.costmodel import emit_superstep_timing, superstep_cost, timed_fixpoint
+from graphmine_tpu_torch.ops.bucketed_mode import BucketedModePlan, plan_build_stats
 
 _SENTINEL = (1 << 31) - 1
 BUCKETED_MIN_MESSAGES = 1 << 16
@@ -77,24 +80,21 @@ def _auto_plan(graph: Graph, sink) -> BucketedModePlan | None:
     """Resolve ``plan="auto"``, build the bucketed plan when it is picked,
     and emit the ``impl_selected`` and ``plan_build`` records."""
     family, reason = select_cc_plan(graph.num_messages)
+    plan = None
+    if family == "bucketed":
+        t0 = time.perf_counter()
+        plan = BucketedModePlan.from_ptr(graph.msg_ptr.cpu().numpy(), graph.num_vertices,
+                                         graph.msg_send)
+        seconds = time.perf_counter() - t0
     if sink is not None:
+        cost = superstep_cost("cc_superstep", family, graph.num_vertices, graph.num_messages,
+                              graph.num_edges, plan=plan).record()
         sink.emit("impl_selected", op="cc_superstep", impl=family, n=graph.num_messages,
                   reason=reason, families=["sort", "bucketed"],
-                  thresholds={"bucketed_min_messages": BUCKETED_MIN_MESSAGES})
-    if family == "sort":
-        return None
-    t0 = time.perf_counter()
-    plan = BucketedModePlan.from_ptr(graph.msg_ptr.cpu().numpy(), graph.num_vertices,
-                                     graph.msg_send)
-    if sink is not None:
-        slots = sum(int(m.shape[0]) * int(m.shape[1]) for m in plan.send_idx)
-        if plan.hist_send is not None:
-            slots += int(plan.hist_send.shape[0])
-        sink.emit("plan_build", op="cc_superstep", family="bucketed",
-                  seconds=round(time.perf_counter() - t0, 6), cached=False, bins=0,
-                  width_classes=len(plan.vertex_ids), buckets=len(plan.vertex_ids),
-                  hub_vertices=0 if plan.hist_vertex_ids is None else len(plan.hist_vertex_ids),
-                  padded_slots_per_edge=round(slots / max(graph.num_edges, 1), 3))
+                  thresholds={"bucketed_min_messages": BUCKETED_MIN_MESSAGES}, cost=cost)
+        if plan is not None:
+            sink.emit("plan_build", op="cc_superstep", seconds=round(seconds, 6),
+                      cached=False, cost=cost, **plan_build_stats(plan, graph.num_edges))
     return plan
 
 
@@ -108,7 +108,8 @@ def connected_components(graph: Graph, max_iter: int = 0, return_iterations: boo
     unchanged one included. ``plan``: ``"auto"`` (see the module note), a
     fused :class:`BucketedModePlan` of this graph, or ``None`` for the
     sort-based superstep. ``sink`` gets the ``impl_selected`` and
-    ``plan_build`` records of an auto resolution.
+    ``plan_build`` records of an auto resolution and the fixpoint's
+    ``superstep_timing`` record.
     """
     if isinstance(plan, str):
         if plan != "auto":
@@ -120,6 +121,19 @@ def connected_components(graph: Graph, max_iter: int = 0, return_iterations: boo
             f"plan built for V={plan.num_vertices}, M={plan.num_messages} but graph has "
             f"V={graph.num_vertices}, M={graph.num_messages} — plan/graph mismatch"
         )
+    (labels, iters), secs, cold = timed_fixpoint(lambda: _fixpoint(graph, max_iter, plan))
+    if sink is not None:
+        # CC's minimum never reads the weights, even on a weighted graph
+        cost = superstep_cost("cc_superstep", "sort" if plan is None else "auto",
+                              graph.num_vertices, graph.num_messages, graph.num_edges,
+                              plan=plan, weighted=False)
+        emit_superstep_timing(sink, "cc_superstep", cost, iters, iters, secs,
+                              graph.num_edges, variant="fused", cold_compile=cold)
+    return (labels, iters) if return_iterations else labels
+
+
+def _fixpoint(graph: Graph, max_iter: int, plan) -> tuple:
+    """``(labels, supersteps)`` of the fixpoint loop."""
     limit = max_iter if max_iter > 0 else graph.num_vertices + 2
     labels = torch.arange(graph.num_vertices, dtype=torch.int32, device=graph.device)
     iters, changed = 0, 1
@@ -128,4 +142,4 @@ def connected_components(graph: Graph, max_iter: int = 0, return_iterations: boo
         changed = int((new != labels).sum())
         labels = new
         iters += 1
-    return (labels, iters) if return_iterations else labels
+    return labels, iters

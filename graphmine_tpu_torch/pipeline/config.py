@@ -1,17 +1,22 @@
 """Pipeline configuration — one dataclass + CLI.
 
 Counterpart of ``graphmine_tpu/pipeline/config.py`` for the fields the
-single-device slice reads, plus ``device``: the same names, defaults and
-validation.
+single-device driver reads, plus ``device``: the same names, defaults,
+validation and flags, the resilience knobs flattened onto the CLI
+(``--max-retries``, ``--superstep-timeout-s``, ``--tripwire-every-k``,
+...). The JAX package's ``backend``, ``num_devices``, ``schedule``,
+``community_method`` and ``gamma`` are not here yet (ROADMAP queue 1,
+items A6 and A7).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 from graphmine_tpu_torch.ops.lof import LOF_IMPLS
+from graphmine_tpu_torch.pipeline.resilience import ResilienceConfig
 
 
 @dataclass
@@ -42,10 +47,30 @@ class PipelineConfig:
     # under this budget (~28 B of host scratch per wedge), else sampled
     wedge_budget: int = 250_000_000
     show: int = 10
-    metrics_out: str | None = None  # JSON lines of every record
+    # torch.profiler trace of the LPA phase (a Chrome trace in this dir)
+    profile_dir: str | None = None
+    # every record as JSON lines, appended as emitted (a resumed run adds
+    # a run_start-delimited segment)
+    metrics_out: str | None = None
+    # run identity stamped on every record; None generates a sortable UTC id
+    run_id: str | None = None
+    # a heartbeat record every N seconds (phase, gauges, RSS); None = off
+    heartbeat_every_s: float | None = None
+    # the counter/gauge registry as a Prometheus textfile, written
+    # atomically at each heartbeat and at exit
+    prom_out: str | None = None
     # publish labels, CC labels, LOF, census and edges as a versioned
     # snapshot generation at this store directory, as the final phase
     snapshot_out: str | None = None
+    # LPA label checkpoints: every checkpoint_every supersteps and always
+    # the last, in the JAX package's npz format; --resume continues from
+    # the newest one that matches the graph's fingerprint
+    checkpoint_dir: str | None = None
+    checkpoint_every: int = 1
+    resume: bool = False
+    # retry/backoff budget, superstep watchdog, degradation policy and
+    # divergence tripwires (flattened onto the CLI)
+    resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
     device: str = "cuda"
     # count and set aside malformed rows and NaN weights at ingestion (a
     # "quarantine" record) instead of failing; --no-quarantine-inputs
@@ -53,6 +78,7 @@ class PipelineConfig:
     quarantine_inputs: bool = True
 
     def validate(self) -> "PipelineConfig":
+        self.resilience.validate()
         if self.data_format not in ("parquet", "edgelist"):
             raise ValueError(f"unknown data_format {self.data_format!r}")
         if self.outlier_method not in ("recursive_lpa", "lof", "both", "none"):
@@ -71,6 +97,10 @@ class PipelineConfig:
             raise ValueError("edge_weight_col must be >= 2: columns 0-1 are the endpoints")
         if not 0 < self.decile < 1:
             raise ValueError("decile must be in (0, 1)")
+        if self.checkpoint_every < 1:
+            raise ValueError("checkpoint_every must be >= 1")
+        if self.heartbeat_every_s is not None and self.heartbeat_every_s <= 0:
+            raise ValueError("heartbeat_every_s must be positive (or unset)")
         return self
 
 
@@ -79,11 +109,22 @@ def parse_args(argv=None) -> PipelineConfig:
         prog="graphmine_tpu_torch.pipeline",
         description="Community + outlier detection pipeline on one CUDA device",
     )
-    types = {"int": int, "float": float, "str": str, "str | None": str, "int | None": int}
-    for f in dataclasses.fields(PipelineConfig):
+    types = {"int": int, "float": float, "str": str, "str | None": str, "int | None": int,
+             "float | None": float}
+
+    def add_field(f):
         name = "--" + f.name.replace("_", "-")
         if f.type == "bool":
             parser.add_argument(name, action=argparse.BooleanOptionalAction, default=f.default)
         else:
             parser.add_argument(name, type=types[f.type], default=f.default)
-    return PipelineConfig(**vars(parser.parse_args(argv))).validate()
+
+    for f in dataclasses.fields(PipelineConfig):
+        if f.name != "resilience":  # nested: its fields flatten onto the CLI
+            add_field(f)
+    res_fields = dataclasses.fields(ResilienceConfig)
+    for f in res_fields:
+        add_field(f)
+    ns = vars(parser.parse_args(argv))
+    resilience = ResilienceConfig(**{f.name: ns.pop(f.name) for f in res_fields})
+    return PipelineConfig(**ns, resilience=resilience).validate()

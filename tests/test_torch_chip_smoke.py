@@ -182,3 +182,61 @@ def test_ivf_quality_counts_a_tied_neighbour_as_found():
     other[0, 7] = len(pts) - 1 if int(i[0, 7]) == twin else twin
     q = chip_smoke.ivf_quality(pts, 8, (d, i), (d, other), is_out)
     assert q["recall"] == 1.0 and q["index_recall"] < 1.0
+
+
+def test_harness_flags_parse_through_both_clis(tmp_path):
+    from graphmine_tpu.pipeline.config import parse_args as jparse
+
+    from graphmine_tpu_torch.pipeline.config import parse_args
+
+    flags = chip_smoke.harness_flags(tmp_path, tmp_path / "edges.parquet")
+    cfg, ref = parse_args(flags), jparse(flags)
+    for key in ("data_path", "batch_rows", "checkpoint_dir", "checkpoint_every", "resume",
+                "heartbeat_every_s", "prom_out", "metrics_out", "run_id", "profile_dir",
+                "snapshot_out", "max_iter", "lof_k", "lof_impl", "outlier_method"):
+        assert getattr(cfg, key) == getattr(ref, key), key
+    assert cfg.resilience == type(cfg.resilience)(**vars(ref.resilience))
+    assert cfg.resilience.tripwire_every_k == 1 and cfg.resilience.superstep_timeout_s == 120
+    assert cfg.run_id == chip_smoke.HARNESS_RUN_ID and cfg.device == "cuda"
+
+
+def test_harness_phase_checks_and_line_on_a_recorded_cpu_stream(tmp_path, monkeypatch):
+    """Phase 5c's checks and its line on the CPU at a small size: the same
+    flags and fault plan (the out-of-memory error constructed, not
+    provoked), the IVF crossover lowered so "auto" takes IVF as on the
+    main path."""
+    from graphmine_tpu_torch import datasets
+    from graphmine_tpu_torch.pipeline import PipelineConfig, run_pipeline
+    from graphmine_tpu_torch.pipeline.config import parse_args
+    from graphmine_tpu_torch.testing import faults
+
+    monkeypatch.setenv("GRAPHMINE_LOF_IVF_MIN_N", "1024")
+    src, dst, _, _ = datasets.planted_anomaly_graph(2048, 20_000, seed=9)
+    parquet = tmp_path / "edges.parquet"
+    chip_smoke.write_parquet(parquet, src, dst, 2048)
+    plain = run_pipeline(PipelineConfig(data_path=str(parquet), batch_rows=chip_smoke.BATCH_ROWS,
+                                        device="cpu"))
+    phase5 = {"labels": plain.labels, "flags": plain.outliers.outlier_vertices,
+              "features": plain.features}
+    work = tmp_path / "h"
+    work.mkdir()
+    cfg = parse_args(chip_smoke.harness_flags(work, parquet) + ["--device", "cpu"])
+    with chip_smoke._planted([("lpa_superstep", faults.transient_error, 3),
+                              ("outliers_lof", lambda: faults.device_oom("cpu"), 1)]).installed():
+        res = run_pipeline(cfg)
+    records = chip_smoke._jsonl(work / "metrics.jsonl")
+    # the card's launch counts cannot be had here
+    chip_smoke.check_harness(res, records, work, phase5, {"knn_topk": 2})
+    line = chip_smoke.harness_summary(records, 1.5, 123, {"knn_topk": 2})
+    json.dumps(line)
+    assert line["run_id"] == "smoke-5c" and line["records"]["checkpoint_save"] == 5
+    assert line["heartbeats"] >= 0 and line["checkpoint_bytes"] > 0
+    assert len(line["checkpoint_save_seconds"]) == 5
+    assert line["predicted_peak_bytes"] > 0 and line["max_memory_allocated"] == 123
+    assert set(line["phase_seconds"]) >= {"load", "build_graph", "lpa", "census",
+                                          "outliers_recursive_lpa", "features",
+                                          "outliers_lof", "snapshot_publish"}
+    assert line["top_kernels"] == [] and line["profile_trace"].endswith(".json")
+    with pytest.raises(RuntimeError, match="labels differ"):
+        chip_smoke.check_harness(res, records, work, {**phase5, "labels": phase5["labels"] + 1},
+                                 {"knn_topk": 2})
