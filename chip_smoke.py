@@ -128,14 +128,25 @@ PARITY_CASES = ((130, 4, 3), (513, 3, 20), (2000, 5, 50), (4096, 8, 8), (4096, 8
                 (65536, 8, 128))
 TIED_CASE = (4096, 8, 128)  # integer points in [0, 4)^8: most distances tie
 FULL_SHAPE = (V_MAIN, 8, LOF_K)  # the kNN's shape on the main path
-# The general instance (F > 8 or k > 128): normal clouds, a [0, 4)^16 grid
-# at k = 256, and one case whose keys exceed shared memory.
+# The general instance (F <= 64, keys beside its ring): normal clouds and a
+# [0, 4)^16 grid at k = 256; then each rows-a-warp choice with the queries
+# in registers (F <= 8) and in shared memory, at N off a whole tile, F = 1
+# and F = 64 among them, and a [0, 4)^8 grid at k = 256.
 GENERAL_CASES = ((4096, 8, 200), (4096, 8, 1024), (20000, 12, 64), (2000, 33, 300))
 GENERAL_TIED_CASE = (4096, 16, 256)
+GENERAL_PLAN_CASES = ((3001, 1, 130), (2500, 5, 300), (3001, 3, 600), (3001, 8, 1300),
+                      (3001, 16, 100), (3001, 64, 150), (3001, 24, 350), (3001, 40, 500),
+                      (3001, 64, 1300))
+GENERAL_GRID_CASE = (4096, 8, 256)
+# The wide instance (F > 64, or keys too many for the general one): F = 65,
+# and keys in device scratch.
+WIDE_CASE = (3001, 65, 150)
 GLOBAL_SCRATCH_CASE = (4096, 8, 2000)
-GENERAL_TIMED = ((65536, 8, 256), (65536, 16, 128))
+GENERAL_TIMED = ((65536, 8, 256), (65536, 16, 128), (V_MAIN, 8, 256))
+WIDE_TIMED = (65536, 65, 128)
 SMALL_LOF_K = 32
-WIDE_LOF_K = 200  # phase 4's exact run past the fast instance's k
+WIDE_LOF_K = 200  # phase 4's exact run past the fast instance's k: the general instance
+WIDEST_LOF_K = 1500  # phase 4's exact run past the general instance's keys: the wide one
 BATCH_ROWS = 4_000_000  # the JAX e2e tier's streaming batch
 # The IVF gates of the JAX package's LOF policy tests
 IVF_MIN_RECALL = 0.999
@@ -297,8 +308,28 @@ def hold(pts, k: int) -> dict:
     d_p, i_p = _tiled_knn(pts, k)
     torch.cuda.synchronize()
     plan = knn_cuda.launch_plan(pts.shape[0], pts.shape[1], k)
-    return {**check_knn(pts, k, d_k, i_k, d_p, i_p), "instance": plan["instance"],
-            "topk": plan["topk"]}
+    return {**check_knn(pts, k, d_k, i_k, d_p, i_p),
+            **{key: plan[key]
+               for key in ("instance", "topk", "queries", "rows_per_warp", "stages")}}
+
+
+def wide_beside(pts, k: int) -> dict:
+    """The wide instance, which the general one replaced at its shapes, on
+    the same ``pts`` as a general entry, in the same call: its parity
+    against the plain version and its mean milliseconds over 5 launches."""
+    import torch
+
+    from graphmine_tpu_torch.kernels import knn_cuda
+    from graphmine_tpu_torch.ops.knn import _tiled_knn
+
+    plan = knn_cuda.wide_plan(pts.shape[0], pts.shape[1], k)
+    d_k, i_k = knn_cuda.run_plan(pts, k, plan)
+    d_p, i_p = _tiled_knn(pts, k)
+    torch.cuda.synchronize()
+    parity = check_knn(pts, k, d_k, i_k, d_p, i_p)
+    ms = cuda_ms(lambda: knn_cuda.run_plan(pts, k, plan), reps=5)
+    return {"wide_ms": ms, "wide_max_abs_err": parity["max_abs_err"],
+            "wide_index_mismatches": parity["index_mismatches"]}
 
 
 def kernel_ms(pts, k: int) -> float:
@@ -416,19 +447,47 @@ def print_kernels(entries: list) -> None:
         for e in entries}}), flush=True)
 
 
-def general_entries(launches) -> list:
+def general_entries(launches, constant: bool = False, features=None) -> list:
     """The ``kernels`` entries of the general instance at
-    :data:`GENERAL_TIMED` on seeded normal clouds; ``launches``: its count
-    in phase 4's lof_k = 200 run, or None."""
+    :data:`GENERAL_TIMED` (seeded normal clouds; ``features``, the weighted
+    path's, at its own shape where given), each with the wide instance on
+    the same points (:func:`wide_beside`); ``launches``: the general
+    instance's count in phase 4's lof_k = 200 run, or None. With
+    ``constant``, each entry also holds and times the kernel on a constant
+    cloud (every distance 0: each row inserts only its first k candidates,
+    so the time is the distance stream's with next to no top-k work)."""
     import torch
 
     rng = np.random.default_rng(6)
     out = []
     for n, f, k in GENERAL_TIMED:
         pts = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).cuda()
-        out.append(kernel_entry(pts, k, "normal", launches))
+        cloud = "normal"
+        if features is not None and tuple(features.shape) == (n, f):
+            pts, cloud = features, "weighted_path_features"
+        out.append({**kernel_entry(pts, k, cloud, launches), **wide_beside(pts, k)})
         require(out[-1]["instance"] == "general", f"({n}, {f}, {k}) did not run the general instance")
+        log(f"the wide instance on the same points: {out[-1]['wide_ms']:.3f} ms")
+        if constant:
+            pts = torch.ones((n, f), dtype=torch.float32, device="cuda")
+            parity, ms = hold(pts, k), kernel_ms(pts, k)
+            log(f"knn_topk on the constant cloud n={n} f={f} k={k}: {parity}, {ms:.3f} ms")
+            out[-1]["other_clouds"] = [{"cloud": "constant", "ms": ms, **parity}]
+        del pts
     return out
+
+
+def wide_entry(launches) -> dict:
+    """The ``kernels`` entry of the wide instance at :data:`WIDE_TIMED` on a
+    seeded normal cloud; ``launches``: its count in phase 4's lof_k = 1500
+    run, or None."""
+    import torch
+
+    n, f, k = WIDE_TIMED
+    pts = torch.from_numpy(np.random.default_rng(8).normal(size=(n, f)).astype(np.float32)).cuda()
+    entry = kernel_entry(pts, k, "normal", launches)
+    require(entry["instance"] == "wide", f"({n}, {f}, {k}) did not run the wide instance")
+    return entry
 
 
 def write_parquet(path: Path, src: np.ndarray, dst: np.ndarray, num_vertices: int) -> None:
@@ -489,26 +548,34 @@ def main(argv=None) -> int:
     print(json.dumps({"build_seconds": build_s, "parser_build_seconds": parser_s}), flush=True)
 
     # ---- 3. kernel against plain version: tie-free clouds, tied grids ---
-    rng = np.random.default_rng(0)
-    clouds = [(rng.normal(size=(n, f)), k, "normal") for n, f, k in PARITY_CASES]
-    n, f, k = TIED_CASE
-    clouds.append((rng.integers(0, 4, size=(n, f)), k, "grid"))
+    rng, rng_plans = np.random.default_rng(0), np.random.default_rng(1)
+    normal = lambda n, f, g=rng: g.normal(size=(n, f))
+    grid = lambda n, f, g=rng: g.integers(0, 4, size=(n, f))
+    # (points, k, cloud, the instance the shape must run)
+    clouds = [(normal(n, f), k, "normal", "fast") for n, f, k in PARITY_CASES]
+    clouds.append((grid(*TIED_CASE[:2]), TIED_CASE[2], "grid", "fast"))
     if not args.kernels_only:  # --kernels-only holds this one in its own phase
-        n, f, k = FULL_SHAPE
-        clouds.append((rng.integers(0, 4, size=(n, f)), k, "grid"))
-    clouds += [(rng.normal(size=(n, f)), k, "normal") for n, f, k in GENERAL_CASES]
-    n, f, k = GENERAL_TIED_CASE
-    clouds.append((rng.integers(0, 4, size=(n, f)), k, "grid"))
-    n, f, k = GLOBAL_SCRATCH_CASE
-    clouds.append((rng.normal(size=(n, f)), k, "normal"))
-    for cloud, k, kind in clouds:
+        clouds.append((grid(*FULL_SHAPE[:2]), FULL_SHAPE[2], "grid", "fast"))
+    clouds += [(normal(n, f), k, "normal", "general") for n, f, k in GENERAL_CASES]
+    clouds.append((grid(*GENERAL_TIED_CASE[:2]), GENERAL_TIED_CASE[2], "grid", "general"))
+    clouds.append((normal(*GLOBAL_SCRATCH_CASE[:2]), GLOBAL_SCRATCH_CASE[2], "normal", "wide"))
+    clouds += [(normal(n, f, rng_plans), k, "normal", "general") for n, f, k in GENERAL_PLAN_CASES]
+    n, f, k = GENERAL_GRID_CASE
+    clouds.append((grid(n, f, rng_plans), k, "grid", "general"))
+    clouds.append((normal(*WIDE_CASE[:2], rng_plans), WIDE_CASE[2], "normal", "wide"))
+    general_plans = set()
+    for cloud, k, kind, instance in clouds:
         pts = torch.from_numpy(cloud.astype(np.float32)).to(dev)
         res = hold(pts, k)
         n, f = cloud.shape
-        require(res["instance"] == ("fast" if f <= 8 and k <= 128 else "general"),
-                f"({n}, {f}, {k}) ran the {res['instance']} instance")
+        require(res["instance"] == instance, f"({n}, {f}, {k}) ran the {res['instance']} instance")
+        if (n, f, k) == GLOBAL_SCRATCH_CASE:
+            require(res["topk"] == "global", f"({n}, {f}, {k}) did not keep its keys in scratch")
+        if instance == "general":
+            general_plans.add((res["queries"], res["rows_per_warp"]))
         log(f"knn_topk parity {kind} n={n} f={f} k={k}: {res}")
-    require(res["topk"] == "global", "the last parity case did not keep its keys in scratch")
+    every = {(q, r) for q, rows in knn_cuda.GENERAL_ROWS_PER_WARP.items() for r in rows}
+    require(general_plans == every, f"general plans never held: {sorted(every - general_plans)}")
     del pts
 
     if args.kernels_only:
@@ -524,7 +591,8 @@ def main(argv=None) -> int:
             log(f"knn_topk on the {kind} cloud n={n} f={f} k={k}: {parity}, {ms:.3f} ms")
             entry["other_clouds"].append({"cloud": kind, "ms": ms, **parity})
         del full, pts
-        print_kernels([entry] + general_entries(launches=None))
+        print_kernels([entry] + general_entries(launches=None, constant=True)
+                      + [wide_entry(launches=None)])
     else:
         work = ROOT / "build" / "chip_smoke"
         shutil.rmtree(work, ignore_errors=True)
@@ -563,8 +631,9 @@ def read_launches() -> dict:
 def small_pipelines(work: Path) -> dict:
     """Phase 4: the pipeline on the card against the CPU on 4,096-vertex
     planted graphs: exact kNN, quarter weights, the IVF index, parquet
-    input, the exact kNN at lof_k = 200 and a snapshot publish. Returns the
-    launch counts of the lof_k = 200 run on the card."""
+    input, the exact kNN at lof_k = 200 and at lof_k = 1500, and a snapshot
+    publish. Returns the launch counts of the lof_k = 200 (``"wide_k"``) and
+    lof_k = 1500 (``"widest_k"``) runs on the card."""
     import torch
 
     from graphmine_tpu_torch import datasets
@@ -583,8 +652,9 @@ def small_pipelines(work: Path) -> dict:
              "ivf": dict(edges, lof_impl="ivf"),
              "parquet": dict(data_path=str(small_pq), batch_rows=20_000),
              "wide_k": dict(edges, lof_impl="exact", lof_k=WIDE_LOF_K),
+             "widest_k": dict(edges, lof_impl="exact", lof_k=WIDEST_LOF_K),
              "snapshot": dict(edges, lof_impl="exact", snapshot_out="store")}
-    wide_launches = None
+    counts = {}
     for case, kw in cases.items():
         runs = {}
         for d in ("cuda", "cpu"):
@@ -595,8 +665,8 @@ def small_pipelines(work: Path) -> dict:
             runs[d] = run_pipeline(PipelineConfig(**cfg))
             if d == "cuda":
                 torch.cuda.synchronize()
-                if case == "wide_k":
-                    wide_launches = read_launches()
+                if case in ("wide_k", "widest_k"):
+                    counts[case] = read_launches()
         gpu, cpu = runs["cuda"], runs["cpu"]
         require(np.array_equal(gpu.edge_table.names, cpu.edge_table.names), f"{case}: names")
         require(np.array_equal(gpu.labels, cpu.labels), f"{case}: LPA labels differ from the CPU's")
@@ -622,9 +692,11 @@ def small_pipelines(work: Path) -> dict:
             log(f"small pipeline, snapshot: {gpu.metrics.of_phase('cc_summary')[0]}, "
                 f"store version {snaps['cuda'].version}")
         log(f"small pipeline, {case}: card == CPU ({gpu.num_communities} communities)")
-    require(wide_launches["knn_topk_general"] >= 1,
-            f"the lof_k={WIDE_LOF_K} run never launched the general instance: {wide_launches}")
-    log(f"lof_k={WIDE_LOF_K} run launches: {wide_launches}")
+    require(counts["wide_k"]["knn_topk_general"] >= 1,
+            f"the lof_k={WIDE_LOF_K} run never launched the general instance: {counts['wide_k']}")
+    require(counts["widest_k"]["knn_topk_wide"] >= 1,
+            f"the lof_k={WIDEST_LOF_K} run never launched the wide instance: {counts['widest_k']}")
+    log(f"lof_k={WIDE_LOF_K} and {WIDEST_LOF_K} run launches: {counts}")
     from graphmine_tpu_torch.ops.ann import ivf_knn
 
     feats = runs["cuda"].features
@@ -632,7 +704,7 @@ def small_pipelines(work: Path) -> dict:
     torch.cuda.synchronize()
     require(torch.equal(first[0], again[0]) and torch.equal(first[1], again[1]),
             "two IVF runs on the card differ")
-    return wide_launches
+    return counts
 
 
 def drive(cfg, label: str) -> tuple:
@@ -1022,7 +1094,7 @@ def run_main_path(work: Path) -> None:
     from graphmine_tpu_torch.pipeline import PipelineConfig
 
     # ---- 4. the pipeline on the card against the CPU, small graphs ------
-    wide_launches = small_pipelines(work)
+    pipeline_launches = small_pipelines(work)
 
     # ---- 4b. the run harness on the small graph, card and CPU -----------
     print(json.dumps({"harness_small": small_harness(work)}), flush=True)
@@ -1072,11 +1144,13 @@ def run_main_path(work: Path) -> None:
 
     # ---- 6. the kernel at its path's shape; IVF against exact ------------
     # launches: the fast instance's count on the main path (the canary),
-    # the general instance's in phase 4's lof_k = 200 run
+    # the general instance's in phase 4's lof_k = 200 run, the wide one's in
+    # its lof_k = 1500 run
     entry = kernel_entry(feats, LOF_K, "weighted_path_features", main_launches["knn_topk_fast"])
     entry["weighted_path_launches"] = launches["knn_topk_fast"]
+    general = general_entries(pipeline_launches["wide_k"]["knn_topk_general"], features=feats)
     del feats
-    print_kernels([entry] + general_entries(wide_launches["knn_topk_general"]))
+    print_kernels([entry] + general + [wide_entry(pipeline_launches["widest_k"]["knn_topk_wide"])])
     # The JAX package gates the index's recall at 0.999 on its LOF policy
     # tests' cloud (20,000 x 8, k = 32); at the main path's size, k = 128,
     # the index (its algorithm with its defaults) measured recall 0.998 on

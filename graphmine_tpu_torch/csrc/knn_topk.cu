@@ -74,36 +74,62 @@
 //    distance than k points already seen, or the same distance and a
 //    larger index, so it is not among the k nearest.
 //
-// The general instance (any F >= 1, any 0 < k < N): the fast instance's
-// shared memory and registers are sized for F <= 8 and k <= 128 (a ring of
-// 4 x 18 KB tiles beside 96 rows x 160 keys is 197 KB of the 227 KB a block
-// may have; kMaxK/32 keys a lane in registers while merging). The general
-// instance keeps the contract (the same 2F+3 operations in the same order,
-// keys of distance bits over index, ties to the smaller index, the self
-// pair dropped on the rare path) and only has to be right:
-// - A prologue (pack_general_kernel) computes the norms in _sq_norms' order
+// The general instance (1 <= F <= 64, and k up to what its keys leave room
+// for: 1,344): the fast instance's design at any feature count and key
+// capacity, bound the same way, by the FP32 issue rate without FMA (2F+3
+// instructions a pair). It replaces, at these shapes, the simpler kernel
+// kept below as the wide instance, which streamed every point from L2 once
+// a warp. Against that kernel's five limits:
+// 1. A shared tile. A prologue (pack_general_kernel) packs the points tile
+//    by tile, each chunk of 8 features as [f0..f3 x T][f4..f7 x T], then
+//    [norm x T], and a ring of 3 or 4 stages filled by TMA bulk copies
+//    streams them once a block; each lane reads its point from shared
+//    memory a step ahead. T is 512 at F <= 8 and halves as F grows, so that
+//    a stage stays within kGenTileFloats (18 KB).
+// 2. Queries read once. At F <= 8 a warp's R rows live in registers; past
+//    that, the block's rows are staged in shared memory once, a row's
+//    chunk is two broadcast loads, and each lane takes two points a step so
+//    that every broadcast serves both; the cross term is carried across
+//    chunks in feature order.
+// 3. No masks. Padded features are zero, padded points carry an infinite
+//    norm and padded rows a threshold of -inf, so the loop has no bounds
+//    check.
+// 4. A cheaper merge. merge_general is merge_buffer's sort and ranks for any
+//    kcap in shared memory, inlined, with no search a key (see there). At
+//    large k most steps carry a candidate of some row, so each row has its
+//    own vote, and a row without a candidate costs that vote alone.
+// 5. The grid. 16 warps of R = 8, 6, 4, 3, 2 or 1 rows: the most whose keys
+//    fit beside the ring, then the most stages (kernels/knn_cuda.py::
+//    launch_plan picks them and passes them here), one block an SM.
+//
+// The wide instance (F > 64, or keys that do not fit beside a ring of 3
+// stages at one row a warp): there the query rows and a ring no longer fit
+// beside each other, so it keeps no ring. It keeps the contract (the same
+// 2F+3 operations in the same order, keys of distance bits over index, ties
+// to the smaller index, the self pair dropped on the rare path) and only
+// has to be right:
+// - A prologue (pack_wide_kernel) computes the norms in _sq_norms' order
 //   and copies the points into rows of F rounded up to 8, zero-padded. The
 //   cross term runs over those 8-feature chunks, carrying the sum across
 //   chunks in feature order; the padding adds exact zeros.
-// - No ring: each lane reads its reference point's chunk and the warp's
-//   query rows' chunk (one address for the warp, a broadcast) straight
-//   from the packed copy, through L1 and L2; there is no tile padding, so
-//   points past N are masked by `valid`.
+// - Each lane reads its reference point's chunk and the warp's query rows'
+//   chunk (one address for the warp, a broadcast) straight from the packed
+//   copy, through L1 and L2; there is no tile padding, so points past N are
+//   masked by `valid`.
 // - 16 warps of R query rows (R = 6, 3 or 1, a template parameter). Each
 //   row keeps kcap = k rounded up to 32 sorted keys: in shared memory while
 //   16 R (kcap + 32) keys fit in 227 KB, else in device scratch that the
-//   wrapper allocates (one row a warp). The wrapper picks R and the place
-//   (kernels/knn_cuda.py::launch_plan) and passes them here.
-// - merge_general walks the sorted keys in chunks of 32 from the top down
-//   (every key moves up, so no chunk overwrites one not yet read), where
-//   merge_buffer holds all kMaxK keys in registers.
+//   wrapper allocates (one row a warp).
+// - merge_wide walks the sorted keys in chunks of 32 from the top down
+//   (every key moves up, so no chunk overwrites one not yet read).
 //
-// C interface (bound with ctypes): knn_topk_scratch_bytes gives the size
-// of the packed copy the caller allocates; knn_topk_f32 launches the fast
-// instance's prologue and main kernel on the given stream, and
-// knn_general_f32 the general instance's; both return the first launch
-// error (cudaGetLastError()), 0 if none. knn_general_smem_bytes gives the
-// general kernel's dynamic shared memory for a plan.
+// C interface (bound with ctypes): knn_topk_scratch_bytes and
+// knn_general_scratch_bytes give the size of the packed tiles the caller
+// allocates for the fast and the general instance; knn_topk_f32,
+// knn_general_f32 and knn_wide_f32 launch an instance's prologue and main
+// kernel on the given stream and return the first launch error
+// (cudaGetLastError()), 0 if none; the last two return
+// cudaErrorInvalidValue on a plan that is not theirs.
 
 #include <cuda_runtime.h>
 
@@ -384,16 +410,415 @@ knn_topk_kernel(const float* __restrict__ pts, const float* __restrict__ tiles, 
 
 constexpr int kGenWarps = 16;
 constexpr int kGenThreads = kGenWarps * 32;
+constexpr int kGenMaxF = 64;          // features the general instance takes at most
+constexpr int kGenTileFloats = 4608;  // a stage's floats at most (the fast tile: 512 x 9)
+constexpr int kGenMinStages = 3;
+constexpr int kGenMaxStages = 4;
+constexpr int kMergeKeysPerLane = 4;  // keys a lane moves per group of a merge
+constexpr int kMergeGroup = 32 * kMergeKeysPerLane;
+constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may opt into
+
+int general_fpad(int f) { return (f + kFeatPad - 1) / kFeatPad * kFeatPad; }
+
+// Points per stage: the most, as a power of two, whose features and norms
+// fit in kGenTileFloats.
+int general_tile(int fpad) {
+  int tile = 512;
+  while (tile * (fpad + 1) > kGenTileFloats) tile >>= 1;
+  return tile;
+}
+
+// The ring, the rows' top-k keys and buffers, the staged query rows (when
+// they do not live in registers) and the stages' barriers.
+size_t general_smem_bytes(int fpad, int tile, int stages, int rows_per_warp, int kcap,
+                          bool queries_in_registers) {
+  const size_t rows = size_t(kGenWarps) * rows_per_warp;
+  return size_t(stages) * tile * (fpad + 1) * sizeof(float) +
+         rows * (kcap + kBuf) * sizeof(uint64_t) +
+         (queries_in_registers ? 0 : rows * fpad * sizeof(float)) +
+         size_t(stages) * (sizeof(uint64_t) + sizeof(unsigned));
+}
+
+// load_tile for a stage of `bytes` bytes.
+__device__ __forceinline__ void load_stage(float* dst, const float* src, unsigned bytes,
+                                           uint64_t* full) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(full)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(full))
+      : "memory");
+}
+
+// Packs the points tile by tile: for each chunk of 8 features [f0..f3 x T]
+// [f4..f7 x T], then [norm x T]; norms in _sq_norms' order, features past
+// f zero, points past n zero with an infinite norm.
+__global__ void pack_general_kernel(const float* __restrict__ pts, int n, int f, int fpad,
+                                    int tile, unsigned n_pad, float* __restrict__ tiles) {
+  const unsigned j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n_pad) return;
+  const bool real = j < unsigned(n);
+  const float* p = pts + (size_t)j * f;
+  float s = __int_as_float(0x7f800000);
+  if (real) {
+    s = __fmul_rn(p[0], p[0]);
+    for (int c = 1; c < f; ++c) s = __fadd_rn(s, __fmul_rn(p[c], p[c]));
+  }
+  float* t = tiles + (size_t)(j / tile) * tile * (fpad + 1);
+  const unsigned i = j % tile;
+  for (int c = 0; c < fpad; c += 4) {
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = (real && c + e < f) ? p[c + e] : 0.f;
+    reinterpret_cast<float4*>(t)[(c / 4) * tile + i] = make_float4(v[0], v[1], v[2], v[3]);
+  }
+  t[fpad * tile + i] = s;
+}
+
+// merge_buffer for any kcap (a multiple of 32) in shared memory, with no
+// search a key. The warp sorts the buffer (bitonic, one key a lane) and
+// finds each candidate's rank among the kcap sorted keys: lane i holds the
+// last key of run i (kcap / 32 keys), a search over the lanes finds the
+// candidate's run and a binary search in shared memory its place in the
+// run. A candidate's slot in the merged keys is then its rank plus its
+// lane. The slots are rewritten from the top down, kMergeGroup at a time
+// (every key moves up, so no group overwrites one not yet read): for 32
+// slots, one vote counts the candidates placed below them and one OR of
+// the warp marks the slots that take a candidate; any other slot takes the
+// key as many places down as there are candidates below it. Slots below
+// the smallest candidate's keep their key.
+__device__ __forceinline__ float merge_general(uint64_t* topk, const uint64_t* buf, int cnt, int k,
+                                               int kcap, int lane) {
+  __syncwarp();
+  uint64_t b = lane < cnt ? buf[lane] : kSentinelKey;
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const uint64_t o = __shfl_xor_sync(kFull, b, stride);
+      const bool keep_min = ((lane & stride) == 0) == ((lane & size) == 0);
+      b = (o < b) == keep_min ? o : b;
+    }
+  }
+  const int run_len = kcap >> 5;
+  const uint64_t run_last = topk[(lane + 1) * run_len - 1];
+  int run = 0;  // runs whose last key is below b
+#pragma unroll
+  for (int step = 16; step >= 1; step >>= 1) {
+    if (__shfl_sync(kFull, run_last, run + step - 1) < b) run += step;
+  }
+  if (__shfl_sync(kFull, run_last, 31) < b) run = 32;
+  int rank = run * run_len;  // keys below b
+  if (run < 32) {
+    const int end = rank + run_len - 1;  // the run's last key is not below b
+    for (int step = run_len > 1 ? 1 << (31 - __clz(run_len - 1)) : 0; step >= 1; step >>= 1) {
+      if (rank + step <= end && topk[rank + step - 1] < b) rank += step;
+    }
+  }
+  const int slot = lane < cnt ? rank + lane : kcap;  // kcap or past it: dropped
+  const int first = __shfl_sync(kFull, slot, 0);
+  const unsigned lanes_below = (1u << lane) - 1;
+  for (int g = (kcap - 1) / kMergeGroup * kMergeGroup; g >= first / kMergeGroup * kMergeGroup;
+       g -= kMergeGroup) {
+    uint64_t key[kMergeKeysPerLane];
+#pragma unroll
+    for (int s = 0; s < kMergeKeysPerLane; ++s) {
+      const int base = g + s * 32;
+      if (base < kcap) {  // the same for every lane of the warp
+        const int below = __popc(__ballot_sync(kFull, slot < base));
+        const bool here = slot >= base && slot < base + 32;
+        const unsigned taken = __reduce_or_sync(kFull, here ? 1u << (slot - base) : 0u);
+        const int before = below + __popc(taken & lanes_below);  // candidates below this slot
+        const uint64_t cand = __shfl_sync(kFull, b, before & 31);
+        key[s] = (taken >> lane) & 1 ? cand : topk[base + lane - before];
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int s = 0; s < kMergeKeysPerLane; ++s) {
+      if (g + s * 32 < kcap) topk[g + s * 32 + lane] = key[s];
+    }
+  }
+  __syncwarp();
+  return __uint_as_float(static_cast<uint32_t>(topk[k - 1] >> 32));
+}
+
+// One step of 32 points (j0 .. j0 + 31, one a lane) against a warp's R
+// rows, from each row's cross term: the distances, one vote a row (a row
+// with no candidate in the step costs its vote alone, where at large k
+// most steps carry a candidate of some row), and the rare path of the
+// fast instance for each row that has one.
+template <int R>
+__device__ __forceinline__ void take_step(float (&d2)[R], float c_sq, unsigned j0,
+                                          const float (&q_sq)[R], float (&thr)[R], int (&cnt)[R],
+                                          uint64_t* my_topk, uint64_t* my_buf, int row0, int k,
+                                          int kcap, int lane) {
+  unsigned hits[R];
+  unsigned any = 0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    d2[r] = __fadd_rn(__fsub_rn(q_sq[r], __fmul_rn(2.f, d2[r])), c_sq);
+    hits[r] = __ballot_sync(kFull, !(d2[r] >= thr[r]));
+    any |= hits[r];
+  }
+  if (!any) return;
+  const unsigned j = j0 + lane;
+  const unsigned lanes_below = (1u << lane) - 1;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (!hits[r]) continue;
+    const float nd = d2[r] > 0.f ? d2[r] : 0.f;  // the plain version's clamp
+    bool pass = nd < thr[r] && j != unsigned(row0 + r);
+    unsigned mask = __ballot_sync(kFull, pass);
+    if (!mask) continue;
+    uint64_t* row_buf = my_buf + r * kBuf;
+    if (cnt[r] + __popc(mask) > kBuf) {
+      thr[r] = merge_general(my_topk + r * kcap, row_buf, cnt[r], k, kcap, lane);
+      cnt[r] = 0;
+      pass = pass && nd < thr[r];
+      mask = __ballot_sync(kFull, pass);
+    }
+    if (pass) {
+      row_buf[cnt[r] + __popc(mask & lanes_below)] = (uint64_t(__float_as_uint(nd)) << 32) | j;
+    }
+    cnt[r] += __popc(mask);
+  }
+}
+
+// kQReg: the warp's R query rows live in registers (fpad == 8); else the
+// block's rows are staged in shared memory once and read as broadcasts.
+template <bool kQReg, int R>
+__global__ void __launch_bounds__(kGenThreads, 1)
+knn_general_kernel(const float* __restrict__ pts, const float* __restrict__ tiles, int n, int f,
+                   int fpad, int k, int kcap, int tile, int stages, int n_tiles,
+                   float* __restrict__ out_d, int* __restrict__ out_i) {
+  constexpr int kRows = kGenWarps * R;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tile_floats = tile * (fpad + 1);
+  const unsigned tile_bytes = tile_floats * sizeof(float);
+  float* ring = reinterpret_cast<float*>(smem);
+  uint64_t* topk_keys = reinterpret_cast<uint64_t*>(smem + size_t(stages) * tile_bytes);
+  uint64_t* buf_keys = topk_keys + (size_t)kRows * kcap;
+  float* q_rows = reinterpret_cast<float*>(buf_keys + kRows * kBuf);
+  uint64_t* full = reinterpret_cast<uint64_t*>(q_rows + (kQReg ? 0 : kRows * fpad));
+  unsigned* released = reinterpret_cast<unsigned*>(full + stages);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      released[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    for (int t = 0; t < stages && t < n_tiles; ++t) {
+      load_stage(ring + t * tile_floats, tiles + (size_t)t * tile_floats, tile_bytes, &full[t]);
+    }
+  }
+  __syncthreads();
+
+  const int row0 = blockIdx.x * kRows + warp * R;
+  uint64_t* my_topk = topk_keys + (size_t)warp * R * kcap;
+  uint64_t* my_buf = buf_keys + warp * R * kBuf;
+  float* my_q = q_rows + warp * R * fpad;
+  for (int i = lane; i < R * kcap; i += 32) my_topk[i] = kSentinelKey;
+  if constexpr (!kQReg) {
+    for (int i = lane; i < R * fpad; i += 32) {
+      const int row = row0 + i / fpad, c = i % fpad;
+      my_q[i] = (row < n && c < f) ? pts[(size_t)row * f + c] : 0.f;
+    }
+  }
+  __syncwarp();
+
+  const float inf = __int_as_float(0x7f800000);
+  const int n_chunks = fpad / kFeatPad;
+  float q[kQReg ? R : 1][kFeatPad];
+  float q_sq[R];
+  float thr[R];
+  int cnt[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = row0 + r;
+    const bool real = row < n;
+    if constexpr (kQReg) {
+#pragma unroll
+      for (int c = 0; c < kFeatPad; ++c) q[r][c] = (real && c < f) ? pts[(size_t)row * f + c] : 0.f;
+    }
+    // The prologue's norm; a padded row gets 0 and a threshold of -inf,
+    // so its distances are finite and never pass.
+    q_sq[r] = real ? tiles[(size_t)(row / tile) * tile_floats + fpad * tile + row % tile] : 0.f;
+    thr[r] = real ? inf : -inf;
+    cnt[r] = 0;
+  }
+
+  for (int t = 0, s = 0, phase = 0; t < n_tiles; ++t) {
+    mbar_wait(&full[s], phase);
+    // chunk c of point i: fx[2c tile + i] (features 8c..8c+3) and
+    // fx[(2c+1) tile + i] (8c+4..8c+7); its norm fn[i]
+    const float4* fx = reinterpret_cast<const float4*>(ring + s * tile_floats);
+    const float* fn = ring + s * tile_floats + fpad * tile;
+    const unsigned base = unsigned(t) * tile;
+    if constexpr (kQReg) {
+      float4 a = fx[lane];
+      float4 b = fx[tile + lane];
+      float c_sq = fn[lane];
+      for (int t0 = 0; t0 < tile; t0 += 32) {
+        // The next step's point and norm, loaded while this one computes
+        // (the last step of a tile reloads the tile's first point).
+        const int next = t0 + 32 < tile ? t0 + 32 + lane : lane;
+        const float4 a_next = fx[next];
+        const float4 b_next = fx[tile + next];
+        const float c_sq_next = fn[next];
+        const float x[kFeatPad] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+        float d2[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) d2[r] = __fmul_rn(q[r][0], x[0]);
+#pragma unroll
+        for (int c = 1; c < kFeatPad; ++c) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) d2[r] = __fadd_rn(d2[r], __fmul_rn(q[r][c], x[c]));
+        }
+        take_step<R>(d2, c_sq, base + t0, q_sq, thr, cnt, my_topk, my_buf, row0, k, kcap, lane);
+        a = a_next;
+        b = b_next;
+        c_sq = c_sq_next;
+      }
+    } else {
+      // Two points a lane a step (64 a warp), so that each broadcast load
+      // of a row's four features serves two points: the shared-memory
+      // pipe, not the FP32 one, bounds the step otherwise. The cross term
+      // runs feature by feature, carried across chunks.
+      const float4* qx = reinterpret_cast<const float4*>(my_q);
+      const int q_stride = fpad / 4;  // float4s a row
+      for (int t0 = 0; t0 < tile; t0 += 64) {
+        const int i = t0 + lane;
+        float d2[2][R];
+        float4 u[R];
+        {
+          const float4 x = fx[i];
+          const float4 y = fx[i + 32];
+#pragma unroll
+          for (int r = 0; r < R; ++r) u[r] = qx[r * q_stride];
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            d2[0][r] = __fmul_rn(u[r].x, x.x);
+            d2[1][r] = __fmul_rn(u[r].x, y.x);
+            d2[0][r] = __fadd_rn(d2[0][r], __fmul_rn(u[r].y, x.y));
+            d2[1][r] = __fadd_rn(d2[1][r], __fmul_rn(u[r].y, y.y));
+            d2[0][r] = __fadd_rn(d2[0][r], __fmul_rn(u[r].z, x.z));
+            d2[1][r] = __fadd_rn(d2[1][r], __fmul_rn(u[r].z, y.z));
+            d2[0][r] = __fadd_rn(d2[0][r], __fmul_rn(u[r].w, x.w));
+            d2[1][r] = __fadd_rn(d2[1][r], __fmul_rn(u[r].w, y.w));
+          }
+        }
+        for (int h = 1; h < 2 * n_chunks; ++h) {
+          const float4 x = fx[h * tile + i];
+          const float4 y = fx[h * tile + i + 32];
+#pragma unroll
+          for (int r = 0; r < R; ++r) u[r] = qx[r * q_stride + h];
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            d2[0][r] = __fadd_rn(d2[0][r], __fmul_rn(u[r].x, x.x));
+            d2[1][r] = __fadd_rn(d2[1][r], __fmul_rn(u[r].x, y.x));
+            d2[0][r] = __fadd_rn(d2[0][r], __fmul_rn(u[r].y, x.y));
+            d2[1][r] = __fadd_rn(d2[1][r], __fmul_rn(u[r].y, y.y));
+            d2[0][r] = __fadd_rn(d2[0][r], __fmul_rn(u[r].z, x.z));
+            d2[1][r] = __fadd_rn(d2[1][r], __fmul_rn(u[r].z, y.z));
+            d2[0][r] = __fadd_rn(d2[0][r], __fmul_rn(u[r].w, x.w));
+            d2[1][r] = __fadd_rn(d2[1][r], __fmul_rn(u[r].w, y.w));
+          }
+        }
+        // the lower 32 points, then the upper: the scan stays in index order
+#pragma unroll 1
+        for (int half = 0; half < 2; ++half) {
+          float v[R];
+#pragma unroll
+          for (int r = 0; r < R; ++r) v[r] = half ? d2[1][r] : d2[0][r];
+          take_step<R>(v, fn[i + 32 * half], base + t0 + 32 * half, q_sq, thr, cnt, my_topk, my_buf,
+                       row0, k, kcap, lane);
+        }
+      }
+    }
+    // Release the stage; the last warp to release it refills it with the
+    // tile `stages` ahead.
+    __syncwarp();
+    if (lane == 0) {
+      __threadfence_block();
+      if (atomicAdd(&released[s], 1u) % kGenWarps == kGenWarps - 1 && t + stages < n_tiles) {
+        __threadfence_block();
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        load_stage(ring + s * tile_floats, tiles + (size_t)(t + stages) * tile_floats, tile_bytes,
+                   &full[s]);
+      }
+    }
+    if (++s == stages) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = row0 + r;
+    if (row >= n) continue;
+    uint64_t* row_topk = my_topk + r * kcap;
+    if (cnt[r] > 0) merge_general(row_topk, my_buf + r * kBuf, cnt[r], k, kcap, lane);
+    for (int p = lane; p < k; p += 32) {
+      const uint64_t key = row_topk[p];
+      out_d[(size_t)row * k + p] = __uint_as_float(static_cast<uint32_t>(key >> 32));
+      out_i[(size_t)row * k + p] = static_cast<int>(static_cast<uint32_t>(key));
+    }
+  }
+}
+
+template <bool kQReg, int R>
+int launch_general(const float* points, const float* tiles, int n, int f, int fpad, int k,
+                   int kcap, int tile, int stages, int n_tiles, float* out_d, int* out_i,
+                   size_t smem, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(knn_general_kernel<kQReg, R>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rows_per_block = kGenWarps * R;
+  knn_general_kernel<kQReg, R><<<(n + rows_per_block - 1) / rows_per_block, kGenThreads, smem, s>>>(
+      points, tiles, n, f, fpad, k, kcap, tile, stages, n_tiles, out_d, out_i);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The rows a warp of the general instance may take: 6, 4, 3, 2 or 1 with
+// the queries in registers, and 8 too with the queries in shared memory.
+bool general_rows_ok(bool queries_in_registers, int rows_per_warp) {
+  switch (rows_per_warp) {
+    case 8:
+      return !queries_in_registers;
+    case 6:
+    case 4:
+    case 3:
+    case 2:
+    case 1:
+      return true;
+    default:
+      return false;
+  }
+}
+
+
+// ---- the wide instance (see the note at the top) -------------------------
+
+constexpr int kWideWarps = 16;
+constexpr int kWideThreads = kWideWarps * 32;
 constexpr int kChunk = 8;  // features per step of the cross-term sum
 
-size_t general_smem_bytes(int rows_per_warp, int kcap, bool global_topk) {
-  return size_t(kGenWarps) * rows_per_warp * (kBuf + (global_topk ? 0 : kcap)) *
+size_t wide_smem_bytes(int rows_per_warp, int kcap, bool global_topk) {
+  return size_t(kWideWarps) * rows_per_warp * (kBuf + (global_topk ? 0 : kcap)) *
          sizeof(uint64_t);
 }
 
 // Norms in _sq_norms' order and the points copied into rows of fpad
 // (F rounded up to 8) floats, zero-padded.
-__global__ void pack_general_kernel(const float* __restrict__ pts, int n, int f, int fpad,
+__global__ void pack_wide_kernel(const float* __restrict__ pts, int n, int f, int fpad,
                                     float* __restrict__ packed, float* __restrict__ norms) {
   const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
@@ -415,7 +840,7 @@ __global__ void pack_general_kernel(const float* __restrict__ pts, int n, int f,
 // chunk read whole before it is written; keys below the smallest
 // candidate's rank stay in place. `topk` may point to shared or global
 // memory.
-__device__ float merge_general(uint64_t* topk, const uint64_t* buf, int cnt, int k, int kcap,
+__device__ float merge_wide(uint64_t* topk, const uint64_t* buf, int cnt, int k, int kcap,
                                int lane) {
   __syncwarp();
   uint64_t b = lane < cnt ? buf[lane] : kSentinelKey;
@@ -463,19 +888,19 @@ __device__ __forceinline__ void load8(const float* p, float x[kChunk]) {
 }
 
 template <int R>
-__global__ void __launch_bounds__(kGenThreads, 1)
-knn_general_kernel(const float* __restrict__ packed, const float* __restrict__ norms, int n,
+__global__ void __launch_bounds__(kWideThreads, 1)
+knn_wide_kernel(const float* __restrict__ packed, const float* __restrict__ norms, int n,
                    int fpad, int k, int kcap, uint64_t* __restrict__ topk_global,
                    float* __restrict__ out_d, int* __restrict__ out_i) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint64_t* buf_keys = reinterpret_cast<uint64_t*>(smem);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const long long row0 = ((long long)blockIdx.x * kGenWarps + warp) * R;
+  const long long row0 = ((long long)blockIdx.x * kWideWarps + warp) * R;
   uint64_t* my_buf = buf_keys + warp * R * kBuf;
   uint64_t* my_topk = topk_global != nullptr
                           ? topk_global + (size_t)row0 * kcap
-                          : buf_keys + kGenWarps * R * kBuf + (size_t)warp * R * kcap;
+                          : buf_keys + kWideWarps * R * kBuf + (size_t)warp * R * kcap;
   for (int i = lane; i < R * kcap; i += 32) my_topk[i] = kSentinelKey;
   __syncwarp();
 
@@ -530,7 +955,7 @@ knn_general_kernel(const float* __restrict__ packed, const float* __restrict__ n
         if (!mask) continue;
         uint64_t* row_buf = my_buf + r * kBuf;
         if (cnt[r] + __popc(mask) > kBuf) {
-          thr[r] = merge_general(my_topk + (size_t)r * kcap, row_buf, cnt[r], k, kcap, lane);
+          thr[r] = merge_wide(my_topk + (size_t)r * kcap, row_buf, cnt[r], k, kcap, lane);
           cnt[r] = 0;
           pass = pass && nd < thr[r];
           mask = __ballot_sync(kFull, pass);
@@ -549,7 +974,7 @@ knn_general_kernel(const float* __restrict__ packed, const float* __restrict__ n
     const long long row = row0 + r;
     if (row >= n) continue;
     uint64_t* row_topk = my_topk + (size_t)r * kcap;
-    if (cnt[r] > 0) merge_general(row_topk, my_buf + r * kBuf, cnt[r], k, kcap, lane);
+    if (cnt[r] > 0) merge_wide(row_topk, my_buf + r * kBuf, cnt[r], k, kcap, lane);
     for (int p = lane; p < k; p += 32) {
       const uint64_t key = row_topk[p];
       out_d[(size_t)row * k + p] = __uint_as_float(static_cast<uint32_t>(key >> 32));
@@ -559,15 +984,15 @@ knn_general_kernel(const float* __restrict__ packed, const float* __restrict__ n
 }
 
 template <int R>
-int launch_general(const float* packed, const float* norms, int n, int fpad, int k, int kcap,
+int launch_wide(const float* packed, const float* norms, int n, int fpad, int k, int kcap,
                    uint64_t* topk_global, float* out_d, int* out_i, size_t smem,
                    cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(knn_general_kernel<R>,
+  cudaError_t err = cudaFuncSetAttribute(knn_wide_kernel<R>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long rows_per_block = kGenWarps * R;
+  const long long rows_per_block = kWideWarps * R;
   const unsigned blocks = static_cast<unsigned>((n + rows_per_block - 1) / rows_per_block);
-  knn_general_kernel<R><<<blocks, kGenThreads, smem, s>>>(packed, norms, n, fpad, k, kcap,
+  knn_wide_kernel<R><<<blocks, kWideThreads, smem, s>>>(packed, norms, n, fpad, k, kcap,
                                                           topk_global, out_d, out_i);
   return static_cast<int>(cudaGetLastError());
 }
@@ -596,37 +1021,88 @@ extern "C" int knn_topk_f32(const float* points, int n, int f, int k, float* out
   return static_cast<int>(cudaGetLastError());
 }
 
-// General instance (any f >= 1, 0 < k < n): rows_per_warp (6, 3 or 1) and
+// Wide instance (any f >= 1, 0 < k < n): rows_per_warp (6, 3 or 1) and
 // kcap (k rounded up to 32) from the wrapper's launch plan; topk_scratch
 // holds ceil(n / (16 rows_per_warp)) * 16 rows_per_warp * kcap keys, or is
 // null to keep the keys in shared memory; smem_bytes must be
-// knn_general_smem_bytes of the same plan. packed: n * fpad floats (f
+// wide_smem_bytes of the same plan. packed: n * fpad floats (f
 // rounded up to 8), norms: n floats, both 16-byte aligned.
-extern "C" size_t knn_general_smem_bytes(int rows_per_warp, int kcap, int global_topk) {
-  return general_smem_bytes(rows_per_warp, kcap, global_topk != 0);
-}
-
-extern "C" int knn_general_f32(const float* points, int n, int f, int k, int rows_per_warp,
-                               int kcap, size_t smem_bytes, float* packed, float* norms,
-                               void* topk_scratch, float* out_d, int* out_i, void* stream) {
+extern "C" int knn_wide_f32(const float* points, int n, int f, int k, int rows_per_warp, int kcap,
+                            size_t smem_bytes, float* packed, float* norms, void* topk_scratch,
+                            float* out_d, int* out_i, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kcap < k || kcap % 32 != 0 || f < 1 || !(0 < k && k < n) ||
-      smem_bytes != general_smem_bytes(rows_per_warp, kcap, topk_scratch != nullptr)) {
+      smem_bytes != wide_smem_bytes(rows_per_warp, kcap, topk_scratch != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int fpad = (f + kChunk - 1) / kChunk * kChunk;
-  pack_general_kernel<<<(n + 255) / 256, 256, 0, s>>>(points, n, f, fpad, packed, norms);
+  pack_wide_kernel<<<(n + 255) / 256, 256, 0, s>>>(points, n, f, fpad, packed, norms);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   uint64_t* topk = static_cast<uint64_t*>(topk_scratch);
   switch (rows_per_warp) {
     case 6:
-      return launch_general<6>(packed, norms, n, fpad, k, kcap, topk, out_d, out_i, smem_bytes, s);
+      return launch_wide<6>(packed, norms, n, fpad, k, kcap, topk, out_d, out_i, smem_bytes, s);
     case 3:
-      return launch_general<3>(packed, norms, n, fpad, k, kcap, topk, out_d, out_i, smem_bytes, s);
+      return launch_wide<3>(packed, norms, n, fpad, k, kcap, topk, out_d, out_i, smem_bytes, s);
     case 1:
-      return launch_general<1>(packed, norms, n, fpad, k, kcap, topk, out_d, out_i, smem_bytes, s);
+      return launch_wide<1>(packed, norms, n, fpad, k, kcap, topk, out_d, out_i, smem_bytes, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+// General instance (1 <= f <= 64, 0 < k < n), from the wrapper's launch
+// plan: tile (general_tile of f rounded up to 8), stages (2-4),
+// rows_per_warp, queries_in_registers (exactly when f <= 8), kcap (k
+// rounded up to 32) and smem_bytes (general_smem_bytes of the same plan,
+// at most kSmemLimit). tiles: knn_general_scratch_bytes(n, f) bytes,
+// 16-byte aligned. Returns cudaErrorInvalidValue on any other plan.
+extern "C" size_t knn_general_scratch_bytes(int n, int f) {
+  const int fpad = general_fpad(f);
+  const int tile = general_tile(fpad);
+  return size_t((n + tile - 1) / tile) * tile * (fpad + 1) * sizeof(float);
+}
+
+extern "C" int knn_general_f32(const float* points, int n, int f, int k, int tile, int stages,
+                               int rows_per_warp, int queries_in_registers, int kcap,
+                               size_t smem_bytes, float* tiles, float* out_d, int* out_i,
+                               void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool q_reg = queries_in_registers != 0;
+  const int fpad = general_fpad(f);
+  if (f < 1 || f > kGenMaxF || !(0 < k && k < n) || kcap < k || kcap % 32 != 0 ||
+      tile != general_tile(fpad) || stages < kGenMinStages || stages > kGenMaxStages ||
+      q_reg != (fpad == kFeatPad) || !general_rows_ok(q_reg, rows_per_warp) ||
+      smem_bytes != general_smem_bytes(fpad, tile, stages, rows_per_warp, kcap, q_reg) ||
+      smem_bytes > size_t(kSmemLimit)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int n_tiles = (n + tile - 1) / tile;
+  const unsigned n_pad = unsigned(n_tiles) * tile;
+  pack_general_kernel<<<(n_pad + 255) / 256, 256, 0, s>>>(points, n, f, fpad, tile, n_pad, tiles);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+#define GM_LAUNCH(Q, R)                                                                        \
+  return launch_general<Q, R>(points, tiles, n, f, fpad, k, kcap, tile, stages, n_tiles, out_d, \
+                              out_i, smem_bytes, s)
+  if (q_reg) {
+    switch (rows_per_warp) {
+      case 6: GM_LAUNCH(true, 6);
+      case 4: GM_LAUNCH(true, 4);
+      case 3: GM_LAUNCH(true, 3);
+      case 2: GM_LAUNCH(true, 2);
+      default: GM_LAUNCH(true, 1);
+    }
+  }
+  switch (rows_per_warp) {
+    case 8: GM_LAUNCH(false, 8);
+    case 6: GM_LAUNCH(false, 6);
+    case 4: GM_LAUNCH(false, 4);
+    case 3: GM_LAUNCH(false, 3);
+    case 2: GM_LAUNCH(false, 2);
+    default: GM_LAUNCH(false, 1);
+  }
+#undef GM_LAUNCH
+}
+

@@ -55,6 +55,31 @@ def test_parses_kernels_only():
         chip_smoke.parse_args(["--kernel-only-typo"])
 
 
+def test_every_general_plan_has_a_parity_case():
+    """Phase 3's cases run each rows-a-warp choice of the general instance
+    with its queries in registers and in shared memory, F = 1 and F = 64,
+    N off a whole tile, and the wide instance at F = 65 and with its keys in
+    device scratch (the plans as the wrapper computes them on the CPU)."""
+    from graphmine_tpu_torch.kernels import knn_cuda
+
+    general = (chip_smoke.GENERAL_CASES + chip_smoke.GENERAL_PLAN_CASES
+               + (chip_smoke.GENERAL_TIED_CASE, chip_smoke.GENERAL_GRID_CASE))
+    plans = [knn_cuda.launch_plan(*case) for case in general]
+    assert {p["instance"] for p in plans} == {"general"}
+    assert {(p["queries"], p["rows_per_warp"]) for p in plans} == {
+        (q, r) for q, rows in knn_cuda.GENERAL_ROWS_PER_WARP.items() for r in rows}
+    assert {p["stages"] for p in plans} == set(knn_cuda.GENERAL_STAGES)
+    assert {1, 64} <= {f for _, f, _ in general}
+    assert any(n % p["tile"] for (n, _, _), p in zip(general, plans))
+    assert knn_cuda.launch_plan(*chip_smoke.WIDE_CASE)["instance"] == "wide"
+    assert chip_smoke.WIDE_CASE[1] == 65
+    scratch = knn_cuda.launch_plan(*chip_smoke.GLOBAL_SCRATCH_CASE)
+    assert (scratch["instance"], scratch["topk"]) == ("wide", "global")
+    assert [knn_cuda.launch_plan(*s)["instance"] for s in chip_smoke.GENERAL_TIMED] == [
+        "general"] * 3
+    assert knn_cuda.launch_plan(*chip_smoke.WIDE_TIMED)["instance"] == "wide"
+
+
 def test_exits_nonzero_alone(tmp_path):
     shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
     out = _run(tmp_path)

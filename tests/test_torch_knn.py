@@ -141,6 +141,21 @@ def test_plain_knn_matches_jax_knn_past_the_fast_instance():
     np.testing.assert_array_equal(i.numpy(), np.asarray(i_ref))
 
 
+@pytest.mark.parametrize("f", [64, 65])
+def test_plain_knn_matches_jax_knn_at_the_general_instances_widest(f):
+    # F = 64, the general instance's widest, and F = 65, the wide
+    # instance's, at k = 150. Points on the integer grid [0, 4)^F: every
+    # distance is an integer below 2^24, exact in both packages' float32
+    # arithmetic, so distances and indices are equal, ties included.
+    from graphmine_tpu.ops.knn import knn as jknn
+
+    pts = np.random.default_rng(f).integers(0, 4, size=(700, f)).astype(np.float32)
+    d, i = knn(torch.tensor(pts), 150, row_tile=256)
+    d_ref, i_ref = jknn(pts, 150)
+    np.testing.assert_array_equal(d.numpy(), np.asarray(d_ref))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i_ref))
+
+
 def _cu_constants():
     import re
 
@@ -156,24 +171,90 @@ def test_fast_plan_is_the_sources_shape():
 
     c = _cu_constants()
     assert (c["kFeatPad"], c["kMaxK"]) == (knn_cuda.FAST_F, knn_cuda.FAST_K)
+    assert (c["kTile"], c["kStages"]) == (knn_cuda.FAST_TILE, knn_cuda.FAST_STAGES)
     assert c["kWarps"] * c["kRowsPerWarp"] == knn_cuda.FAST_ROWS_PER_BLOCK
     ring = c["kStages"] * c["kTile"] * (c["kFeatPad"] + 1) * 4
     keys = knn_cuda.FAST_ROWS_PER_BLOCK * (c["kMaxK"] + c["kBuf"]) * 8
     assert knn_cuda.FAST_SMEM_BYTES == ring + keys + c["kStages"] * (8 + 4)
-    assert c["kGenWarps"] == knn_cuda.GENERAL_WARPS and c["kBuf"] == 32
+    assert c["kWideWarps"] == knn_cuda.WIDE_WARPS and c["kBuf"] == 32
+
+
+def test_general_plan_is_the_sources_shape():
+    """The wrapper's general-instance constants are the source's: warps,
+    the largest F, a stage's floats, the stage counts, the shared-memory
+    limit and the rows a warp of each query layout (the template arguments
+    knn_general_f32 dispatches to)."""
+    import re
+
+    from graphmine_tpu_torch.kernels import knn_cuda
+
+    c = _cu_constants()
+    assert c["kGenWarps"] == knn_cuda.GENERAL_WARPS == 16
+    assert c["kGenMaxF"] == knn_cuda.GENERAL_MAX_F == 64
+    assert c["kGenTileFloats"] == knn_cuda.GENERAL_TILE_FLOATS == c["kTile"] * (c["kFeatPad"] + 1)
+    assert (c["kGenMaxStages"], c["kGenMinStages"]) == (max(knn_cuda.GENERAL_STAGES),
+                                                        min(knn_cuda.GENERAL_STAGES))
+    assert sorted(knn_cuda.GENERAL_STAGES) == list(range(c["kGenMinStages"],
+                                                         c["kGenMaxStages"] + 1))
+    assert c["kSmemLimit"] == knn_cuda.SMEM_LIMIT_BYTES
+    code = knn_cuda.SOURCE.read_text()
+    for flag, queries in (("true", "registers"), ("false", "shared")):
+        rows = {int(r) for r in re.findall(rf"GM_LAUNCH\({flag}, (\d+)\)", code)}
+        assert rows == set(knn_cuda.GENERAL_ROWS_PER_WARP[queries])
+    # the tile rule: the most points, a power of two up to 512, within a
+    # stage's floats
+    for fpad in range(8, 65, 8):
+        tile = knn_cuda.general_tile(fpad)
+        assert tile * (fpad + 1) <= c["kGenTileFloats"] < 2 * tile * (fpad + 1) or tile == 512
+    assert [knn_cuda.general_tile(fp) for fp in (8, 16, 24, 32, 40, 64)] == [512, 256, 128, 128,
+                                                                             64, 64]
+
+
+def _expected_smem(plan, f):
+    """A plan's shared memory from its parts: the ring, the keys and
+    buffers, the staged queries and a barrier and count per stage (general);
+    the keys and buffers, or the buffers alone (wide)."""
+    rows, kcap = plan["rows_per_block"], plan["kcap"]
+    if plan["instance"] == "general":
+        fpad = -(-f // 8) * 8
+        ring = plan["stages"] * plan["tile"] * (fpad + 1) * 4
+        queries = rows * fpad * 4 if plan["queries"] == "shared" else 0
+        return ring + rows * (kcap + 32) * 8 + queries + plan["stages"] * (8 + 4)
+    if plan["instance"] == "wide":
+        return rows * (kcap + 32 if plan["topk"] == "shared" else 32) * 8
+    return plan["smem_bytes"]
 
 
 @pytest.mark.parametrize("n,f,k,instance,rows,topk", [
     (262_144, 8, 128, "fast", 96, "shared"),       # the main path
     (384, 4, 16, "fast", 96, "shared"),            # the canary probe
-    (4096, 8, 200, "general", 96, "shared"),
-    (65_536, 16, 128, "general", 96, "shared"),
-    (2000, 33, 300, "general", 48, "shared"),
+    (4096, 8, 200, "general", 64, "shared"),       # phase 4's lof_k = 200
+    (65_536, 16, 128, "general", 128, "shared"),
+    (2000, 33, 300, "general", 64, "shared"),
     (4096, 8, 1024, "general", 16, "shared"),
-    (4096, 8, 1760, "general", 16, "shared"),
-    (4096, 8, 1761, "general", 16, "global"),
-    (100_000, 3, 50_000, "general", 16, "global"),
-    (10, 5000, 9, "general", 96, "shared"),
+    (4096, 8, 1760, "wide", 16, "shared"),
+    (4096, 8, 1761, "wide", 16, "global"),
+    (100_000, 3, 50_000, "wide", 16, "global"),
+    (10, 5000, 9, "wide", 96, "shared"),
+    # queries in registers (F <= 8), each rows-a-warp choice
+    (3001, 1, 130, "general", 96, "shared"),
+    (65_536, 8, 256, "general", 64, "shared"),
+    (2500, 5, 300, "general", 48, "shared"),
+    (3001, 3, 600, "general", 32, "shared"),
+    (3001, 8, 1300, "general", 16, "shared"),
+    # queries in shared memory (9 <= F <= 64), each rows-a-warp choice
+    (3001, 16, 100, "general", 128, "shared"),
+    (3001, 64, 150, "general", 96, "shared"),
+    (4096, 16, 256, "general", 64, "shared"),
+    (3001, 24, 350, "general", 48, "shared"),
+    (3001, 40, 500, "general", 32, "shared"),
+    (3001, 64, 1300, "general", 16, "shared"),
+    # F = 64 against F = 65; the key capacity where general gives way to wide
+    (3001, 65, 150, "wide", 96, "shared"),
+    (3000, 8, 1344, "general", 16, "shared"),
+    (3000, 8, 1345, "wide", 16, "shared"),
+    (3000, 64, 1344, "general", 16, "shared"),
+    (3000, 64, 1345, "wide", 16, "shared"),
 ])
 def test_launch_plan_pins_the_instances(n, f, k, instance, rows, topk):
     from graphmine_tpu_torch.kernels import knn_cuda
@@ -182,9 +263,13 @@ def test_launch_plan_pins_the_instances(n, f, k, instance, rows, topk):
     assert (plan["instance"], plan["rows_per_block"], plan["topk"]) == (instance, rows, topk)
     assert plan["smem_bytes"] <= knn_cuda.SMEM_LIMIT_BYTES == 232_448
     assert plan["kcap"] >= k and plan["kcap"] % 32 == 0
+    assert plan["smem_bytes"] == _expected_smem(plan, f)
     if instance == "general":
-        keys = plan["kcap"] + 32 if topk == "shared" else 32
-        assert plan["smem_bytes"] == 16 * plan["rows_per_warp"] * keys * 8
+        assert plan["queries"] == ("registers" if f <= 8 else "shared")
+        assert plan["stages"] in (3, 4) and plan["tile"] == knn_cuda.general_tile(-(-f // 8) * 8)
+    if instance == "wide":
+        assert (plan["queries"], plan["tile"], plan["stages"]) == ("global", 0, 0)
+        assert plan == knn_cuda.wide_plan(n, f, k)
         blocks = -(-n // rows)
         assert plan["scratch_keys"] == (blocks * rows * plan["kcap"] if topk == "global" else 0)
 
@@ -193,18 +278,36 @@ def test_every_launch_plan_fits_and_the_bad_shapes_raise():
     from graphmine_tpu_torch.kernels import knn_cuda
 
     rng = np.random.default_rng(12)
+    limit = knn_cuda.SMEM_LIMIT_BYTES
     for _ in range(2000):
         n = int(rng.integers(2, 1 << 31))
-        k = int(rng.integers(1, min(n, 1 << 20)))
-        f = int(rng.integers(1, 4096))
+        k = int(rng.integers(1, min(n, 1 << 20))) if rng.random() < 0.5 else int(
+            rng.integers(1, min(n, 2000)))
+        f = int(rng.integers(1, 4096)) if rng.random() < 0.5 else int(rng.integers(1, 80))
         plan = knn_cuda.launch_plan(n, f, k)
-        assert plan["smem_bytes"] <= knn_cuda.SMEM_LIMIT_BYTES
+        assert plan["smem_bytes"] <= limit
+        assert plan["smem_bytes"] == _expected_smem(plan, f)
+        assert plan["rows_per_block"] == 16 * plan["rows_per_warp"] or plan["instance"] == "fast"
         # the fast instance exactly where the source's shape allows it
         assert (plan["instance"] == "fast") == (f <= 8 and k <= 128)
-        # the most rows a warp whose keys fit
-        if plan["instance"] == "general" and plan["rows_per_warp"] < 6:
-            bigger = {1: 3, 3: 6}[plan["rows_per_warp"]]
-            assert 16 * bigger * (plan["kcap"] + 32) * 8 > knn_cuda.SMEM_LIMIT_BYTES
+        fpad = -(-f // 8) * 8
+        general = [knn_cuda.general_smem_bytes(fpad, knn_cuda.general_tile(fpad), st, r,
+                                               plan["kcap"], "registers" if fpad == 8 else "shared")
+                   for q in ("registers" if fpad == 8 else "shared",)
+                   for r in knn_cuda.GENERAL_ROWS_PER_WARP[q] for st in knn_cuda.GENERAL_STAGES]
+        if plan["instance"] == "general":
+            assert f <= 64 and plan["topk"] == "shared" and plan["scratch_keys"] == 0
+            # the most rows a warp, then the most stages, that fit
+            assert min(general) <= limit
+            better = [b for b in general[:general.index(plan["smem_bytes"])] if b <= limit]
+            assert not better
+        elif plan["instance"] == "wide":
+            # past F = 64, or no general plan fits at one row a warp
+            assert f > 64 or min(general) > limit
+            # the most rows a warp whose keys fit
+            if plan["rows_per_warp"] < 6:
+                bigger = {1: 3, 3: 6}[plan["rows_per_warp"]]
+                assert 16 * bigger * (plan["kcap"] + 32) * 8 > limit
     for n, f, k in ((10, 2, 10), (10, 2, 0), (10, 0, 3), (1 << 31, 2, 3)):
         with pytest.raises(ValueError):
             knn_cuda.launch_plan(n, f, k)
