@@ -88,8 +88,29 @@ In order, and failing on the first phase that fails:
    against the kernel's exact kNN: |AUROC(IVF LOF) - AUROC(exact LOF)| <=
    0.005 and the same indices with TF32 allowed on all three, recall >=
    0.999 on the gate cloud (the recall at k = 128 is reported); prints the
-   ``ivf`` line;
-7. prints the smoke's total seconds, the card line again and the last
+   ``ivf`` line; the ``kernels`` entries carry phase 7's launches of
+   their instance (``serving_launches``);
+7. serves (between 5c and 5b, while phase 4's and phase 5's stores are
+   on disk), the launch counts set to 0 just before each part and read
+   just after: 7a, two ``SnapshotServer``s over copies of phase 4's
+   4,096-vertex store, one on the card and one on the CPU, the same
+   requests to both (``/healthz``, ``/vertex``, ``/neighbors``, ``/topk``,
+   ``/explain``, a 257-id ``/query``, three deltas: insert-only,
+   delete-only, mixed): bodies equal apart from timing fields, labels, CC
+   labels, repair methods, iterations and versions equal, LOF within
+   phase 4's tolerances, and a 150,000-row delta answered 503 with
+   ``Retry-After`` and the state unchanged; 7b, a server on the card over
+   phase 5's store (262,144 vertices, 25,007,860 edges): 256 single
+   ``/vertex`` reads, 32 4,096-id ``/query`` posts drawn as ``bench.py``'s
+   serve tier draws them, the LOF bootstrap delta, deltas of 0.05% and
+   0.2% of E, the shed, and a reader posting ``/query`` throughout the
+   applies (no error, every answer equal to the published snapshot of
+   the version it names); every publish's CC labels equal a cold
+   ``connected_components`` of its graph, a warm repair's labels are an
+   LPA fixpoint, the version chain advances by one; ``knn_topk`` runs at
+   least once a publish (the canary); then the apply's stages timed alone
+   (:func:`serving_stage_times`); prints the ``serve`` line;
+8. prints the smoke's total seconds, the card line again and the last
    line, ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only`` skips the pipelines: after phase 3 it holds and times
@@ -107,6 +128,7 @@ port's package is not beside this file.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import shutil
@@ -436,6 +458,13 @@ def floor_key(entry: dict) -> str:
     line."""
     sh = entry["shape"]
     return f"{entry['name']} {entry['instance']} n={sh['n']} f={sh['f']} k={sh['k']}"
+
+
+def with_serving_launches(entries: list, serve_launches: dict) -> list:
+    """The ``kernels`` entries, each with phase 7's launch count of its
+    instance (``serving_launches``; ``launches`` stays the main path's)."""
+    return [{**e, "serving_launches": serve_launches[f"knn_topk_{e['instance']}"]}
+            for e in entries]
 
 
 def print_kernels(entries: list) -> None:
@@ -1083,11 +1112,398 @@ def run_harness_path(work: Path, parquet: Path, phase5: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# ---- 7. serving -------------------------------------------------------------
+
+SHED_ROWS = 150_000   # past the default max_pending_rows (100,000): shed
+SERVE_QUERY_IDS = 4096
+SERVE_QUERY_REPS = 32
+SERVE_VERTEX_GETS = 256
+SERVE_DELTA_FRACS = (0.0005, 0.002)  # of E: inserts; deletes are half as many
+# Response keys that carry wall times or random ids, not results.
+_TIMING_KEYS = {"seconds", "snapshot_age_s", "tenant_snapshot_age_s", "ingest_lag_s",
+                "snapshot_id", "uptime_s"}
+
+
+def http(port: int, method: str, path: str, body=None, timeout: float = 600.0) -> tuple:
+    """One request to a local server: ``(status, headers, parsed body)``."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), json.loads(e.read())
+
+
+def _results(body):
+    """A response body without its timing fields."""
+    if isinstance(body, dict):
+        return {k: _results(v) for k, v in body.items() if k not in _TIMING_KEYS}
+    if isinstance(body, list):
+        return [_results(v) for v in body]
+    return body
+
+
+def shed_payload(num_vertices: int) -> dict:
+    """A :data:`SHED_ROWS`-row insert batch (seeded) that admission sheds."""
+    ins = np.random.default_rng(11).integers(0, num_vertices, (SHED_ROWS, 2))
+    return {"insert": ins.tolist()}
+
+
+def check_shed(port: int, before_version: int) -> dict:
+    """POST the shed batch: 503 with Retry-After, and the served version
+    unchanged. Returns the refusal body."""
+    status, headers, body = http(port, "POST", "/delta", shed_payload(8))
+    require(status == 503 and body.get("verdict") == "shed",
+            f"the {SHED_ROWS}-row delta was not shed: {status} {body}")
+    require(int(headers.get("Retry-After", "0")) >= 1, f"no Retry-After on the shed: {headers}")
+    version = http(port, "GET", "/healthz")[2]["version"]
+    require(version == before_version, f"the shed delta moved the version to {version}")
+    return body
+
+
+def check_publish(snap, parent, method: str, device) -> None:
+    """One accepted publish against the store's own graph: CC labels equal
+    a cold ``connected_components`` of the spliced graph on ``device``; a
+    warm repair's labels are a fixpoint of one exact ``lpa_superstep`` over
+    every vertex; the version chain advances by one."""
+    import torch
+
+    from graphmine_tpu_torch.graph.container import build_graph
+    from graphmine_tpu_torch.ops.cc import connected_components
+    from graphmine_tpu_torch.ops.lpa import lpa_superstep
+
+    require(snap.version == parent.version + 1 and snap.parent == parent.snapshot_id,
+            f"version chain: v{parent.version} -> v{snap.version}")
+    w = snap.get("weights")
+    g = build_graph(snap["src"], snap["dst"], num_vertices=len(snap["labels"]),
+                    edge_weights=w, device=device)
+    cold_cc = connected_components(g).cpu().numpy()
+    require(np.array_equal(cold_cc, snap["cc_labels"]),
+            f"v{snap.version}: CC labels differ from a cold recompute")
+    if method == "warm":
+        lbl = torch.from_numpy(np.asarray(snap["labels"], np.int32)).to(g.device)
+        require(torch.equal(lpa_superstep(lbl, g), lbl),
+                f"v{snap.version}: warm labels are not an LPA fixpoint")
+    del g
+
+
+def serve_compare(store: Path, work: Path, devices=("cuda", "cpu")) -> dict:
+    """Phase 7a: two servers over copies of one small store, one on each
+    of ``devices``, the same requests to both: bodies equal apart from
+    timing fields (LOF within phase 4's tolerances after the deltas),
+    deltas with equal labels, CC labels, repair methods, iterations and
+    versions, and the shed answered 503 with the state unchanged."""
+    from graphmine_tpu_torch.pipeline.metrics import MetricsSink
+    from graphmine_tpu_torch.serve.server import SnapshotServer
+    from graphmine_tpu_torch.serve.snapshot import SnapshotStore
+
+    servers, sinks, ports = [], [], []
+    for i, d in enumerate(devices):
+        copy = work / f"serve7a_{i}_{d}"
+        shutil.copytree(store, copy)
+        sinks.append(MetricsSink())
+        servers.append(SnapshotServer(SnapshotStore(str(copy)), sink=sinks[i], device=d))
+        ports.append(servers[i].start()[1])
+    both = range(len(devices))
+    try:
+        base = servers[0].engine.snapshot
+        v, src, dst = len(base["labels"]), base["src"], base["dst"]
+        rng = np.random.default_rng(5)
+        ids = rng.integers(0, v, 257).tolist()
+        comm = int(base["labels"][ids[0]])
+        reads = [("GET", "/healthz", None), ("GET", f"/vertex?v={ids[1]}", None),
+                 ("GET", f"/neighbors?v={ids[2]}", None),
+                 ("GET", f"/topk?community={comm}&k=10", None),
+                 ("GET", f"/explain?vertex={ids[3]}", None), ("POST", "/query", {"vertices": ids})]
+        for method, path, body in reads:
+            got = [http(ports[i], method, path, body) for i in both]
+            require(got[0][0] == got[1][0] == 200, f"{path}: status {[g[0] for g in got]}")
+            require(_results(got[0][2]) == _results(got[1][2]), f"{path}: bodies differ")
+        pick = rng.integers(0, len(src), 24)
+        edges = [[int(src[i]), int(dst[i])] for i in pick]
+        new = rng.integers(0, v, (24, 2)).tolist()
+        deltas = [{"insert": new[:12] + [[v, 0], [v, 1]]}, {"delete": edges[:12]},
+                  {"insert": new[12:], "delete": edges[12:]}]
+        out = []
+        for body in deltas:
+            got = [http(ports[i], "POST", "/delta", body) for i in both]
+            require(got[0][0] == got[1][0] == 200, f"delta: status {[g[0] for g in got]}")
+            require(_results(got[0][2]) == _results(got[1][2]),
+                    f"delta: bodies differ: {got[0][2]} {got[1][2]}")
+            recs = [sinks[i].of_phase("delta_apply")[-1] for i in both]
+            keys = ("method", "iterations", "budget", "inserts", "deletes", "version",
+                    "quarantine", "lof_mode")
+            require(all(recs[0][k] == recs[1][k] for k in keys),
+                    f"delta_apply records differ: {[{k: r[k] for k in keys} for r in recs]}")
+            snaps = [servers[i].engine.snapshot for i in both]
+            for name in ("labels", "cc_labels", "src", "dst"):
+                require(np.array_equal(snaps[0][name], snaps[1][name]), f"delta: {name} differ")
+            _lof_close(snaps[0]["lof"], snaps[1]["lof"], "delta")
+            out.append({k: recs[0][k] for k in keys})
+        got = [http(ports[i], "POST", "/query", {"vertices": ids}) for i in both]
+        a, b = (_results(g[2]) for g in got)
+        _lof_close(np.asarray(a.pop("lof")), np.asarray(b.pop("lof")), "query after deltas")
+        require(a == b, "query after deltas: bodies differ")
+        versions = [srv.engine.version for srv in servers]
+        sheds = [check_shed(ports[i], versions[i]) for i in both]
+        require(sheds[0] == sheds[1], "shed bodies differ")
+        return {"vertices": v, "deltas": out, "versions": versions, "shed": sheds[0]}
+    finally:
+        for srv in servers:
+            srv.stop()
+
+
+def _quantiles_us(lat) -> dict:
+    p50, p99 = np.percentile(np.asarray(lat) * 1e6, [50, 99])
+    return {"p50_us": float(p50), "p99_us": float(p99)}
+
+
+def serve_full(store: Path, device="cuda", query_reps: int = SERVE_QUERY_REPS,
+               vertex_gets: int = SERVE_VERTEX_GETS) -> dict:
+    """Phase 7b: a server on ``device`` over ``store`` (the main path's
+    published store on the card): single and batched reads, the LOF
+    bootstrap delta, two deltas drawn as ``bench.py``'s serve tier draws
+    them, and the shed, with a reader posting ``/query`` throughout the
+    applies. Every publish is held by :func:`check_publish`; every reader
+    answer must match the published snapshot of the version it names.
+    Returns the ``serve`` line."""
+    import threading
+
+    import torch
+
+    from graphmine_tpu_torch.pipeline.metrics import MetricsSink
+    from graphmine_tpu_torch.serve.server import SnapshotServer
+    from graphmine_tpu_torch.serve.snapshot import SnapshotStore
+
+    sink = MetricsSink()
+    t0 = time.perf_counter()
+    srv = SnapshotServer(SnapshotStore(str(store)), sink=sink, device=device)
+    port = srv.start()[1]
+    start_s = time.perf_counter() - t0
+    try:
+        base = srv.engine.snapshot
+        v, e = len(base["labels"]), len(base["src"])
+        require(http(port, "GET", "/healthz")[2]["ok"], "healthz")
+        rng = np.random.default_rng(7)
+        lat = []
+        for vtx in rng.integers(0, v, vertex_gets):
+            t = time.perf_counter()
+            status, _, row = http(port, "GET", f"/vertex?v={int(vtx)}")
+            lat.append(time.perf_counter() - t)
+            require(status == 200 and row["label"] == int(base["labels"][vtx]), "vertex row")
+        vertex_q = _quantiles_us(lat)
+        ids = rng.integers(0, v, SERVE_QUERY_IDS)
+        body = {"vertices": ids.tolist()}
+        lat = []
+        t_all = time.perf_counter()
+        for _ in range(query_reps):
+            t = time.perf_counter()
+            status, _, out = http(port, "POST", "/query", body)
+            lat.append(time.perf_counter() - t)
+            require(status == 200 and np.array_equal(out["label"], base["labels"][ids]), "query")
+        query_q = {**_quantiles_us(lat),
+                   "lookups_per_s": query_reps * len(ids) / (time.perf_counter() - t_all)}
+        stages = srv.engine.stage_snapshot()
+
+        snaps = {base.version: base}
+        seen, errors, stop = [], [], threading.Event()
+
+        def reader_ids(n: int) -> np.ndarray:
+            return np.random.default_rng(1000 + n).integers(0, v, SERVE_QUERY_IDS)
+
+        def digest(labels, comps) -> str:
+            return hashlib.sha1(np.asarray(labels, np.int32).tobytes()
+                                + np.asarray(comps, np.int32).tobytes()).hexdigest()
+
+        def reader():
+            n = 0
+            while not stop.is_set():
+                n += 1
+                try:
+                    status, _, ans = http(port, "POST", "/query",
+                                          {"vertices": reader_ids(n).tolist()})
+                    if status != 200:
+                        errors.append(status)
+                    else:
+                        seen.append((ans["version"], n, digest(ans["label"], ans["component"])))
+                except Exception as exc:  # noqa: BLE001 -- counted, then held to zero
+                    errors.append(repr(exc))
+                time.sleep(0.02)
+
+        thread = threading.Thread(target=reader, daemon=True)
+        thread.start()
+        deltas = [("lof_bootstrap", {"insert": [[0, 1]]})]
+        out_deltas = []
+        try:
+            for frac in (None,) + SERVE_DELTA_FRACS:
+                cur = srv.engine.snapshot
+                if frac is not None:
+                    n_d = max(8, int(e * frac))
+                    cur_v = len(cur["labels"])
+                    ins = np.stack([rng.integers(0, cur_v, n_d), rng.integers(0, cur_v, n_d)], 1)
+                    idx = rng.integers(0, len(cur["src"]), n_d // 2)
+                    dele = np.stack([cur["src"][idx], cur["dst"][idx]], 1)
+                    deltas.append((f"{frac:g}_of_E", {"insert": ins.tolist(),
+                                                       "delete": dele.tolist()}))
+                name, payload = deltas[-1]
+                n_admit = len(sink.of_phase("admission"))
+                t = time.perf_counter()
+                status, _, res = http(port, "POST", "/delta", payload)
+                apply_s = time.perf_counter() - t
+                require(status == 200, f"delta {name}: {status} {res}")
+                rec = sink.of_phase("delta_apply")[-1]
+                (adm,) = sink.of_phase("admission")[n_admit:]
+                snap = srv.engine.snapshot
+                require(snap.version == res["version"] == rec["version"], f"delta {name}: version")
+                check_publish(snap, cur, rec["method"], device)
+                snaps[snap.version] = snap
+                stage = sink.of_phase("delta_stages")[-1]["stages"]
+                out_deltas.append({
+                    "delta": name, "inserts": rec["inserts"], "deletes": rec["deletes"],
+                    "rows": len(payload.get("insert", ())) + len(payload.get("delete", ())),
+                    "verdict": adm["verdict"], "lof_mode": rec["lof_mode"],
+                    "lof_stale": rec["lof_stale"], "repair_method": rec["method"],
+                    "iterations": rec["iterations"], "budget": rec["budget"],
+                    "apply_seconds": apply_s, "delta_apply_seconds": rec["seconds"],
+                    "repair_seconds": rec["repair_seconds"], "lof_seconds": rec["lof_seconds"],
+                    "engine_swap_seconds": stage["apply_s"] - rec["seconds"],
+                    "version": snap.version,
+                })
+                log(f"serve delta {name}: {out_deltas[-1]}")
+        finally:
+            stop.set()
+            thread.join(timeout=600)
+        require(not errors, f"the reader saw errors: {errors[:5]}")
+        require(seen, "the reader saw no answer")
+        for version, n, got in seen:
+            snap = snaps.get(version)
+            require(snap is not None, f"the reader saw version {version}, never published")
+            q = reader_ids(n)
+            require(got == digest(snap["labels"][q], snap["cc_labels"][q]),
+                    f"the reader saw a torn answer at version {version}")
+        shed = check_shed(port, srv.engine.version)
+        if device != "cpu" and torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        return {
+            "vertices": v, "edges": e, "store_bytes": base.nbytes, "server_start_seconds": start_s,
+            "vertex": vertex_q, "query": {**query_q, "ids": len(ids), "reps": query_reps,
+                                          "stages": stages},
+            "deltas": out_deltas, "shed": shed,
+            "reader": {"answers": len(seen), "errors": len(errors),
+                       "versions": sorted({s[0] for s in seen})},
+        }
+    finally:
+        srv.stop()
+
+
+def serving_stage_times(snap, device="cuda", n_scored: int = 18_754, window: int = 4096,
+                        k: int = 16) -> dict:
+    """The plain PyTorch and host stages of a delta apply, timed alone on
+    ``snap`` (the last publish of 7b): one sort-based ``lpa_superstep`` and
+    its ``segment_mode``, one ``cc_superstep``, the streaming LOF's
+    ``cross_knn`` scoring of ``n_scored`` rows against a ``window``-point
+    window and its exact ``fit_lof``, the IVF re-fit of the window with
+    trained centers (CUDA events, ms); then the host stages (seconds): the
+    simple-edge dedup and the sampled clustering of the LOF pass's
+    features, the rest of the features on the card, and a query engine
+    build (its host CSR)."""
+    import torch
+
+    from graphmine_tpu_torch.graph.container import build_graph, simple_undirected_edges
+    from graphmine_tpu_torch.ops.ann import default_n_clusters, ivf_knn, kmeans
+    from graphmine_tpu_torch.ops.cc import cc_superstep
+    from graphmine_tpu_torch.ops.features import vertex_features
+    from graphmine_tpu_torch.ops.knn import cross_knn
+    from graphmine_tpu_torch.ops.lpa import lpa_superstep
+    from graphmine_tpu_torch.ops.segment import segment_mode
+    from graphmine_tpu_torch.ops.streaming_lof import fit_lof
+    from graphmine_tpu_torch.ops.triangles import sampled_clustering_coefficient
+    from graphmine_tpu_torch.serve.query import QueryEngine
+
+    out = {}
+    t = time.perf_counter()
+    g = build_graph(snap["src"], snap["dst"], num_vertices=len(snap["labels"]), device=device)
+    torch.cuda.synchronize()
+    out["build_graph_s"] = time.perf_counter() - t
+    lbl = torch.from_numpy(np.asarray(snap["labels"], np.int32)).to(g.device)
+    v = g.num_vertices
+    out["lpa_superstep_ms"] = cuda_ms(lambda: lpa_superstep(lbl, g), reps=3)
+    out["segment_mode_ms"] = cuda_ms(lambda: segment_mode(g.msg_recv, lbl[g.msg_send], v),
+                                     reps=3)
+    cc = torch.from_numpy(np.asarray(snap["cc_labels"], np.int32)).to(g.device)
+    out["cc_superstep_ms"] = cuda_ms(lambda: cc_superstep(cc, g), reps=3)
+    t = time.perf_counter()
+    simple = simple_undirected_edges(g)
+    out["simple_edges_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    sampled_clustering_coefficient(g, simple_edges=simple)
+    out["sampled_clustering_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    feats = vertex_features(g, lbl, include_clustering=False)
+    torch.cuda.synchronize()
+    out["other_features_s"] = time.perf_counter() - t
+    rng = np.random.default_rng(13)
+    refs = feats[torch.from_numpy(rng.choice(v, window, replace=False)).to(g.device)]
+    queries = feats[torch.from_numpy(rng.integers(0, v, n_scored)).to(g.device)]
+    mask = torch.ones(window, dtype=torch.bool, device=g.device)
+    model = fit_lof(refs, mask, k=k)
+    out["cross_knn_score_ms"] = cuda_ms(
+        lambda: cross_knn(queries, model.refs, k=k, ref_mask=mask), reps=3)
+    out["fit_lof_window_ms"] = cuda_ms(lambda: fit_lof(refs, mask, k=k), reps=3)
+    centers = kmeans(refs, default_n_clusters(window), seed=0)
+    out["ivf_refit_ms"] = cuda_ms(lambda: ivf_knn(refs, k=k, centers=centers), reps=3)
+    out["shapes"] = {"vertices": v, "messages": g.num_messages, "scored": n_scored,
+                     "window": window, "k": k}
+    del g, lbl, cc, feats
+    t = time.perf_counter()
+    QueryEngine(snap, device=device)
+    out["query_engine_build_s"] = time.perf_counter() - t
+    return out
+
+
+def run_serving(work: Path) -> dict:
+    """Phase 7: 7a (phase 4's store, card against CPU) and 7b (phase 5's
+    store on the card), each with the launch counts set to 0 just before
+    and read just after; prints the ``serve`` line and returns the
+    launches."""
+    import torch
+
+    reset_launches()
+    small = serve_compare(work / "store_cuda", work)
+    torch.cuda.synchronize()
+    small["launches"] = read_launches()
+    publishes = len(small["deltas"])
+    require(small["launches"]["knn_topk"] >= publishes,
+            f"7a: knn_topk launched {small['launches']} for {publishes} publishes")
+    log(f"7a served card == CPU: {small}")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    full = serve_full(work / "store")
+    torch.cuda.synchronize()
+    full["launches"] = read_launches()
+    full["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    from graphmine_tpu_torch.serve.snapshot import SnapshotStore
+
+    full["stage_times"] = serving_stage_times(SnapshotStore(str(work / "store")).load())
+    log(f"7b stages alone: {full['stage_times']}")
+    publishes = len(full["deltas"])
+    require(full["launches"]["knn_topk"] >= publishes,
+            f"7b: knn_topk launched {full['launches']} for {publishes} publishes")
+    print(json.dumps({"serve": {**full, "small": small}}), flush=True)
+    return {k: small["launches"][k] + full["launches"][k] for k in full["launches"]}
+
+
+
 def run_main_path(work: Path) -> None:
-    """Phases 4-6: small pipelines on the card against the CPU, the run
-    harness on them, the main path, the main path under the harness, the
-    weighted exact path, the kernel at its shapes and the IVF kNN against
-    the exact one."""
+    """Phases 4-7: small pipelines on the card against the CPU, the run
+    harness on them, the main path, the main path under the harness,
+    serving, the weighted exact path, the kernel at its shapes and the IVF
+    kNN against the exact one."""
     import torch
 
     from graphmine_tpu_torch import datasets
@@ -1130,6 +1546,9 @@ def run_main_path(work: Path) -> None:
     # ---- 5c. the main path under the run harness -------------------------
     run_harness_path(work, edges_pq, phase5)
 
+    # ---- 7. serving: phase 4's store card against CPU, phase 5's on the card
+    serve_launches = run_serving(work)
+
     # ---- 5b. the weighted exact path, on the edge list -------------------
     res, wall, launches, peak = drive(
         PipelineConfig(data_path=str(weighted), data_format="edgelist", max_iter=5,
@@ -1150,7 +1569,8 @@ def run_main_path(work: Path) -> None:
     entry["weighted_path_launches"] = launches["knn_topk_fast"]
     general = general_entries(pipeline_launches["wide_k"]["knn_topk_general"], features=feats)
     del feats
-    print_kernels([entry] + general + [wide_entry(pipeline_launches["widest_k"]["knn_topk_wide"])])
+    entries = [entry] + general + [wide_entry(pipeline_launches["widest_k"]["knn_topk_wide"])]
+    print_kernels(with_serving_launches(entries, serve_launches))
     # The JAX package gates the index's recall at 0.999 on its LOF policy
     # tests' cloud (20,000 x 8, k = 32); at the main path's size, k = 128,
     # the index (its algorithm with its defaults) measured recall 0.998 on

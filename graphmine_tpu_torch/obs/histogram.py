@@ -69,6 +69,36 @@ class HistogramSnapshot:
             out.append(acc)
         return out
 
+    def summary(self) -> dict:
+        """The ``{count, p50_s, p99_s}`` block of the server's ``/statusz``
+        latency sections."""
+        return {
+            "count": self.count,
+            "p50_s": round(self.quantile(0.50), 6),
+            "p99_s": round(self.quantile(0.99), 6),
+        }
+
+    def quantile(self, q: float) -> float:
+        """``histogram_quantile``-style estimate: the bucket the rank lands
+        in, interpolated linearly inside it. Empty histograms report 0.0;
+        a rank in the +Inf bucket reports the largest finite bound."""
+        if not 0.0 <= q <= 1.0:
+            raise ValueError(f"quantile must be in [0, 1], got {q}")
+        if self.count == 0:
+            return 0.0
+        rank = q * self.count
+        acc = 0
+        for i, c in enumerate(self.counts):
+            prev = acc
+            acc += c
+            if acc >= rank and c > 0:
+                if i >= len(self.bounds):
+                    return self.bounds[-1] if self.bounds else 0.0
+                lo = self.bounds[i - 1] if i > 0 else 0.0
+                hi = self.bounds[i]
+                return lo + (hi - lo) * (rank - prev) / c
+        return self.bounds[-1] if self.bounds else 0.0
+
 
 class Histogram:
     """One labeled bucket histogram (Prometheus semantics).

@@ -34,6 +34,7 @@ exact. :func:`emit_memory_watermark` alone emits
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from math import sqrt
 
@@ -374,3 +375,66 @@ def emit_memory_watermark(sink, op: str, est: MemEstimate | None, measured: dict
         if measured.get(opt) is not None:
             rec[opt] = int(measured[opt])
     return sink.emit("memory_watermark", **rec)
+
+
+# ---- serve-process accounting ---------------------------------------------
+
+
+def serve_mem_budget_bytes() -> int | None:
+    """The serve process's memory budget: ``GRAPHMINE_SERVE_MEM_BUDGET_BYTES``
+    (a malformed value raises), else the host's ``MemTotal``, else None."""
+    raw = os.environ.get("GRAPHMINE_SERVE_MEM_BUDGET_BYTES")
+    if raw:
+        try:
+            return int(float(raw))
+        except ValueError as e:
+            raise ValueError(
+                f"GRAPHMINE_SERVE_MEM_BUDGET_BYTES={raw!r} is not a number"
+            ) from e
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemTotal:"):
+                    return int(line.split()[1]) * 1024
+    except (OSError, ValueError, IndexError):
+        pass
+    return None
+
+
+# The graphmine_memory_* gauges, under the JAX package's names.
+MEMORY_GAUGE_HELP = {
+    "graphmine_memory_rss_bytes": "resident set size of this serve process",
+    "graphmine_memory_snapshot_bytes": "array bytes of the snapshot currently serving queries",
+    "graphmine_memory_index_bytes": "derived query-index bytes (adjacency, census, explain)",
+    "graphmine_memory_wal_segment_bytes": "bytes held by retained write-ahead-log segments",
+    "graphmine_memory_headroom_frac": "fraction of the process memory budget still free",
+}
+
+_GAUGE_OF_KEY = {
+    "rss_bytes": "graphmine_memory_rss_bytes",
+    "snapshot_bytes": "graphmine_memory_snapshot_bytes",
+    "index_bytes": "graphmine_memory_index_bytes",
+    "wal_segment_bytes": "graphmine_memory_wal_segment_bytes",
+    "headroom_frac": "graphmine_memory_headroom_frac",
+}
+
+
+def export_memory_gauges(registry, payload: dict) -> None:
+    """Mirror a memory payload's present keys into the
+    ``graphmine_memory_*`` gauges (absent or None keys are left alone)."""
+    for key, name in _GAUGE_OF_KEY.items():
+        val = payload.get(key)
+        if val is not None:
+            registry.gauge(name, MEMORY_GAUGE_HELP[name]).set(val)
+
+
+def host_memory(budget_bytes: int | None = None) -> dict:
+    """RSS and headroom of one serve process against ``budget_bytes``."""
+    from graphmine_tpu_torch.obs.heartbeat import rss_mb
+
+    rss = rss_mb()
+    rss_bytes = int(rss * (1 << 20)) if rss is not None else None
+    headroom = None
+    if budget_bytes and rss_bytes is not None:
+        headroom = round((budget_bytes - rss_bytes) / budget_bytes, 4)
+    return {"rss_bytes": rss_bytes, "budget_bytes": budget_bytes, "headroom_frac": headroom}

@@ -297,6 +297,27 @@ class QualityReport:
     canary: dict | None = None
     seconds: float = 0.0
 
+    def payload(self) -> dict:
+        """The "quality" section of ``/statusz`` and ``/alertz``."""
+        out = {"state": self.state.payload(), "seconds": self.seconds}
+        if self.drift is not None:
+            out["drift"] = self.drift
+        if self.canary is not None:
+            out["canary"] = self.canary
+        return out
+
+    def values(self) -> dict:
+        """The flat metric dict the alert rules evaluate over."""
+        out = {"quality_anomaly_rate": self.state.anomaly_rate,
+               "quality_num_communities": self.state.num_communities}
+        if self.drift is not None:
+            out.update({"quality_lof_psi": self.drift["lof_psi"],
+                        "quality_size_psi": self.drift["size_psi"],
+                        "quality_churn_frac": self.drift["churn_frac"]})
+        if self.canary is not None:
+            out["canary_recall"] = self.canary["recall_at_k"]
+        return out
+
 
 def export_gauges(registry, state: QualityState, drift: dict | None = None,
                   canary: dict | None = None) -> None:

@@ -203,6 +203,13 @@ class Registry:
                 )
         return fam.labels(**labels)
 
+    def histogram_family(self, name: str) -> HistogramFamily | None:
+        """The registered family (all labeled children) or None: how the
+        server's ``/statusz`` walks every endpoint's latency histogram."""
+        with self._lock:
+            fam = self._metrics.get(name)
+        return fam if isinstance(fam, HistogramFamily) else None
+
     def values(self) -> dict:
         """Snapshot of every metric's current value, name-keyed."""
         with self._lock:

@@ -92,6 +92,19 @@ register("quality_drift", "version", "parent_version", "churn_frac",
 register("canary_score", "version", "recall_at_k", "recall_k",
          "mean_rank_frac", "num_anomalies", "k")
 
+# ---- serving: deltas, queries, the HTTP front end, admission, alerts -------
+register("delta_apply", "inserts", "deletes", "method", "iterations",
+         "quarantine", "version", "seconds")
+register("query_batch", "endpoint", "n", "seconds")
+register("repair_fallback", "stage", "reason")
+register("access_log", "method", "endpoint", "status", "seconds", "request_id")
+register("slo_rollup", "uptime_s", "endpoints", "repair_debt")
+register("admission", "verdict", "reason", "queue_depth", "rows", "repair_debt")
+register("delta_coalesce", "batches", "inserts", "deletes", "rows_in", "rows_out")
+register("delta_shed", "stage", "reason", "rows", "retry_after_s")
+register("delta_stages", "version", "stages")
+register("alert", "name", "state", "severity", "metric", "value", "threshold")
+
 # ---- recovery / resilience records ----------------------------------------
 register("retry", "stage", "attempt", "backoff_s", "error")
 register("retries_exhausted", "stage", "attempts", "error")

@@ -91,6 +91,15 @@ class TraceContext:
         return cls(trace_id, span_id, sampled=flags[-1] == "1")
 
 
+def sink_trace_header(sink) -> str:
+    """The calling thread's current span of ``sink``'s tracer as a
+    propagatable ``traceparent`` header; "" when the sink has no tracer."""
+    tracer = getattr(sink, "tracer", None)
+    if tracer is None:
+        return ""
+    return tracer.current().context().to_header()
+
+
 @dataclass
 class Span:
     """One timed node of the span tree. ``path`` is the slash-joined name

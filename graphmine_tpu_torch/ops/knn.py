@@ -5,7 +5,8 @@ Counterpart of ``graphmine_tpu/ops/knn.py::knn``. On a CUDA tensor
 (:mod:`graphmine_tpu_torch.kernels.knn_cuda`); on a CPU tensor it runs the
 plain version :func:`_tiled_knn` below, which is also the kernel's
 yardstick on the card. :func:`cross_knn` (queries against references,
-the IVF index's probe) is plain PyTorch on every device.
+the IVF index's probe and the streaming LOF window) is plain PyTorch on
+every device, as the JAX package computes it outside any Pallas kernel.
 
 The kernel and the plain version compute every distance with the same
 float32 operations in the same order — ``|q|^2 = sum_f q_f*q_f`` and the cross term ``sum_f q_f*r_f``
@@ -94,11 +95,16 @@ def _tiled_knn(points: torch.Tensor, k: int, row_tile: int = 1024):
     return out_d, out_i
 
 
-def cross_knn(queries: torch.Tensor, refs: torch.Tensor, k: int, row_tile: int = 1024):
+def cross_knn(queries: torch.Tensor, refs: torch.Tensor, k: int,
+              ref_mask: torch.Tensor | None = None, row_tile: int = 1024):
     """k nearest *reference* points of each query (no self-exclusion), the
     plain PyTorch counterpart of the JAX package's ``cross_knn`` on any
-    device. Returns ``(d2 float32 [N, k], idx int32 [N, k])``, ascending, ties to
-    the smaller reference index."""
+    device. ``ref_mask`` (bool ``[M]``) marks the valid reference slots:
+    an invalid slot takes distance +inf, so it never beats a valid one
+    (the streaming LOF window keeps a fixed shape while it fills). Returns
+    ``(d2 float32 [N, k], idx int32 [N, k])``, ascending, ties to the
+    smaller reference index. Distances are the feature-by-feature float32
+    sums of the module note, whatever the TF32 setting."""
     m = refs.shape[0]
     if k > m:
         raise ValueError(f"k={k} must be <= number of references {m}")
@@ -106,11 +112,14 @@ def cross_knn(queries: torch.Tensor, refs: torch.Tensor, k: int, row_tile: int =
     refs = refs.to(torch.float32)
     n = q_all.shape[0]
     r_sq = _sq_norms(refs)
+    invalid = None if ref_mask is None else ~ref_mask.to(device=refs.device, dtype=torch.bool)
     out_d = torch.empty((n, k), dtype=torch.float32, device=refs.device)
     out_i = torch.empty((n, k), dtype=torch.int32, device=refs.device)
     for r0 in range(0, n, row_tile):
         q = q_all[r0:r0 + row_tile]
         d2 = _sq_dists(q, _sq_norms(q), refs, r_sq)
+        if invalid is not None:
+            d2 = d2.masked_fill(invalid[None, :], float("inf"))
         out_d[r0:r0 + row_tile], idx = smallest_k(d2, k)
         out_i[r0:r0 + row_tile] = idx.to(torch.int32)
     return out_d, out_i

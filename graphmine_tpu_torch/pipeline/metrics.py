@@ -39,16 +39,23 @@ class MetricsSink:
     disables streaming with one warning; :meth:`finalize` then appends
     what was never persisted. ``tracer``: stamps the current span's
     identity on every record. ``registry``: the run's counters and gauges.
-    Emission is thread-safe (the heartbeat and the driver share a sink).
+    ``max_records``: an in-memory cap for long-lived serving processes
+    (one ``access_log`` record per request would otherwise grow without
+    bound); past it the oldest records are dropped from ``records``, and
+    :meth:`finalize` counts the drops so it neither re-appends nor skips
+    a survivor. Emission is thread-safe (the heartbeat and the driver
+    share a sink).
     """
 
     records: list = field(default_factory=list)
     stream_path: str | None = None
     tracer: object | None = None
     registry: Registry = field(default_factory=Registry, repr=False)
+    max_records: int | None = None
     _stream: object = field(default=None, repr=False)
     _stream_ok: bool = field(default=True, repr=False)
     _streamed: int = field(default=0, repr=False)
+    _dropped: int = field(default=0, repr=False)
     _seconds: dict = field(default_factory=dict, repr=False)
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
 
@@ -82,6 +89,10 @@ class MetricsSink:
                     self._stream_ok = False
                     log.warning("metrics stream to %s failed: %r; records will be "
                                 "written at exit instead", self.stream_path, e)
+            if self.max_records is not None and len(self.records) > self.max_records:
+                drop = len(self.records) - self.max_records
+                del self.records[:drop]
+                self._dropped += drop
         return rec
 
     @contextlib.contextmanager
@@ -152,7 +163,8 @@ class MetricsSink:
             self._stream = None
             if self._stream_ok and self.stream_path == path:
                 return path
-        start = self._streamed if path == self.stream_path else 0
+        # list index = global record index - dropped records
+        start = max(0, self._streamed - self._dropped) if path == self.stream_path else 0
         needs_nl = False
         try:
             with open(path, "rb") as rf:
@@ -180,6 +192,20 @@ class MetricsSink:
         return self.emit("lpa_iter", iteration=it, labels_changed=changed,
                          seconds=round(seconds, 5), edges_per_sec=round(eps),
                          edges_per_sec_per_chip=round(eps / max(chips, 1)))
+
+
+def shard_sink(obs_dir: str, role: str, run_id: str | None = None,
+               max_records: int | None = None) -> MetricsSink:
+    """One process's slice of the federated metrics plane: a streaming
+    sink with a tracer whose JSONL lands at ``<obs_dir>/<role>-<pid>.jsonl``
+    (the JAX package's ``shard_sink``; its ``tools/trace_stitch.py`` joins
+    such a directory into per-trace timelines)."""
+    from graphmine_tpu_torch.obs.spans import Tracer
+
+    os.makedirs(obs_dir, exist_ok=True)
+    safe_role = "".join(c if c.isalnum() or c in "-_" else "-" for c in role) or "proc"
+    return MetricsSink(stream_path=os.path.join(obs_dir, f"{safe_role}-{os.getpid()}.jsonl"),
+                       tracer=Tracer(run_id=run_id), max_records=max_records)
 
 
 def _top_device_ops(prof, n: int = 10) -> list:

@@ -1,6 +1,7 @@
 """Deterministic fault injection: every recovery path exercised on the CPU.
 
-Counterpart of the pipeline part of ``graphmine_tpu/testing/faults.py``.
+Counterpart of the pipeline and serving parts of
+``graphmine_tpu/testing/faults.py``.
 A :class:`FaultInjector` installs into the
 :func:`graphmine_tpu_torch.pipeline.resilience.fault_point` seam and raises
 a planned error the Nth time a named site is hit::
@@ -24,6 +25,13 @@ is the code under test. :func:`poison_labels` corrupts the driver's label
 state without raising (the tripwires must catch it); :func:`hang` sleeps
 (the watchdog must bound it); :func:`corrupt_file` and
 :func:`truncate_file` damage checkpoints in place.
+
+Serving: :func:`slow_repair` stalls every delta apply at the
+``delta_repair`` seam (``serve/delta.py::_verify_or_fallback``, ctx:
+``state``, ``num_shards``, ``tenant``), :func:`delta_burst` draws seeded
+``POST /delta`` payloads, :func:`noisy_neighbor_burst` aims a burst and a
+tenant-scoped stall at one tenant, and :func:`slow_client_post` dribbles a
+request body to a live server.
 """
 
 from __future__ import annotations
@@ -120,18 +128,24 @@ def _release_abandoned_sleepers() -> None:
         _sleepers.clear()
 
 
+def _parked_sleep(seconds: float) -> None:
+    """A ``seconds`` sleep that ends early when the injector is
+    uninstalled (shared by :func:`hang` and the serving stalls)."""
+    ev = threading.Event()
+    with _sleepers_lock:
+        _sleepers.append(ev)
+    ev.wait(seconds)
+    with _sleepers_lock:
+        if ev in _sleepers:
+            _sleepers.remove(ev)
+
+
 def hang(seconds: float):
     """A 'factory' that sleeps instead of raising: a hung step for the
     watchdog. The sleep ends early when the injector is uninstalled."""
 
     def _sleep():
-        ev = threading.Event()
-        with _sleepers_lock:
-            _sleepers.append(ev)
-        ev.wait(seconds)
-        with _sleepers_lock:
-            if ev in _sleepers:
-                _sleepers.remove(ev)
+        _parked_sleep(seconds)
         return None
 
     _sleep.is_hang = True
@@ -184,6 +198,154 @@ class FaultInjector:
         finally:
             resilience.set_fault_hook(None)
             _release_abandoned_sleepers()
+
+
+# ---- serving injectors: write-path overload and slow clients --------------
+
+
+def slow_repair(seconds: float):
+    """A slowed delta repair: install at the ``delta_repair`` seam
+    (``serve/delta.py::_verify_or_fallback``) with ``repeat=`` covering
+    the burst, and every apply stalls ``seconds`` before verifying —
+    the deterministic stand-in for a repair that outgrew its working
+    set. Unlike :func:`hang` it is the APPLY PATH that slows, so queued
+    deltas pile up behind the publish worker and the admission ladder
+    (coalesce → defer → shed) is what keeps the backlog bounded. The
+    sleep is interruptible on injector uninstall, and the repaired
+    state passes through untouched (``wants_ctx`` so the ctx-carrying
+    seam doesn't hand a positional payload to a plain factory)."""
+
+    def _stall(**ctx):
+        _parked_sleep(seconds)
+        return None
+
+    _stall.wants_ctx = True
+    _stall.is_slow_repair = True
+    return _stall
+
+
+def delta_burst(
+    num_vertices: int,
+    batches: int,
+    rows_per_batch: int,
+    seed: int = 0,
+    delete_frac: float = 0.0,
+    base_src=None,
+    base_dst=None,
+):
+    """Deterministic write-burst generator: ``batches`` POST /delta
+    payload dicts of ``rows_per_batch`` rows each, drawn from a seeded
+    RNG so a chaos test's admission verdicts replay identically.
+    ``delete_frac`` of each batch's rows are deletes sampled from
+    ``base_src``/``base_dst`` (matching deletes) when given, else from
+    the id space (mostly-unmatched deletes — the quarantine path)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_del = int(rows_per_batch * delete_frac)
+    n_ins = rows_per_batch - n_del
+    payloads = []
+    for _ in range(batches):
+        ins = rng.integers(0, num_vertices, size=(n_ins, 2))
+        payload = {"insert": ins.tolist()}
+        if n_del:
+            if base_src is not None and len(base_src):
+                idx = rng.integers(0, len(base_src), n_del)
+                payload["delete"] = [
+                    [int(base_src[i]), int(base_dst[i])] for i in idx
+                ]
+            else:
+                payload["delete"] = rng.integers(
+                    0, num_vertices, size=(n_del, 2)
+                ).tolist()
+        payloads.append(payload)
+    return payloads
+
+
+def noisy_neighbor_burst(
+    tenant: str,
+    num_vertices: int,
+    batches: int,
+    rows_per_batch: int,
+    seed: int = 0,
+    stall_s: float = 0.0,
+):
+    """The multi-tenant abuse kit: one tenant hammering a
+    shared server while its co-tenants must stay within SLO. Returns
+    ``(payloads, staller)``:
+
+    - ``payloads``: a :func:`delta_burst` aimed at ``tenant`` (POST each
+      with ``X-Tenant-Id: <tenant>``);
+    - ``staller``: a ``delta_repair``-seam injector that stalls
+      ``stall_s`` **only when the apply belongs to** ``tenant`` — the
+      ctx's ``tenant`` key, threaded from the ingestor's store — so the
+      abusive tenant's applies become expensive while B's and C's stay
+      fast. ``None`` when ``stall_s`` is 0 (pure volume abuse).
+
+    Install the staller with ``repeat=`` covering the burst; the
+    JAX package's acceptance test (tests/test_tenancy.py) asserts from live endpoints
+    that the victims' reads hold p99, their deltas keep publishing with
+    zero sheds charged to the abuser's debt, and only the abuser's
+    alert plane fires."""
+    payloads = delta_burst(
+        num_vertices, batches, rows_per_batch, seed=seed,
+    )
+
+    staller = None
+    if stall_s > 0:
+
+        def _tenant_stall(**ctx):
+            if ctx.get("tenant") == tenant:
+                _parked_sleep(stall_s)
+            return None
+
+        _tenant_stall.wants_ctx = True
+        _tenant_stall.is_slow_repair = True
+        staller = _tenant_stall
+    return payloads, staller
+
+
+def slow_client_post(
+    host: str,
+    port: int,
+    path: str,
+    payload: dict,
+    chunk_bytes: int = 8,
+    delay_s: float = 0.01,
+    timeout_s: float = 30.0,
+):
+    """POST ``payload`` dribbling the body ``chunk_bytes`` at a time with
+    ``delay_s`` between writes — the slow-loris-shaped client a threaded
+    server must tolerate without stalling OTHER requests (each handler
+    thread blocks only on its own socket). Returns
+    ``(status_code, parsed_json_body)``."""
+    import json as _json
+    import socket
+
+    body = _json.dumps(payload).encode()
+    head = (
+        f"POST {path} HTTP/1.1\r\nHost: {host}:{port}\r\n"
+        f"Content-Type: application/json\r\n"
+        f"Content-Length: {len(body)}\r\nConnection: close\r\n\r\n"
+    ).encode()
+    with socket.create_connection((host, port), timeout=timeout_s) as sock:
+        sock.sendall(head)
+        for i in range(0, len(body), chunk_bytes):
+            sock.sendall(body[i: i + chunk_bytes])
+            if delay_s:
+                import time as _time
+
+                _time.sleep(delay_s)
+        raw = b""
+        while True:
+            got = sock.recv(65536)
+            if not got:
+                break
+            raw += got
+    status_line, _, rest = raw.partition(b"\r\n")
+    status = int(status_line.split()[1])
+    _, _, resp_body = rest.partition(b"\r\n\r\n")
+    return status, _json.loads(resp_body.decode())
 
 
 def corrupt_file(path: str, offset: int = -64, nbytes: int = 16) -> None:

@@ -265,3 +265,65 @@ def test_harness_phase_checks_and_line_on_a_recorded_cpu_stream(tmp_path, monkey
     with pytest.raises(RuntimeError, match="labels differ"):
         chip_smoke.check_harness(res, records, work, {**phase5, "labels": phase5["labels"] + 1},
                                  {"knn_topk": 2})
+
+
+def _serving_stores(tmp_path, v=1024, e=9000):
+    """Two copies of a port publish of a small planted graph (the exact
+    kNN), as phases 4 and 5 leave their stores."""
+    from graphmine_tpu_torch import datasets
+    from graphmine_tpu_torch.pipeline import PipelineConfig, run_pipeline
+
+    src, dst, _, _ = datasets.planted_anomaly_graph(v, e, seed=9)
+    chip_smoke.write_edge_list(tmp_path / "e.txt", src, dst)
+    run_pipeline(PipelineConfig(data_path=str(tmp_path / "e.txt"), data_format="edgelist",
+                                lof_impl="exact", lof_k=16, device="cpu",
+                                snapshot_out=str(tmp_path / "store_a")))
+    shutil.copytree(tmp_path / "store_a", tmp_path / "store_b")
+    return tmp_path / "store_a", tmp_path / "store_b"
+
+
+def test_serving_phase_checks_and_line_on_a_cpu_run(tmp_path):
+    """Phase 7's checks and its ``serve`` line on the CPU at a small size:
+    7a between two CPU servers, 7b on the CPU with fewer reads."""
+    small_store, full_store = _serving_stores(tmp_path)
+    small = chip_smoke.serve_compare(small_store, tmp_path, devices=("cpu", "cpu"))
+    assert small["vertices"] == 1024 and small["versions"] == [4, 4]
+    assert [d["version"] for d in small["deltas"]] == [2, 3, 4]
+    assert small["shed"]["verdict"] == "shed" and "150000" in small["shed"]["reason"]
+    line = chip_smoke.serve_full(full_store, device="cpu", query_reps=3, vertex_gets=8)
+    json.dumps(line)
+    assert line["vertices"] == 1024 and line["store_bytes"] > 0
+    assert [d["delta"] for d in line["deltas"]] == ["lof_bootstrap", "0.0005_of_E", "0.002_of_E"]
+    assert [d["version"] for d in line["deltas"]] == [2, 3, 4]
+    for d in line["deltas"]:
+        assert d["verdict"] == "accept" and d["repair_method"] in ("warm", "full_recompute")
+        assert d["apply_seconds"] >= d["delta_apply_seconds"] > 0
+    assert line["deltas"][1]["inserts"] == max(8, int(line["edges"] * 0.0005))
+    assert line["reader"]["errors"] == 0 and line["reader"]["answers"] > 0
+    assert set(line["query"]) >= {"p50_us", "p99_us", "lookups_per_s", "stages"}
+    assert line["shed"]["verdict"] == "shed"
+
+
+def test_check_publish_refuses_a_wrong_cc_and_a_broken_chain(tmp_path):
+    from graphmine_tpu_torch.serve.snapshot import SnapshotStore
+
+    store_a, _ = _serving_stores(tmp_path, v=256, e=1500)
+    store = SnapshotStore(str(store_a))
+    parent = store.load()
+    arrays = {k: np.asarray(parent[k]) for k in parent.arrays}
+    snap = store.publish(arrays, fingerprint=parent.fingerprint)
+    chip_smoke.check_publish(snap, parent, "full_recompute", "cpu")
+    with pytest.raises(RuntimeError, match="version chain"):
+        chip_smoke.check_publish(snap, snap, "full_recompute", "cpu")
+    bad = dict(arrays, cc_labels=np.arange(len(arrays["labels"]), dtype=np.int32))
+    snap2 = store.publish(bad, fingerprint=parent.fingerprint)
+    with pytest.raises(RuntimeError, match="CC labels differ"):
+        chip_smoke.check_publish(snap2, snap, "full_recompute", "cpu")
+
+
+def test_kernels_entries_carry_the_serving_launches():
+    entries = [{"name": "knn_topk", "instance": i, "launches": 1} for i in ("fast", "general", "wide")]
+    out = chip_smoke.with_serving_launches(entries, {"knn_topk": 7, "knn_topk_fast": 7,
+                                                     "knn_topk_general": 0, "knn_topk_wide": 0})
+    assert [e["serving_launches"] for e in out] == [7, 0, 0]
+    assert [e["launches"] for e in out] == [1, 1, 1]

@@ -81,7 +81,15 @@ _BLOCKED = "import sys\nsys.modules['jax'] = None\nsys.modules['graphmine_tpu'] 
                                     "graphmine_tpu_torch.pipeline.planner",
                                     "graphmine_tpu_torch.pipeline.config",
                                     "graphmine_tpu_torch.pipeline.driver",
-                                    "graphmine_tpu_torch.testing.faults"])
+                                    "graphmine_tpu_torch.testing.faults",
+                                    "graphmine_tpu_torch.ops.streaming_lof",
+                                    "graphmine_tpu_torch.obs.alerts",
+                                    "graphmine_tpu_torch.serve",
+                                    "graphmine_tpu_torch.serve.admission",
+                                    "graphmine_tpu_torch.serve.delta",
+                                    "graphmine_tpu_torch.serve.query",
+                                    "graphmine_tpu_torch.serve.server",
+                                    "graphmine_tpu_torch.serve.__main__"])
 def test_slice_modules_import_without_jax(module):
     code = _BLOCKED + f"import importlib\nimportlib.import_module({module!r})\nprint('ok')\n"
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
