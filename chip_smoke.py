@@ -110,6 +110,34 @@ In order, and failing on the first phase that fails:
    LPA fixpoint, the version chain advances by one; ``knn_topk`` runs at
    least once a publish (the canary); then the apply's stages timed alone
    (:func:`serving_stage_times`); prints the ``serve`` line;
+7c. (after 7b, on phase 4's store, the card against the CPU, correctness
+   only) a ``serve --wal --device cuda`` process takes three deltas with
+   ``X-Delta-Ack: wal`` and a duplicate ``X-Delta-Id``, is SIGKILLed right
+   after the third 202 and restarted on the same store and log; a writer
+   and its log-shipped standby (``--standby-of``, ``--primary-wal``), the
+   writer SIGKILLed right after a 202, the standby promoted (a new epoch,
+   then a write), and the deposed writer's publish refused at the store;
+   a ``writer_shards = 2`` server on the card beside a ``writer_shards =
+   1`` one on the CPU. Labels, CC labels, repair methods, iterations and
+   versions equal the CPU server's fed the same deltas without a kill
+   (LOF too where no writer restarted), nothing applied twice, the shard
+   records present; prints the ``replicated`` line;
+7d. on phase 5's store, ``fleet_cli up --replicas 3 --standby --device
+   cuda`` (writer, its standby, one read replica) behind the router, a
+   reader posting ``/query`` through the router throughout: 256 ``/vertex``
+   and 32 4,096-id ``/query`` through the router, 7b's 0.05% delta with
+   ``X-Delta-Ack: wal`` (ms to the 202, seconds until the router serves
+   it), a second delta and the writer SIGKILLed at once, the router's
+   auto-promotion (seconds from the kill to a 202 on the promoted writer),
+   a ``roll``; no reader error (the reader obeys 503 + Retry-After), every
+   answer equal to the captured snapshot of its version, the committed
+   version never going back, no acknowledged delta lost, every captured
+   version's CC equal to a cold recompute; prints the ``fleet`` line with
+   each process's peak device bytes (``/statusz``) and ``nvidia-smi``'s
+   per-process use. The replicas' ``canary_score`` records (one
+   ``knn_topk`` launch each) join the ``kernels`` line's
+   ``serving_launches``; every process a part starts is stopped when it
+   ends, pass or fail;
 8. prints the smoke's total seconds, the card line again and the last
    line, ``{"ok": true, "device": {...}}``.
 
@@ -1124,14 +1152,15 @@ _TIMING_KEYS = {"seconds", "snapshot_age_s", "tenant_snapshot_age_s", "ingest_la
                 "snapshot_id", "uptime_s"}
 
 
-def http(port: int, method: str, path: str, body=None, timeout: float = 600.0) -> tuple:
+def http(port: int, method: str, path: str, body=None, timeout: float = 600.0,
+         headers=None) -> tuple:
     """One request to a local server: ``(status, headers, parsed body)``."""
     import urllib.error
     import urllib.request
 
     data = None if body is None else json.dumps(body).encode()
     req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data, method=method,
-                                 headers={"Content-Type": "application/json"})
+                                 headers={"Content-Type": "application/json", **(headers or {})})
     try:
         with urllib.request.urlopen(req, timeout=timeout) as r:
             return r.status, dict(r.headers), json.loads(r.read())
@@ -1499,6 +1528,799 @@ def run_serving(work: Path) -> dict:
 
 
 
+# ---- 7c/7d. the replicated serving plane ------------------------------------
+
+SERVE_BANNER = "serving snapshot v"
+FLEET_BANNER = "fleet: "
+REPLICA_SMALL_DELTA = 64  # rows of 7d's second and third deltas
+# The fleet's knobs for phase 5's store: a reload there loads 204 MB and
+# builds the query index (seconds), so the data-plane timeout and the
+# reader's deadline cover it; a SIGKILLed writer refuses connections at
+# once, so the prober still sees it DOWN within a few probe intervals.
+FLEET_ENV = {
+    "GRAPHMINE_FLEET_READ_TIMEOUT_S": "20",
+    "GRAPHMINE_FLEET_DEFAULT_DEADLINE_MS": "60000",
+    "GRAPHMINE_FLEET_PROBE_TIMEOUT_S": "30",
+    "GRAPHMINE_FLEET_DOWN_AFTER_PROBES": "3",
+    "GRAPHMINE_FLEET_RELOAD_TIMEOUT_S": "300",
+    "GRAPHMINE_FLEET_REJOIN_TIMEOUT_S": "300",
+    "GRAPHMINE_FLEET_PROMOTE_TIMEOUT_S": "300",
+    "GRAPHMINE_FLEET_WRITE_TIMEOUT_S": "600",
+}
+# The fleet line's keys (tests/test_torch_chip_smoke.py holds them).
+FLEET_KEYS = ("vertices", "edges", "replicas", "startup_seconds", "vertex", "query",
+              "deltas", "ack_ms", "visible_seconds", "promote_seconds", "promote",
+              "acked_lost", "roll", "reader", "committed_versions", "cc_checked",
+              "device_peak_bytes", "smi_used_mib", "smi_processes", "replica_nvidia_fds",
+              "router_nvidia_fds", "router_holds_cuda_context", "canary_launches")
+
+
+class Processes:
+    """The subprocesses one phase starts. Leaving the ``with`` block stops
+    every one of them, pass or fail: SIGTERM (to the whole process group
+    for a group leader, whose children die with it), then SIGKILL after
+    ``grace_s``."""
+
+    def __init__(self, grace_s: float = 15.0):
+        self.grace_s = grace_s
+        self.procs = []  # (proc, is a process-group leader)
+
+    def spawn(self, cmd: list, log: Path, group: bool = False, env=None):
+        proc = subprocess.Popen(cmd, stdout=subprocess.DEVNULL, stderr=open(log, "w"),
+                                cwd=ROOT, env=env, start_new_session=group)
+        self.procs.append((proc, group))
+        return proc
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.stop_all()
+        return False
+
+    def _signal(self, proc, group: bool, sig) -> None:
+        import signal
+
+        try:
+            if group:
+                os.killpg(proc.pid, sig)
+            elif sig == signal.SIGKILL:
+                proc.kill()
+            else:
+                proc.terminate()
+        except (ProcessLookupError, PermissionError):
+            pass
+
+    def stop_all(self) -> None:
+        import signal
+
+        for proc, group in self.procs:
+            if group or proc.poll() is None:
+                self._signal(proc, group, signal.SIGTERM)
+        deadline = time.monotonic() + self.grace_s
+        for proc, group in self.procs:
+            try:
+                proc.wait(timeout=max(0.01, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                self._signal(proc, group, signal.SIGKILL)
+                proc.wait(timeout=self.grace_s)
+            if group:  # the leader's children, had they outlived it
+                self._signal(proc, group, signal.SIGKILL)
+        self.procs = []
+
+
+def wait_for(pred, what: str, timeout: float, every: float = 0.05):
+    """Poll ``pred()`` until it returns a truthy value (returned) or
+    ``timeout`` seconds pass (fails the phase)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        got = pred()
+        if got:
+            return got
+        require(time.monotonic() < deadline, f"timed out after {timeout:g} s waiting for {what}")
+        time.sleep(every)
+
+
+def banner(log: Path, marker: str, proc, timeout: float) -> str:
+    """The first line of ``log`` holding ``marker``; fails when ``proc``
+    exits first or ``timeout`` passes."""
+    def find():
+        require(proc.poll() is None, f"process exited ({proc.returncode}) before its "
+                f"banner: {log.read_text()[-2000:]}")
+        for line in log.read_text().splitlines():
+            if marker in line:
+                return line
+        return None
+    return wait_for(find, f"'{marker}' in {log.name}", timeout, every=0.1)
+
+
+def banner_port(line: str) -> int:
+    """The port of a ``serving snapshot vN on http://HOST:PORT`` banner."""
+    return int(line.split(" on http://")[1].split()[0].rsplit(":", 1)[1])
+
+
+def fleet_banner(line: str) -> tuple:
+    """``(router port, replica pids)`` of ``fleet_cli up``'s banner."""
+    port = int(line.split(" behind http://")[1].split()[0].rsplit(":", 1)[1])
+    pids = json.loads(line.split("replica pids ")[1].rstrip(")"))
+    return port, pids
+
+
+def canary_launches(paths) -> int:
+    """``knn_topk`` launches of replica processes, counted from their
+    records: each ``canary_score`` record is one re-score of the quality
+    pass's probe, one launch of the kernel's fast instance."""
+    n = 0
+    for path in paths:
+        for line in Path(path).read_text().splitlines():
+            if line.strip() and json.loads(line).get("phase") == "canary_score":
+                n += 1
+    return n
+
+
+def free_ports(n: int) -> list:
+    """``n`` ports free on this host right now (bound, then released)."""
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def check_fleet_line(line: dict) -> dict:
+    """The ``fleet`` line carries every key of :data:`FLEET_KEYS`."""
+    missing = [k for k in FLEET_KEYS if k not in line]
+    require(not missing, f"fleet line lacks {missing}")
+    return line
+
+
+def smi_apps() -> dict:
+    """pid -> MiB the card holds for it (``nvidia-smi``'s per-process
+    view); {} where nvidia-smi cannot say."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader,nounits"], capture_output=True, text=True, timeout=60,
+        ).stdout
+    except (OSError, subprocess.SubprocessError):
+        return {}
+    apps = {}
+    for line in out.strip().splitlines():
+        parts = [p.strip() for p in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit() and parts[1].isdigit():
+            apps[int(parts[0])] = int(parts[1])
+    return apps
+
+
+def serve_cmd(store: Path, device: str, *extra) -> list:
+    return [sys.executable, "-m", "graphmine_tpu_torch.serve", "serve", "--store", str(store),
+            "--port", "0", "--device", device, *map(str, extra)]
+
+
+def healthz(port: int) -> dict:
+    return http(port, "GET", "/healthz", timeout=60)[2]
+
+
+def settled(port: int, version: int):
+    """The server's /healthz once it serves ``version`` (or later) with no
+    log entry pending, else None."""
+    try:
+        h = healthz(port)
+    except OSError:
+        return None
+    wal = h.get("wal") or {}
+    return h if h["version"] >= version and wal.get("pending_entries", 0) == 0 else None
+
+
+def small_deltas(snap, seed: int = 5) -> list:
+    """7c's deltas on ``snap`` (drawn as 7a draws them): insert-only with
+    two new vertices, delete-only, mixed."""
+    v, src, dst = len(snap["labels"]), snap["src"], snap["dst"]
+    rng = np.random.default_rng(seed)
+    pick = rng.integers(0, len(src), 24)
+    edges = [[int(src[i]), int(dst[i])] for i in pick]
+    new = rng.integers(0, v, (24, 2)).tolist()
+    return [{"insert": new[:12] + [[v, 0], [v, 1]]}, {"delete": edges[:12]},
+            {"insert": new[12:], "delete": edges[12:]}]
+
+
+def cpu_reference(store: Path, deltas: list, copy: Path) -> tuple:
+    """The same deltas through an in-process server on the CPU over a copy
+    of ``store`` at ``copy``, applied one at a time without a kill:
+    ``(snapshot, delta_apply records)``."""
+    from graphmine_tpu_torch.pipeline.metrics import MetricsSink
+    from graphmine_tpu_torch.serve.server import SnapshotServer
+    from graphmine_tpu_torch.serve.snapshot import SnapshotStore
+
+    shutil.copytree(store, copy)
+    sink = MetricsSink()
+    srv = SnapshotServer(SnapshotStore(str(copy)), sink=sink, device="cpu")
+    try:
+        for body in deltas:
+            out = srv.apply_delta(dict(body))
+            require("version" in out, f"CPU reference delta: {out}")
+        return srv.engine.snapshot, sink.of_phase("delta_apply")
+    finally:
+        srv.stop()
+
+
+def repairs(recs) -> list:
+    return [(r["method"], r["iterations"], r["version"]) for r in recs]
+
+
+def jsonl_phase(paths, phase: str) -> list:
+    out = []
+    for path in paths:
+        if Path(path).is_file():
+            out += [json.loads(x) for x in Path(path).read_text().splitlines()
+                    if x.strip() and json.loads(x).get("phase") == phase]
+    return out
+
+
+def same_publish(got, want, what: str, lof: bool = True) -> None:
+    """Labels, CC labels and edges equal, versions equal, and with
+    ``lof`` the LOF column within phase 4's tolerances. A restarted or
+    promoted writer rebuilds its streaming LOF window from the snapshot,
+    so its later scores are not an uninterrupted writer's (in the JAX
+    package too): those comparisons pass ``lof=False``."""
+    require(got.version == want.version, f"{what}: version {got.version} != {want.version}")
+    for name in ("src", "dst", "labels", "cc_labels"):
+        require(np.array_equal(got[name], want[name]), f"{what}: {name} differ")
+    if lof:
+        _lof_close(np.asarray(got["lof"]), np.asarray(want["lof"]), what)
+
+
+def wal_replay_compare(store: Path, work: Path, device: str = "cuda") -> dict:
+    """7c, the log: a ``serve --wal`` process takes two deltas acknowledged
+    at the log (each published before the next), a duplicate id, and a
+    third, and is SIGKILLed right after the third 202; a restart on the
+    same store and log replays what was not published. Equal to the CPU
+    server fed the same deltas without the kill, nothing applied twice."""
+    from graphmine_tpu_torch.serve.snapshot import SnapshotStore
+
+    root = work / "c7_wal"
+    shutil.copytree(store, root)
+    base = SnapshotStore(str(root)).load()
+    deltas = small_deltas(base)
+    logs = [work / "c7_wal_a.log", work / "c7_wal_b.log"]
+    metrics = [work / "c7_wal_a.jsonl", work / "c7_wal_b.jsonl"]
+    out = {}
+    with Processes() as procs:
+        proc = procs.spawn(serve_cmd(root, device, "--wal", root / "wal",
+                                     "--metrics-out", metrics[0]), logs[0])
+        port = banner_port(banner(logs[0], SERVE_BANNER, proc, 300))
+        for i in (0, 1):
+            status, _, body = http(port, "POST", "/delta", deltas[i],
+                                   headers={"X-Delta-Id": f"d{i}", "X-Delta-Ack": "wal"})
+            require(status == 202 and body["seq"] == i + 1, f"7c wal d{i}: {status} {body}")
+            wait_for(lambda v=base.version + 1 + i: settled(port, v), f"7c wal v{i + 2}", 300)
+        status, _, dup = http(port, "POST", "/delta", deltas[1],
+                              headers={"X-Delta-Id": "d1", "X-Delta-Ack": "wal"})
+        require(status == 200 and dup["verdict"] == "duplicate" and dup["applied"],
+                f"7c wal duplicate: {status} {dup}")
+        t = time.perf_counter()
+        status, _, body = http(port, "POST", "/delta", deltas[2],
+                               headers={"X-Delta-Id": "d2", "X-Delta-Ack": "wal"})
+        ack_ms = (time.perf_counter() - t) * 1e3
+        require(status == 202 and body["durable"], f"7c wal d2: {status} {body}")
+        os.kill(proc.pid, 9)
+        proc.wait(timeout=60)
+        killed_at = SnapshotStore(str(root)).peek_version()
+        proc = procs.spawn(serve_cmd(root, device, "--wal", root / "wal",
+                                     "--metrics-out", metrics[1]), logs[1])
+        port = banner_port(banner(logs[1], SERVE_BANNER, proc, 300))
+        h = wait_for(lambda: settled(port, base.version + 3), "7c wal replay", 300)
+        require(h["wal"]["last_seq"] == h["wal"]["applied_seq"] == 3, f"7c wal: {h['wal']}")
+        replays = jsonl_phase(metrics[1:], "wal_replay")
+        out.update(ack_ms=ack_ms, version_at_kill=killed_at,
+                   replayed=sum(r["entries"] for r in replays))
+    got = SnapshotStore(str(root)).load()
+    want, want_recs = cpu_reference(store, deltas, work / "c7_wal_cpu")
+    same_publish(got, want, "7c wal replay", lof=False)
+    got_recs = repairs(jsonl_phase(metrics, "delta_apply"))
+    require(got_recs == repairs(want_recs), f"7c wal: repairs {got_recs} != {repairs(want_recs)}")
+    out.update(repairs=got_recs, version=got.version,
+               canary_launches=canary_launches([m for m in metrics if m.is_file()]))
+    return out
+
+
+def standby_promote_compare(store: Path, work: Path, device: str = "cuda") -> dict:
+    """7c, the standby: a writer and its log-shipped standby over one
+    store, two deltas acknowledged at the writer's log, the writer
+    SIGKILLed right after the second 202, the standby promoted: a new
+    epoch, zero acknowledged loss (equal to the CPU server fed the same
+    deltas), a write on the promoted writer, and the deposed writer's
+    publish refused at the store."""
+    from graphmine_tpu_torch.pipeline.metrics import MetricsSink
+    from graphmine_tpu_torch.serve.server import SnapshotServer
+    from graphmine_tpu_torch.serve.snapshot import PublishFencedError, SnapshotStore
+
+    root = work / "c7_standby"
+    shutil.copytree(store, root)
+    base = SnapshotStore(str(root)).load()
+    deltas = small_deltas(base, seed=6)
+    logs = [work / "c7_primary.log", work / "c7_standby.log"]
+    metrics = [work / "c7_primary.jsonl", work / "c7_standby.jsonl"]
+    out = {}
+    with Processes() as procs:
+        primary = procs.spawn(serve_cmd(root, device, "--wal", root / "wal-0",
+                                        "--metrics-out", metrics[0]), logs[0])
+        pport = banner_port(banner(logs[0], SERVE_BANNER, primary, 300))
+        standby = procs.spawn(serve_cmd(root, device, "--wal", root / "wal-1", "--standby-of",
+                                        f"http://127.0.0.1:{pport}", "--primary-wal",
+                                        root / "wal-0", "--metrics-out", metrics[1]), logs[1])
+        sport = banner_port(banner(logs[1], SERVE_BANNER, standby, 300))
+        old_epoch = healthz(pport)["writer_epoch"]
+        refused = http(sport, "POST", "/delta", deltas[0])
+        require(refused[0] == 503 and "standby" in refused[2]["reason"], f"7c standby: {refused}")
+        status, _, body = http(pport, "POST", "/delta", deltas[0],
+                               headers={"X-Delta-Id": "p0", "X-Delta-Ack": "wal"})
+        require(status == 202, f"7c primary p0: {status} {body}")
+        wait_for(lambda: settled(pport, base.version + 1), "7c primary v2", 300)
+        status, _, body = http(pport, "POST", "/delta", deltas[1],
+                               headers={"X-Delta-Id": "p1", "X-Delta-Ack": "wal"})
+        require(status == 202, f"7c primary p1: {status} {body}")
+        os.kill(primary.pid, 9)
+        primary.wait(timeout=60)
+        t = time.perf_counter()
+        status, _, promo = http(sport, "POST", "/promote", {})
+        require(status == 200 and promo["promoted"] and promo["epoch"] == old_epoch + 1,
+                f"7c promote: {status} {promo}")
+        wait_for(lambda: settled(sport, base.version + 2), "7c promoted replay", 300)
+        out.update(promote_seconds=time.perf_counter() - t, epoch=promo["epoch"],
+                   replayed=promo["replayed"], copied_tail=promo["copied_tail"])
+        status, _, body = http(sport, "POST", "/delta", deltas[2], headers={"X-Delta-Id": "s2"})
+        require(status == 200 and body["version"] == base.version + 3, f"7c new write: {body}")
+        require(healthz(sport).get("standby") is None, "7c: the promoted server is a standby")
+    got = SnapshotStore(str(root)).load()
+    want, want_recs = cpu_reference(store, deltas, work / "c7_standby_cpu")
+    same_publish(got, want, "7c promote", lof=False)
+    got_recs = repairs(jsonl_phase(metrics, "delta_apply"))
+    require(got_recs == repairs(want_recs), f"7c promote: repairs {got_recs}")
+    # the deposed writer: its epoch is the old one, its publish must refuse
+    sink = MetricsSink()
+    zombie = SnapshotServer(SnapshotStore(str(root)), sink=sink, writer_epoch=old_epoch,
+                            device=device)
+    try:
+        zombie.apply_delta({"insert": [[0, 1]]})
+        fenced = False
+    except PublishFencedError:
+        fenced = True
+    finally:
+        zombie.stop()
+    require(fenced and sink.of_phase("publish_fenced"), "7c: the deposed writer published")
+    require(SnapshotStore(str(root)).peek_version() == got.version,
+            "7c: the deposed writer moved the store")
+    out.update(repairs=got_recs, version=got.version, deposed_fenced=True,
+               canary_launches=canary_launches([m for m in metrics if m.is_file()]))
+    return out
+
+
+def sharded_compare(store: Path, work: Path, devices=("cuda", "cpu")) -> dict:
+    """7c, the sharded write plane: a ``writer_shards = 2`` server on
+    ``devices[0]`` and a ``writer_shards = 1`` server on ``devices[1]``
+    take the same deltas; their publishes are equal, and the sharded one
+    wrote ``shard_publish`` and ``epoch_commit`` records."""
+    from graphmine_tpu_torch.pipeline.metrics import MetricsSink
+    from graphmine_tpu_torch.serve.server import SnapshotServer
+    from graphmine_tpu_torch.serve.snapshot import SnapshotStore
+
+    sinks, snaps, recs, health = [], [], [], []
+    deltas = small_deltas(SnapshotStore(str(store)).load(), seed=7)
+    for shards, device in zip((2, 1), devices):
+        copy = work / f"c7_shards{shards}_{device}"
+        shutil.copytree(store, copy)
+        sink = MetricsSink()
+        srv = SnapshotServer(SnapshotStore(str(copy)), sink=sink, writer_shards=shards,
+                             device=device)
+        try:
+            for i, body in enumerate(deltas):
+                res = srv.apply_delta(dict(body), delta_id=f"s{i}")
+                require("version" in res, f"7c shards={shards}: {res}")
+            health.append(srv.healthz())
+        finally:
+            srv.stop()
+        sinks.append(sink)
+        snaps.append(SnapshotStore(str(copy)).load())
+        recs.append(repairs(sink.of_phase("delta_apply")))
+    same_publish(snaps[0], snaps[1], "7c writer_shards 2 vs 1")
+    require(recs[0] == recs[1], f"7c shards: repairs {recs}")
+    commits, stages = sinks[0].of_phase("epoch_commit"), sinks[0].of_phase("shard_publish")
+    require(len(commits) == len(deltas) and len(stages) == 2 * len(deltas),
+            f"7c shards: {len(commits)} epoch_commit, {len(stages)} shard_publish")
+    require(health[0]["epoch"] == len(deltas), f"7c shards: epoch {health[0].get('epoch')}")
+    return {"repairs": recs[0], "version": snaps[0].version, "epoch": health[0]["epoch"],
+            "shard_versions": health[0]["shard_versions"],
+            "epoch_commits": len(commits), "shard_publishes": len(stages)}
+
+
+def run_replicated_small(store: Path, work: Path) -> dict:
+    """Phase 7c on phase 4's store: the card against the CPU."""
+    import torch
+
+    reset_launches()
+    out = {"wal": wal_replay_compare(store, work), "standby": standby_promote_compare(store, work),
+           "shards": sharded_compare(store, work)}
+    torch.cuda.synchronize()
+    out["launches"] = read_launches()
+    out["replica_canary_launches"] = (out["wal"]["canary_launches"]
+                                      + out["standby"]["canary_launches"])
+    require(out["launches"]["knn_topk"] >= out["shards"]["version"] - 1,
+            f"7c: the sharded server's publishes launched {out['launches']}")
+    require(out["replica_canary_launches"] >= 6, f"7c: replica canaries {out}")
+    return out
+
+
+def router_committed(port: int) -> int:
+    """The router's committed version (0 while it has none or does not
+    answer)."""
+    try:
+        return http(port, "GET", "/healthz", timeout=30)[2].get("committed_version") or 0
+    except OSError:
+        return 0
+
+
+def nvidia_fds(pid: int) -> list:
+    """The ``/dev/nvidia*`` device files process ``pid`` holds open (a
+    process opens them when it initialises CUDA)."""
+    out = set()
+    try:
+        fds = os.listdir(f"/proc/{pid}/fd")
+    except OSError:
+        return []
+    for fd in fds:
+        try:
+            target = os.readlink(f"/proc/{pid}/fd/{fd}")
+        except OSError:
+            continue
+        if target.startswith("/dev/nvidia"):
+            out.add(target)
+    return sorted(out)
+
+
+def libcuda_mapped(pid: int) -> bool:
+    """Whether process ``pid`` has the CUDA driver library mapped (loaded
+    on the first CUDA call of a process, never by importing torch)."""
+    try:
+        return "libcuda.so" in Path(f"/proc/{pid}/maps").read_text()
+    except OSError:
+        return False
+
+
+def router_query(port: int, body: dict, deadline_ms: int = 60000) -> tuple:
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/query", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", "X-Deadline-Ms": str(deadline_ms)})
+    try:
+        with urllib.request.urlopen(req, timeout=deadline_ms / 1e3 + 10) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def edge_keys(src, dst) -> np.ndarray:
+    """The sorted multiset of directed edges, one int64 key each."""
+    return np.sort(np.asarray(src, np.int64) * (1 << 32) + np.asarray(dst, np.int64))
+
+
+def fleet_phase(store: Path, work: Path, device: str = "cuda", vertex_gets: int = 256,
+                query_reps: int = 32, query_ids: int = SERVE_QUERY_IDS) -> dict:
+    """Phase 7d: ``fleet_cli up --replicas 3 --standby`` over phase 5's
+    store (writer, its standby, one read replica) behind the router, a
+    reader posting ``/query`` through the router throughout. Reads through
+    the router; phase 7b's 0.05% delta acknowledged at the writer's log;
+    a second delta acknowledged and the writer SIGKILLed at once; the
+    router's auto-promotion of the standby and a third delta on it; a
+    ``roll``. Gates: no reader error, every answer equal to the published
+    snapshot of its version, the committed version never going back, no
+    acknowledged delta lost, every CC equal to a cold recompute. Returns
+    the ``fleet`` line."""
+    import threading
+
+    from graphmine_tpu_torch.serve.delta import EdgeDelta, splice_edges, validate_delta
+    from graphmine_tpu_torch.serve.snapshot import SnapshotStore
+
+    snapstore = SnapshotStore(str(store))
+    base = snapstore.load()
+    v, e = len(base["labels"]), len(base["src"])
+    obs = work / "d7_obs"
+    obs.mkdir()
+    log = work / "d7_fleet.log"
+    rport, bport = free_ports(2)
+    env = {**os.environ, **FLEET_ENV}
+    captured = {base.version: {k: np.asarray(base[k]) for k in ("labels", "cc_labels", "src",
+                                                                "dst")}}
+    committed, seen, errors = [], [], []
+    stop = threading.Event()
+    line = {"vertices": v, "edges": e, "replicas": 3}
+
+    def reader_ids(n: int) -> np.ndarray:
+        return np.random.default_rng(2000 + n).integers(0, v, query_ids)
+
+    def digest(labels, comps) -> str:
+        return hashlib.sha1(np.asarray(labels, np.int32).tobytes()
+                            + np.asarray(comps, np.int32).tobytes()).hexdigest()
+
+    retried = [0]
+
+    def reader():
+        """A client of the router: the port's ``request_with_retries``,
+        which obeys the 503 + Retry-After the router answers while no
+        replica holds the committed version (unavailable, never mixed)."""
+        from graphmine_tpu_torch.serve.__main__ import request_with_retries
+
+        n = 0
+        while not stop.is_set():
+            n += 1
+            try:
+                out = request_with_retries(
+                    f"http://127.0.0.1:{rport}/query", {"vertices": reader_ids(n).tolist()},
+                    deadline_ms=120_000, max_retries=60)
+                retried[0] += out["attempts"] - 1
+                ans = out["body"]
+                if out["status"] != 200:
+                    errors.append((out["status"], ans.get("reason")))
+                else:
+                    seen.append((ans["version"], n, digest(ans["label"], ans["component"])))
+            except Exception as exc:  # noqa: BLE001 -- counted, then held to zero
+                errors.append(repr(exc))
+            time.sleep(0.02)
+
+    def capture():
+        """Every published version of the store, loaded while it is the
+        newest, and the router's committed version."""
+        while not stop.is_set():
+            try:
+                ver = snapstore.peek_version()
+                if ver is not None and ver not in captured:
+                    snap = snapstore.load()
+                    captured.setdefault(snap.version, {k: np.asarray(snap[k]) for k in
+                                                       ("labels", "cc_labels", "src", "dst")})
+                fz = http(rport, "GET", "/fleetz", timeout=30)[2]
+                if fz.get("committed_version") is not None:
+                    committed.append(fz["committed_version"])
+            except Exception:  # noqa: BLE001 -- a load racing a publish retries
+                pass
+            time.sleep(0.2)
+
+    with Processes() as procs:
+        t0 = time.perf_counter()
+        fleet = procs.spawn(
+            [sys.executable, "-m", "graphmine_tpu_torch.serve.fleet_cli", "up", "--store",
+             str(store), "--replicas", "3", "--standby", "--port", str(rport),
+             "--replica-base-port", str(bport), "--obs-dir", str(obs), "--device", device,
+             "--startup-timeout-s", "600"], log, group=True, env=env)
+        _, pids = fleet_banner(banner(log, FLEET_BANNER, fleet, 900))
+        wait_for(lambda: router_committed(rport) == base.version, "7d committed base version",
+                 300)
+        line["startup_seconds"] = time.perf_counter() - t0
+        threads = [threading.Thread(target=f, daemon=True) for f in (reader, capture)]
+        for th in threads:
+            th.start()
+        try:
+            rng = np.random.default_rng(7)
+            lat = []
+            for vtx in rng.integers(0, v, vertex_gets):
+                t = time.perf_counter()
+                status, hdrs, row = http(rport, "GET", f"/vertex?v={int(vtx)}")
+                lat.append(time.perf_counter() - t)
+                pinned = int(hdrs.get("X-Pinned-Version", -1))
+                require(status == 200 and pinned in captured and row["label"]
+                        == int(captured[pinned]["labels"][vtx]), f"7d vertex {hdrs} {row}")
+            line["vertex"] = _quantiles_us(lat)
+            ids = rng.integers(0, v, query_ids)
+            lat = []
+            t_all = time.perf_counter()
+            for _ in range(query_reps):
+                t = time.perf_counter()
+                status, out = router_query(rport, {"vertices": ids.tolist()})
+                lat.append(time.perf_counter() - t)
+                require(status == 200 and np.array_equal(
+                    out["label"], captured[out["version"]]["labels"][ids]), "7d query")
+            line["query"] = {**_quantiles_us(lat), "ids": len(ids), "reps": query_reps,
+                             "lookups_per_s": query_reps * len(ids)
+                             / (time.perf_counter() - t_all)}
+            peaks = {}
+
+            def statusz(i: int) -> dict:
+                return http(bport + i, "GET", "/statusz", timeout=120)[2]
+
+            # 7b's 0.05% delta, acknowledged at the writer's log
+            n_d = max(8, int(e * 0.0005))
+            ins = np.stack([rng.integers(0, v, n_d), rng.integers(0, v, n_d)], 1)
+            idx = rng.integers(0, e, n_d // 2)
+            d1 = {"insert": ins.tolist(),
+                  "delete": np.stack([base["src"][idx], base["dst"][idx]], 1).tolist()}
+            small = lambda seed: {"insert": np.random.default_rng(seed).integers(
+                0, v, (REPLICA_SMALL_DELTA, 2)).tolist()}
+            acked = [d1]
+            t = time.perf_counter()
+            status, _, body = http(rport, "POST", "/delta", d1,
+                                   headers={"X-Delta-Id": "d7-1", "X-Delta-Ack": "wal"})
+            t_ack = time.perf_counter()
+            require(status == 202 and body["verdict"] == "accepted", f"7d d1: {status} {body}")
+            line["ack_ms"] = (t_ack - t) * 1e3
+            wait_for(lambda: router_committed(rport) >= base.version + 1, "7d d1 visible",
+                     600, every=0.02)
+            line["visible_seconds"] = time.perf_counter() - t_ack
+            line["deltas"] = [{"delta": "0.0005_of_E",
+                               "rows": len(d1["insert"]) + len(d1["delete"]),
+                               "ack_ms": line["ack_ms"],
+                               "visible_seconds": line["visible_seconds"]}]
+            peaks["replica-0"] = statusz(0)["memory"].get("device_peak_bytes")
+            smi_before = smi_apps()
+            # the second delta, acknowledged, and the writer killed at once
+            d2 = small(71)
+            status, _, body = http(rport, "POST", "/delta", d2,
+                                   headers={"X-Delta-Id": "d7-2", "X-Delta-Ack": "wal"})
+            require(status == 202, f"7d d2: {status} {body}")
+            os.kill(pids[0], 9)
+            t_kill, wall_kill = time.perf_counter(), time.time()
+            acked.append(d2)
+
+            def promoted():
+                fz = http(rport, "GET", "/fleetz", timeout=30)[2]
+                return fz if fz.get("writer") == "replica-1" and not fz.get("read_only") else None
+            fz = wait_for(promoted, "7d auto-promotion", 600)
+            d3 = small(72)
+            status, _, body = wait_for(
+                lambda: (lambda r: r if r[0] == 202 else None)(
+                    http(rport, "POST", "/delta", d3,
+                         headers={"X-Delta-Id": "d7-3", "X-Delta-Ack": "wal"})),
+                "7d a write on the promoted writer", 120, every=0.1)
+            line["promote_seconds"] = time.perf_counter() - t_kill
+            acked.append(d3)
+            line["promote"] = {"writer": fz["writer"], "writer_epoch": fz.get("writer_epoch"),
+                               "seconds_to_accept": line["promote_seconds"]}
+            line["deltas"] += [{"delta": "kill_window", "rows": REPLICA_SMALL_DELTA},
+                               {"delta": "after_promotion", "rows": REPLICA_SMALL_DELTA}]
+            # d3's 202 came after the replay was queued: no entry pending
+            # means both published (one group or two)
+            h = wait_for(lambda: settled(bport + 1, base.version + 2), "7d replay and d3", 900)
+            final_version = h["version"]
+            wait_for(lambda: router_committed(rport) >= final_version,
+                     "7d final version committed", 600)
+            t = time.perf_counter()
+            status, _, roll = http(rport, "POST", "/roll", {}, timeout=900)
+            require(status == 200 and roll["ok"], f"7d roll: {status} {roll}")
+            line["roll"] = {"seconds": time.perf_counter() - t,
+                            "rolled": [(r["id"], r.get("version", r.get("skipped")))
+                                       for r in roll["rolled"]],
+                            "committed_version": roll.get("committed_version")}
+            time.sleep(1.0)  # a few more reader answers at the final version
+            for i in (1, 2):
+                peaks[f"replica-{i}"] = statusz(i)["memory"].get("device_peak_bytes")
+            smi_after = smi_apps()
+        finally:
+            stop.set()
+            for th in threads:
+                th.join(timeout=120)
+        line["device_peak_bytes"] = peaks
+        # nvidia-smi's per-process list, as it gives it (its pids may be
+        # another pid namespace's): with the writer alive, after its kill
+        line["smi_used_mib"] = {"writer_alive": sorted(smi_before.values()),
+                                "after_kill": sorted(smi_after.values())}
+        line["smi_processes"] = [len(smi_before), len(smi_after)]
+        # a CUDA context holds the driver's device files open: the read
+        # replica's show the probe sees them, the router must hold none
+        line["replica_nvidia_fds"] = nvidia_fds(pids[2])
+        line["router_nvidia_fds"] = nvidia_fds(fleet.pid)
+        line["router_holds_cuda_context"] = bool(line["router_nvidia_fds"])
+        line["router_libcuda_mapped"] = libcuda_mapped(fleet.pid)
+        # whether importing torch alone maps the driver library here
+        probe = subprocess.run(
+            [sys.executable, "-c", "import torch; print('libcuda.so' in "
+             "open('/proc/self/maps').read())"], capture_output=True, text=True, timeout=120)
+        line["import_torch_maps_libcuda"] = probe.stdout.strip() == "True"
+    # ---- the gates, on what the phase recorded
+    require(not errors, f"7d: the reader saw errors: {errors[:5]}")
+    require(seen, "7d: the reader saw no answer")
+    versions = [s[0] for s in seen]
+    require(versions == sorted(versions), "7d: a reader saw the version go back")
+    require(committed == sorted(committed), "7d: the router's committed version went back")
+    for version, n, got in seen:
+        snap = captured.get(version)
+        require(snap is not None, f"7d: reader saw version {version}, never captured")
+        q = reader_ids(n)
+        require(got == digest(snap["labels"][q], snap["cc_labels"][q]),
+                f"7d: torn answer at version {version}")
+    final = snapstore.load()
+    require(final.version == final_version, f"7d: store at v{final.version}")
+    # zero acknowledged loss: the final edge multiset is the base's with
+    # every acknowledged delta spliced in, in order
+    src, dst, nv = np.asarray(base["src"]), np.asarray(base["dst"]), v
+    for body in acked:
+        clean, _ = validate_delta(EdgeDelta.from_pairs(insert=body.get("insert", ()),
+                                                       delete=body.get("delete", ())), nv)
+        src, dst, nv, _ = splice_edges(src, dst, nv, clean)
+    line["acked_lost"] = int(not np.array_equal(edge_keys(src, dst),
+                                                edge_keys(final["src"], final["dst"])))
+    require(line["acked_lost"] == 0, "7d: an acknowledged delta is missing from the store")
+    line["cc_checked"] = cold_cc_check(captured, device)
+    line["reader"] = {"answers": len(seen), "errors": len(errors),
+                      "retried_503": retried[0], "versions": sorted(set(versions))}
+    line["committed_versions"] = sorted(set(committed))
+    line["canary_launches"] = canary_launches(sorted(obs.glob("*.jsonl")))
+    line["promote"]["timeline"] = failover_timeline(sorted(obs.glob("*.jsonl")), wall_kill)
+    require(not line["router_holds_cuda_context"],
+            f"7d: the router process holds CUDA devices open: {line['router_nvidia_fds']}")
+    return check_fleet_line(line)
+
+
+def failover_timeline(paths, wall_kill: float) -> dict:
+    """Seconds from the writer's kill to each step of the failover, from
+    the processes' own records: the router's ``replica_health`` verdict
+    (the writer down), its ``fleet_degraded`` flips (read-only, then
+    writable again), its ``writer_promote``, and the standby's
+    ``writer_promote`` (with its own seconds, replayed and copied
+    entries) and ``wal_replay``."""
+    recs = [r for r in jsonl_phase(paths, "replica_health")
+            + jsonl_phase(paths, "fleet_degraded") + jsonl_phase(paths, "writer_promote")
+            + jsonl_phase(paths, "wal_replay") if r.get("t", 0) >= wall_kill]
+    out = {}
+    for r in sorted(recs, key=lambda r: r["t"]):
+        after = round(r["t"] - wall_kill, 3)
+        if r["phase"] == "replica_health" and r.get("to_state") == "down":
+            out.setdefault(f"{r['replica']}_down_s", after)
+        elif r["phase"] == "fleet_degraded":
+            out.setdefault("read_only_s" if r["read_only"] else "writable_s", after)
+        elif r["phase"] == "writer_promote":
+            key = "server_promote" if "replayed" in r else "router_promote"
+            out.setdefault(key, {"after_kill_s": after, **{
+                k: r[k] for k in ("seconds", "replayed", "copied_tail", "epoch") if k in r}})
+        elif r["phase"] == "wal_replay":
+            out.setdefault("replay", {"after_kill_s": after, "entries": r["entries"]})
+    return out
+
+
+def cold_cc_check(captured: dict, device: str) -> list:
+    """Every captured version's CC labels equal a cold
+    ``connected_components`` of its graph on ``device``; returns the
+    versions checked."""
+    import torch
+
+    from graphmine_tpu_torch.graph.container import build_graph
+    from graphmine_tpu_torch.ops.cc import connected_components
+
+    for version, arrays in sorted(captured.items()):
+        g = build_graph(arrays["src"], arrays["dst"], num_vertices=len(arrays["labels"]),
+                        device=device)
+        cold = connected_components(g).cpu().numpy()
+        require(np.array_equal(cold, arrays["cc_labels"]),
+                f"v{version}: CC labels differ from a cold recompute")
+        del g
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return sorted(captured)
+
+
+def run_replicated(work: Path) -> dict:
+    """Phases 7c (phase 4's store, card against CPU) and 7d (phase 5's
+    store, the fleet on the card); prints the ``replicated`` and ``fleet``
+    lines and returns the launches to add to the serving launches: the
+    smoke's own count in 7c and the replicas' canaries of both."""
+    t0 = time.perf_counter()
+    small = run_replicated_small(work / "store_cuda", work)
+    small["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"replicated": small}), flush=True)
+    t0 = time.perf_counter()
+    fleet = fleet_phase(work / "store", work)
+    fleet["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"fleet": fleet}), flush=True)
+    replica = small["replica_canary_launches"] + fleet["canary_launches"]
+    out = dict(small["launches"])
+    out["knn_topk"] += replica
+    out["knn_topk_fast"] += replica
+    return out
+
+
 def run_main_path(work: Path) -> None:
     """Phases 4-7: small pipelines on the card against the CPU, the run
     harness on them, the main path, the main path under the harness,
@@ -1548,6 +2370,10 @@ def run_main_path(work: Path) -> None:
 
     # ---- 7. serving: phase 4's store card against CPU, phase 5's on the card
     serve_launches = run_serving(work)
+
+    # ---- 7c/7d. the replicated serving plane on the same two stores -----
+    replicated = run_replicated(work)
+    serve_launches = {k: serve_launches[k] + replicated[k] for k in serve_launches}
 
     # ---- 5b. the weighted exact path, on the edge list -------------------
     res, wall, launches, peak = drive(

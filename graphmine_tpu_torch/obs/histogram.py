@@ -145,6 +145,33 @@ class Histogram:
                 sum=self._sum, count=sum(self._counts),
             )
 
+    @property
+    def count(self) -> int:
+        return self.snapshot().count
+
+    @property
+    def sum(self) -> float:
+        return self.snapshot().sum
+
+    def quantile(self, q: float) -> float:
+        return self.snapshot().quantile(q)
+
+    def merge(self, other: "Histogram") -> "Histogram":
+        """Add ``other``'s buckets into this one (the per-replica to fleet
+        rollup). Mismatched ladders raise: re-binning would fabricate a
+        distribution neither side observed."""
+        snap = other.snapshot()
+        if snap.bounds != self._bounds:
+            raise ValueError(
+                f"cannot merge histograms with different bucket ladders "
+                f"({len(snap.bounds)} vs {len(self._bounds)} bounds)"
+            )
+        with self._lock:
+            for i, c in enumerate(snap.counts):
+                self._counts[i] += c
+            self._sum += snap.sum
+        return self
+
     # -- exposition --------------------------------------------------------
     def render_lines(self, extra_labels: dict | None = None) -> list:
         """Prometheus exposition sample lines (no HELP/TYPE — the family

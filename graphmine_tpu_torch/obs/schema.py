@@ -105,6 +105,26 @@ register("delta_shed", "stage", "reason", "rows", "retry_after_s")
 register("delta_stages", "version", "stages")
 register("alert", "name", "state", "severity", "metric", "value", "threshold")
 
+# ---- the replicated serving plane: fleet, write-ahead log, shard plane ----
+# replica_health / breaker_transition / fleet_route / fleet_degraded come
+# from the fleet router (serve/fleet.py); delta_visible is one per (delta,
+# replica) when a replica first serves the version that absorbed the delta.
+register("replica_health", "replica", "from_state", "to_state", "reason")
+register("breaker_transition", "replica", "from_state", "to_state", "reason")
+register("fleet_route", "endpoint", "verdict", "attempts")
+register("fleet_degraded", "reason", "read_only")
+register("delta_visible", "replica", "version", "seconds")
+# wal_append: one per fsync'd log append; wal_replay: one per startup or
+# promotion replay; ship_lag: the standby's lag while behind (rate-limited)
+register("wal_append", "seq", "rows", "bytes", "seconds")
+register("wal_replay", "entries", "from_seq")
+register("ship_lag", "lag_entries", "lag_s")
+# shard_publish / epoch_commit / shard_degraded: built only by
+# serve/shardplane.emit_shard_record
+register("shard_publish", "epoch", "shard", "version", "arrays")
+register("epoch_commit", "epoch", "version_vector", "shards")
+register("shard_degraded", "shard", "status", "reason")
+
 # ---- recovery / resilience records ----------------------------------------
 register("retry", "stage", "attempt", "backoff_s", "error")
 register("retries_exhausted", "stage", "attempts", "error")

@@ -80,6 +80,21 @@ class QuantileSketch(Histogram):
                 "counts": [int(c) for c in snap.counts],
                 "sum": float(snap.sum), "count": int(snap.count)}
 
+    @classmethod
+    def from_state(cls, state: dict, name: str = "sketch") -> "QuantileSketch":
+        """Rebuild a sketch from :meth:`to_state` output (a record field, a
+        replica's ``/alertz`` body); malformed state raises ValueError, so
+        a router merging replica sketches refuses a torn payload."""
+        try:
+            bounds = tuple(float(b) for b in state["bounds"])
+            counts = [int(c) for c in state["counts"]]
+            total = float(state.get("sum", 0.0))
+            sk = cls(name=name, buckets=bounds)
+            sk.add_counts(counts, total=total)
+        except (KeyError, TypeError, ValueError) as e:
+            raise ValueError(f"malformed sketch state: {e!r}") from e
+        return sk
+
 
 def _state_of(sketch) -> tuple:
     """``(bounds, counts)`` of a sketch or of a ``to_state`` dict."""

@@ -12,11 +12,18 @@ Counterpart of ``graphmine_tpu/serve`` on one device:
 - :mod:`~graphmine_tpu_torch.serve.admission`: write-path overload
   protection (accept/queue/coalesce/shed, LOF defer);
 - :mod:`~graphmine_tpu_torch.serve.tenancy`: tenant ids and the registry;
+- :mod:`~graphmine_tpu_torch.serve.wal`: the durable write-ahead delta log
+  and log shipping (host code; the JAX package's directory format);
+- :mod:`~graphmine_tpu_torch.serve.shardplane`: the vertex-range sharded
+  write plane and its two-phase epoch commit;
 - :mod:`~graphmine_tpu_torch.serve.server`: the stdlib HTTP front end,
-  double-buffered, with ``python -m graphmine_tpu_torch.serve serve``.
+  double-buffered, with the durable write path, standby and promote;
+- :mod:`~graphmine_tpu_torch.serve.fleet`: the router over replica
+  processes (consistent-version reads, breakers, failover, rolling
+  reload), which never touches a device.
 
-The JAX package's ``fleet``, ``wal`` and ``shardplane`` modules are
-ROADMAP item A4's later batch.
+CLIs: ``python -m graphmine_tpu_torch.serve serve|info|query|delta`` and
+``python -m graphmine_tpu_torch.serve.fleet_cli up|status|roll|promote``.
 """
 
 from graphmine_tpu_torch.serve.admission import (
@@ -31,24 +38,39 @@ from graphmine_tpu_torch.serve.delta import (
     RepairDebt,
     RepairResult,
 )
+from graphmine_tpu_torch.serve.fleet import (
+    CircuitBreaker,
+    FleetConfig,
+    FleetRouter,
+    ReplicaSet,
+    ReplicaSpec,
+)
 from graphmine_tpu_torch.serve.query import QueryEngine
 from graphmine_tpu_torch.serve.snapshot import (
     PublishFencedError,
     Snapshot,
     SnapshotStore,
 )
+from graphmine_tpu_torch.serve.wal import LogShipper, WriteAheadLog
 
 __all__ = [
     "AdmissionBounds",
     "AdmissionController",
     "AdmissionDecision",
+    "CircuitBreaker",
     "DeltaIngestor",
     "EdgeDelta",
+    "FleetConfig",
+    "FleetRouter",
+    "LogShipper",
     "PublishFencedError",
     "QueryEngine",
+    "ReplicaSet",
+    "ReplicaSpec",
     "RepairDebt",
     "RepairResult",
     "Snapshot",
     "SnapshotStore",
+    "WriteAheadLog",
     "coalesce_deltas",
 ]

@@ -156,6 +156,23 @@ class EdgeDelta:
     def num_deletes(self) -> int:
         return len(self.delete_src)
 
+    def take(self, insert_index, delete_index) -> "EdgeDelta":
+        """Row-select a sub-delta by original row indices (the sharded
+        write plane's splitter): inserts keep their weights, and because
+        the indices are positions into this delta's arrays, a scatter of
+        the sub-deltas back through the same indices is bit-identical to
+        the original."""
+        ins = np.asarray(insert_index, np.int64)
+        dels = np.asarray(delete_index, np.int64)
+        return EdgeDelta(
+            self.insert_src[ins], self.insert_dst[ins],
+            self.delete_src[dels], self.delete_dst[dels],
+            insert_weight=(
+                None if self.insert_weight is None
+                else self.insert_weight[ins]
+            ),
+        )
+
 
 def validate_delta(
     delta: EdgeDelta, num_vertices: int,
@@ -895,6 +912,7 @@ class DeltaIngestor:
 
     def apply(
         self, delta: EdgeDelta, lof_mode: str = "refresh", batches: int = 1,
+        extra_meta: dict | None = None,
     ) -> Snapshot:
         """Validate, splice, repair, rescore and publish one delta batch.
 
@@ -913,8 +931,11 @@ class DeltaIngestor:
 
         ``batches``: how many submitted delta batches this apply settles
         in the debt ledger (a coalesced apply settles its whole group).
-        (The JAX package's ``extra_meta``, the WAL cursor a publish
-        absorbs, waits for the write-ahead log, ROADMAP item A4.)
+
+        ``extra_meta``: extra manifest keys for the publish (the apply
+        worker stamps the write-ahead log cursor this publish absorbs,
+        ``wal_applied_seq`` / ``wal_applied_above``, so a crash between
+        the publish and the log's commit cannot replay absorbed entries).
         """
         if lof_mode not in ("refresh", "defer"):
             raise ValueError(
@@ -994,6 +1015,7 @@ class DeltaIngestor:
                 run_id=self.snapshot.meta.get("run_id", ""),
                 mesh_shape=[self.num_shards],
                 extra_meta={
+                    **(extra_meta or {}),
                     **({"lof_stale": True} if lof_stale else {}),
                     **(
                         {"canary": self._canary.meta()}

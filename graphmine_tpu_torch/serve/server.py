@@ -28,9 +28,17 @@ Endpoints (JSON unless noted):
 ``GET  /topk?community=&k=``  top-k LOF outliers of one community
 ``POST /query``        ``{"vertices": [...]}``: the batched gather path
 ``POST /delta``        ``{"insert": [[s,d],...], "delete": [[s,d],...]}``
-                       (``X-Deadline-Ms`` narrows the queued deadline)
-``GET  /wal``          400: this server keeps no write-ahead log
-``POST /promote``      400: promotion needs a write-ahead log
+                       (``X-Deadline-Ms`` narrows the queued deadline;
+                       ``X-Delta-Id`` is the idempotency key the log
+                       dedupes retries on; ``X-Delta-Ack: wal`` answers
+                       **202** once the batch is durable in the log
+                       instead of blocking to the publish)
+``GET  /wal``          ``?from=SEQ&limit=N``: write-ahead-log entries for
+                       log shipping (the standby's tail; serve/wal.py);
+                       400 without a log
+``POST /promote``      standby → writer: fence the store epoch, adopt the
+                       newest snapshot, replay the log tail, resume
+                       writes
 ``POST /reload``       reload the store's newest snapshot and swap
 ``POST /drain``        flip readiness off
 ``POST /undrain``      restore readiness
@@ -54,11 +62,22 @@ into one splice and one repair (:func:`~graphmine_tpu_torch.serve.admission.coal
 shed verdicts answer 503 with ``Retry-After``. State is kept per tenant
 (``X-Tenant-Id`` or ``?tenant=``), the default tenant included.
 
-The durable write path (``wal=``), standbys (``standby_of=``,
-``primary_wal=``) and the sharded write plane (``writer_shards > 1``,
-``GRAPHMINE_WRITER_SHARDS``) are ROADMAP item A4's later batch: the
-constructor raises ``NotImplementedError`` for them, and ``/wal`` and
-``/promote`` answer as the JAX server does with no log attached.
+Durability and replicated writers: with a
+:class:`~graphmine_tpu_torch.serve.wal.WriteAheadLog` attached (``wal=``),
+every admission-accepted batch is append-fsync'd before it is acknowledged
+or queued, and no CUDA work happens on that path: the apply worker alone
+touches the card. Startup replays the accepted-but-unapplied tail through
+admission (deduped by ``X-Delta-Id``), and a clean :meth:`stop` resolves
+durable queued batches as **202 accepted** (they replay on restart).
+Publishes carry ``writer_epoch``; a deposed writer's publish is refused at
+the store (``publish_fenced``). A server started with ``standby_of=``
+refuses client writes and tails the primary's log instead (a
+:class:`~graphmine_tpu_torch.serve.wal.LogShipper` thread on the host);
+``/promote`` makes it the writer. ``writer_shards > 1`` (or
+``GRAPHMINE_WRITER_SHARDS``) splits the log, admission and repair debt by
+vertex range (:mod:`~graphmine_tpu_torch.serve.shardplane`) and publishes
+through a two-phase epoch commit; the apply still runs once, on the whole
+batch, on the one device.
 """
 
 from __future__ import annotations
@@ -98,12 +117,19 @@ from graphmine_tpu_torch.serve.admission import (
     coalesce_deltas,
 )
 from graphmine_tpu_torch.serve.delta import (
+    _SHARDED,
     DeltaIngestor,
     EdgeDelta,
     RepairDebt,
     validate_delta,
 )
 from graphmine_tpu_torch.serve.query import QueryEngine
+from graphmine_tpu_torch.serve.shardplane import (
+    ShardPlan,
+    ShardRangeUnavailableError,
+    ShardedWritePlane,
+    writer_shards_from_env,
+)
 from graphmine_tpu_torch.serve.snapshot import PublishFencedError, SnapshotStore
 from graphmine_tpu_torch.serve.tenancy import (
     DEFAULT_TENANT,
@@ -111,8 +137,7 @@ from graphmine_tpu_torch.serve.tenancy import (
     TenantRegistry,
     UnknownTenantError,
 )
-
-_LATER = "ROADMAP item A4 (its later batch: wal, standby and promote, shardplane)"
+from graphmine_tpu_torch.serve.wal import LogShipper, WriteAheadLog
 
 # Client-supplied request ids are echoed into headers, records and logs:
 # constrain them so a hostile header can't smuggle newlines/quotes.
@@ -169,8 +194,9 @@ class _PendingDelta:
     terminal transition."""
 
     __slots__ = ("delta", "rows", "deadline", "deadline_s", "status",
-                 "result", "error", "event", "shed_reason", "delta_id",
-                 "trace", "t_accept", "tenant")
+                 "result", "error", "event", "shed_reason", "seq",
+                 "delta_id", "async_ack", "trace", "t_accept",
+                 "t_durable", "tenant", "shard_seqs")
 
     def __init__(
         self, delta: EdgeDelta, rows: int, deadline: float,
@@ -185,18 +211,31 @@ class _PendingDelta:
         self.error: BaseException | None = None
         self.event = threading.Event()
         self.shed_reason = ""
-        # The client's X-Delta-Id, carried into the delta_stages record.
-        self.delta_id = ""
-        # Trace identity and the causal-chain stamp: `trace` is the
-        # accepting request's propagated traceparent header; t_accept is
-        # the monotonic mark of the admission verdict, which the apply
-        # worker turns into the per-stage breakdown (`delta_stages`
-        # record + graphmine_serve_delta_stage_seconds histograms).
+        # Trace identity and the causal-chain stamps: `trace` is the
+        # accepting request's propagated traceparent header (durable in
+        # the log, so it survives kill/replay and shipping); t_accept and
+        # t_durable are monotonic marks of the admission verdict and the
+        # log fsync, which the apply worker turns into the per-stage
+        # breakdown (`delta_stages` record +
+        # graphmine_serve_delta_stage_seconds histograms).
         self.trace = ""
         self.t_accept = time.monotonic()
+        self.t_durable: float | None = None
+        # Log identity: seq is the batch's durable log position (None = no
+        # log on this server), delta_id the client's idempotency key.
+        # async_ack batches were answered 202 at append time: nobody
+        # waits on the event, and the deadline is inf (a durable
+        # acknowledgement is never deadline-shed).
+        self.seq: int | None = None
+        self.delta_id = ""
+        self.async_ack = False
         # Which tenant's sub-queue this batch parks on: its debt, sheds
         # and apply all charge here, never to another tenant's ledger.
         self.tenant = DEFAULT_TENANT
+        # Sharded write plane: the {shard: seq} map of every per-range
+        # log frame this batch is durable in. None on the single-log (or
+        # log-less) path.
+        self.shard_seqs: dict | None = None
 
 
 class _TenantSink:
@@ -231,8 +270,8 @@ class _TenantState:
     properties."""
 
     __slots__ = ("tenant", "store", "engine", "ingestor", "admission",
-                 "debt", "alerts", "queue", "deficit",
-                 "quality_report")
+                 "debt", "alerts", "queue", "reserved", "deficit",
+                 "quality_report", "plane")
 
     def __init__(self, tenant: str, store: SnapshotStore):
         self.tenant = tenant
@@ -243,8 +282,12 @@ class _TenantState:
         self.debt: RepairDebt | None = None
         self.alerts: AlertManager | None = None
         self.queue: deque = deque()
+        self.reserved = 0        # queue slots promised mid-log-append
         self.deficit = 0.0       # DRR balance, in rows
         self.quality_report = None
+        # This tenant's vertex-range writer shards and epoch coordinator
+        # (serve/shardplane.py); None below writer_shards=2.
+        self.plane: ShardedWritePlane | None = None
 
 
 class SnapshotServer:
@@ -268,27 +311,13 @@ class SnapshotServer:
         standby_of: str | None = None,
         primary_wal: str | None = None,
         profilez_dir: str | None = None,
+        ship_interval_s: float = 0.2,
         writer_shards: int | None = None,
         device=None,
     ):
-        if wal is not None:
-            raise NotImplementedError(f"wal= (the write-ahead log) is {_LATER}")
-        if standby_of is not None or primary_wal is not None:
-            raise NotImplementedError(
-                f"standby_of= / primary_wal= (standby and promote) are {_LATER}"
-            )
-        if writer_shards is None:
-            raw_ws = os.environ.get("GRAPHMINE_WRITER_SHARDS", "1")
-            try:
-                writer_shards = int(raw_ws)
-            except ValueError as e:
-                raise ValueError(
-                    f"GRAPHMINE_WRITER_SHARDS={raw_ws!r} is not an int"
-                ) from e
-        if int(writer_shards) > 1:
-            raise NotImplementedError(
-                f"writer_shards={writer_shards} (the sharded write plane) is {_LATER}"
-            )
+        if int(num_shards) > 1:
+            # the sharded repair, not the sharded write plane
+            raise NotImplementedError(_SHARDED)
         self.device = resolve_device(device)
         self.store = store
         self.sink = sink
@@ -310,6 +339,12 @@ class SnapshotServer:
                     ) from e
         self.ready_max_age_s = ready_max_age_s
         self._draining = False
+        # Chaos seams (testing/faults.py replica_slow / replica_stale):
+        # per instance, so one replica of an in-process fleet can be
+        # slowed or version-pinned without touching its peers. Production
+        # value is the zero/False no-op.
+        self.chaos_delay_s = 0.0
+        self.chaos_hold_version = False
         # The metric surface exists with or without a record sink: a
         # sinkless server still serves /metrics and /statusz.
         self.registry: Registry = (
@@ -351,12 +386,68 @@ class SnapshotServer:
             self.admission.sink = sink
         if self.admission.registry is None:
             self.admission.registry = self.registry
+        # The durable write-ahead log. ``wal`` may be a WriteAheadLog, a
+        # directory path, or True (= <store>/wal). None keeps the
+        # in-memory-only write path.
+        if wal is True:
+            wal = os.path.join(store.root, "wal")
+        if isinstance(wal, str):
+            wal = WriteAheadLog(wal, sink=sink, registry=self.registry)
+        self.wal: WriteAheadLog | None = wal
+        if self.wal is not None:
+            if self.wal.sink is None:
+                self.wal.sink = sink
+            if self.wal.registry is None:
+                self.wal.registry = self.registry
+        # Vertex-range writer sharding. writer_shards=1 (the default, env
+        # GRAPHMINE_WRITER_SHARDS) is the unsharded write path: no plane
+        # object exists, every branch below keys off `ts.plane is None`.
+        # Above 1, each tenant's namespace gets its own ShardedWritePlane
+        # (per-range log + admission + debt) and epoch coordinator; the
+        # whole-graph `wal=` and `standby_of=` knobs are mutually
+        # exclusive with it (double-logging every batch would make
+        # neither log authoritative).
+        if writer_shards is None:
+            writer_shards = writer_shards_from_env(1)
+        self.writer_shards = int(writer_shards)
+        if self.writer_shards > 1:
+            if self.wal is not None:
+                raise ValueError(
+                    "writer_shards > 1 owns per-range WALs under "
+                    f"{store.root}/shards; drop wal= (the plane logs "
+                    "every sub-batch itself)"
+                )
+            if standby_of is not None:
+                raise ValueError(
+                    "writer_shards > 1 replicates per range "
+                    "(plane.attach_standby), not per process; drop "
+                    "standby_of="
+                )
         # The epoch this writer stamps on publishes: the store's unless
-        # told otherwise.
+        # told otherwise (a promotion bumps it via promote()).
         self.writer_epoch = (
             store.current_epoch() if writer_epoch is None
             else int(writer_epoch)
         )
+        self.standby_of = standby_of.rstrip("/") if standby_of else None
+        self.primary_wal = primary_wal
+        self._shipper: LogShipper | None = None
+        if self.standby_of is not None:
+            if self.wal is None:
+                raise ValueError(
+                    "a standby needs its own WAL directory to ship the "
+                    "primary's log into (pass wal=...)"
+                )
+            self._shipper = LogShipper(
+                self.wal, self.standby_of,
+                poll_interval_s=ship_interval_s, sink=sink,
+                registry=self.registry,
+            )
+            # Compaction guard: the shipped watermark describes the
+            # primary's store; this standby's own store (a bootstrap
+            # copy, possibly old) pins what its log may prune, or a
+            # separate-store promotion would rewind into pruned entries.
+            self.wal.protect_version = None  # set after the store loads
         snap = store.load(sink=sink)
         if snap is None:
             raise ValueError(
@@ -366,23 +457,38 @@ class SnapshotServer:
         # The double buffer: _engine is replaced atomically (one reference
         # assignment); handlers bind it to a local once per request.
         self._engine = QueryEngine(snap, device=self.device)
+        if self._shipper is not None:
+            self.wal.protect_version = snap.version
+        if self.writer_shards > 1:
+            self._attach_plane(self._tenants[DEFAULT_TENANT], snap)
         # One publisher at a time: the store's generation rotation (and
         # the ingestor's host state) assume it. Held by the apply worker
         # around each apply+swap, and by /reload.
         self._delta_lock = threading.Lock()
         # The bounded apply queues (one sub-queue per tenant, each gated
         # by that tenant's admission bounds) + the one background worker
-        # that drains them weighted-fair. ONE condition guards every
-        # sub-queue.
+        # that drains them weighted-fair. Each tenant's `reserved` counts
+        # slots promised to batches that are mid-log-append (between the
+        # admission verdict and the enqueue) so concurrent submitters
+        # can't overshoot max_queue_depth through that window. ONE
+        # condition guards every sub-queue.
         self._queue_cv = threading.Condition()
         self._applying = False
         self._worker: threading.Thread | None = None
         self._worker_stop = False
         self._httpd: ThreadingHTTPServer | None = None
         self._thread: threading.Thread | None = None
+        # Serializes promote(): a router retry racing a slow promotion
+        # (or two operators) must not fence twice and re-enqueue the
+        # same pending entries (deltas are not idempotent). _promoted
+        # marks a completed promotion so the retry short-circuits.
+        self._promote_lock = threading.Lock()
+        self._promoted = False
         # Set when a publish came back fenced (the store's epoch moved
-        # past ours): this process is a deposed writer; reads keep
-        # serving, writes refuse 503.
+        # past ours): this process is a deposed writer. Its publishes
+        # refuse forever, so it must stop answering 202 for new deltas;
+        # reads keep serving, writes refuse 503 until a later /promote
+        # re-fences in this process's favour.
         self._fenced: str | None = None
         self._host, self._port = host, port
         self._t0_wall = time.time()
@@ -401,6 +507,32 @@ class SnapshotServer:
         # GRAPHMINE_SERVE_MEM_BUDGET_BYTES fails here).
         self._mem_budget = serve_mem_budget_bytes()
         self._export_metrics()
+        # Startup replay: accepted-but-unapplied log entries re-enqueue
+        # through the admission path (replay never sheds: the work was
+        # already acknowledged), so a killed writer's restart publishes
+        # everything it ever answered 202. Standbys skip it: the primary
+        # owns applies until /promote.
+        if self.wal is not None and self.standby_of is None:
+            # A fresh primary log records its store's current version as
+            # the (0, version) baseline pair: the voucher that lets a
+            # standby bootstrapped from a copy of this version replay from
+            # seq 0 exactly at promotion. Standbys never write it.
+            self.wal.note_baseline(snap.version)
+            # Reconcile before replaying: a crash between publish and
+            # wal.commit leaves the watermark behind the store (replay
+            # would double-apply the absorbed entries); a store rollback
+            # to .prev leaves it ahead (replay would skip acknowledged
+            # work the rollback evicted).
+            self._reconcile_wal_cursor(snap, "startup")
+            self._replay_wal(source="startup")
+        # Sharded-plane startup: converge the epoch store first (a
+        # coordinator crash between stage and commit left either a
+        # finishable generation or a torn one), then replay each range's
+        # accepted-but-unapplied log tail.
+        if self.writer_shards > 1:
+            self._replay_plane(
+                self._tenants[DEFAULT_TENANT], source="startup"
+            )
 
     # -- lifecycle --------------------------------------------------------
     def start(self) -> tuple[str, int]:
@@ -416,9 +548,13 @@ class SnapshotServer:
             daemon=True,
         )
         self._thread.start()
+        if self._shipper is not None:
+            self._shipper.start()
         return self._httpd.server_address[:2]
 
     def stop(self) -> None:
+        if self._shipper is not None:
+            self._shipper.stop()
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
@@ -426,8 +562,11 @@ class SnapshotServer:
         if self._thread is not None:
             self._thread.join(timeout=10)
             self._thread = None
-        # Drain the apply worker: batches still queued shed with the
-        # shutdown verdict (nothing is durable without a log).
+        # Drain the apply worker. Durable queued batches are not shed:
+        # their acceptance is on disk and they replay on restart, so a
+        # clean stop resolves them as **accepted** (202); a 503 here would
+        # tell the client to resubmit work the server still owns. Only
+        # never-durable entries (no log) shed with the shutdown verdict.
         with self._queue_cv:
             self._worker_stop = True
             leftovers = []
@@ -436,22 +575,34 @@ class SnapshotServer:
                 ts.queue.clear()
             self._rr.clear()
             for p in leftovers:
-                p.status = "shed"
-                p.shed_reason = "server shutting down"
+                if p.seq is not None or p.shard_seqs:
+                    p.status = "accepted"
+                    p.result = self._accepted_payload(
+                        p, note="server stopping; replays on restart",
+                    )
+                else:
+                    p.status = "shed"
+                    p.shed_reason = "server shutting down"
             self._queue_cv.notify_all()
         for p in leftovers:
             ts = self._tenants[p.tenant]
             ts.debt.abandoned()
-            ts.debt.shed(p.rows)
-            ts.admission.record_shed(
-                p.shed_reason, p.rows, 0, ts.debt.snapshot(),
-                stage="shutdown",
-            )
+            if p.status == "shed":
+                ts.debt.shed(p.rows)
+                ts.admission.record_shed(
+                    p.shed_reason, p.rows, 0, ts.debt.snapshot(),
+                    stage="shutdown",
+                )
             p.event.set()
         if self._worker is not None:
             self._worker.join(timeout=30)
             self._worker = None
         self._worker_stop = False
+        if self.wal is not None:
+            self.wal.close()
+        for ts in list(self._tenants.values()):
+            if ts.plane is not None:
+                ts.plane.close()
 
     def _ensure_worker(self) -> None:
         """Start the apply worker lazily (first delta) so in-process
@@ -535,6 +686,14 @@ class SnapshotServer:
             registered = self._tenants.setdefault(tenant, ts)
         self.tenancy.note(tenant)
         self.tenancy.note_bytes(tenant, registered.engine.snapshot.nbytes)
+        if registered is ts and ts.plane is not None:
+            # Replay only after the state is registered: replayed batches
+            # park on ts.queue and the worker resolves the tenant through
+            # self._tenants. (A lost setdefault race closes the plane we
+            # built for nothing.)
+            self._replay_plane(ts, source="tenant_admit")
+        elif registered is not ts and ts.plane is not None:
+            ts.plane.close()
         return registered
 
     def _make_tenant_state(
@@ -553,13 +712,42 @@ class SnapshotServer:
         )
         ts.alerts = AlertManager(sink=sink, tenant=tenant)
         ts.engine = QueryEngine(snap, device=self.device)
-        # A writer's lazily-admitted namespace inherits the process
-        # fence, so a deposed writer cannot keep publishing there.
-        try:
-            store.fence_epoch(self.writer_epoch)
-        except (OSError, ValueError):
-            pass  # equal/lower epochs are already fenced
+        if self.standby_of is None:
+            # A writer's lazily-admitted namespace inherits the process
+            # fence, so a deposed writer cannot keep publishing there.
+            try:
+                store.fence_epoch(self.writer_epoch)
+            except (OSError, ValueError):
+                pass  # equal/lower epochs are already fenced
+        if self.writer_shards > 1:
+            # Tenancy splits by namespace, the plane splits each
+            # namespace's range space: a lazily-admitted tenant gets its
+            # own full set of range writers and its own epoch chain.
+            self._attach_plane(ts, snap)
         return ts
+
+    def _attach_plane(self, ts: _TenantState, snap) -> None:
+        """Build one tenant's sharded write plane over its namespace
+        store and converge its epoch directory (finish or sweep a torn
+        publish) before anything can read or append. Non-default tenants
+        pass registry=None, the rule of their alert manager: the
+        per-shard gauge children are keyed by shard alone."""
+        plan = ShardPlan.build(
+            self.writer_shards, int(len(snap["labels"]))
+        )
+        ts.plane = ShardedWritePlane(
+            ts.store, plan, sink=self._tenant_sink(ts.tenant),
+            registry=(
+                self.registry if ts.tenant == DEFAULT_TENANT else None
+            ),
+            tenant=ts.tenant,
+            # per-shard ladders inherit the server's envelope: a batch
+            # the front ladder admitted must not be re-shed by a shard
+            # ladder running tighter defaults than the operator set
+            admission_bounds=self.admission.bounds,
+        )
+        ts.plane.coordinator.recover()
+        ts.plane.note_versions(ts.plane.coordinator.version_vector())
 
     def _tenant_sink(self, tenant: str):
         """The sink a tenant's ingest/alert plane emits through: the
@@ -585,10 +773,14 @@ class SnapshotServer:
         self._tenants[tenant].engine = engine  # atomic ref: the flip
         self.tenancy.note_bytes(tenant, engine.snapshot.nbytes)
         if tenant != DEFAULT_TENANT:
-            # the fleet-facing gauges track the default tenant's chain;
-            # per-tenant versions and bytes are served on /healthz +
-            # /statusz
+            # the fleet-facing gauges and the standby compaction guard
+            # track the default tenant's chain; per-tenant versions and
+            # bytes are served on /healthz + /statusz
             return
+        if self.standby_of is not None and self.wal is not None:
+            # a standby that reload-followed to a newer store version may
+            # release its log retention up to that version's floor
+            self.wal.protect_version = engine.version
         self._export_metrics()
 
     def _current_trace_header(self) -> str:
@@ -628,6 +820,12 @@ class SnapshotServer:
         next publish would still chain version numbers from the store's
         manifest)."""
         ts = self._tenant_state(tenant)
+        if self.chaos_hold_version:
+            # replica_stale injector: this replica never advances
+            return {
+                "version": ts.engine.version, "swapped": False,
+                "held": True,
+            }
         with self._delta_lock:
             snap = ts.store.load(sink=self.sink)
             swapped = snap is not None and snap.version != ts.engine.version
@@ -651,28 +849,49 @@ class SnapshotServer:
         the publish carried) or until its deadline passes while still
         queued, in which case it is shed. ``deadline_s`` (the
         ``X-Deadline-Ms`` header) narrows the queued-batch deadline
-        below the admission default, never widens it. ``delta_id`` (the
-        ``X-Delta-Id`` header) is carried into the ``delta_stages``
-        record; ``ack="wal"`` needs a write-ahead log, which this server
-        does not keep (ValueError, the JAX server's answer without one).
+        below the admission default, never widens it.
+
+        **Durability**: with a log attached, an accepted batch is
+        append-fsync'd before it can queue or be acknowledged.
+        ``delta_id`` (the ``X-Delta-Id`` header) is the idempotency key:
+        a retry of a logged id returns ``verdict: "duplicate"`` instead
+        of a second apply. ``ack="wal"`` (the ``X-Delta-Ack: wal``
+        header) returns ``verdict: "accepted"`` (HTTP **202**) right
+        after the fsync: the batch applies in the background and survives
+        a writer kill via startup replay; durable acknowledgements are
+        never deadline-shed. Nothing on this path touches the device.
+
         The batch charges ``tenant``'s ledger end to end: its admission
-        bounds, its queue, its debt.
+        bounds, its queue, its debt; the log frame carries the tenant id,
+        so replay and the dedupe stay tenant-scoped.
         """
         # Resolve the tenant FIRST: an unknown tenant must 404 before
-        # any admission side effect, and a malformed id must 400.
+        # any admission/log side effect, and a malformed id must 400.
         ts = self._tenant_state(tenant)
         tenant = ts.tenant
+        if self.standby_of is not None:
+            # A standby is not a writer: it tails the primary's log and
+            # waits for /promote. Accepting a delta here would be the
+            # split-brain the epoch fence exists to prevent.
+            return self._shed_payload(
+                f"standby of {self.standby_of}: writes go to the primary "
+                "(or POST /promote to make this replica the writer)",
+                ts.admission.bounds.retry_after_s,
+            )
         if self._fenced is not None:
             # Deposed writer: a publish already refused with
             # publish_fenced, so every future apply here would too.
+            # Accepting (and fsyncing) more deltas would acknowledge work
+            # that can never publish on this store.
             return self._shed_payload(
                 f"writer fenced ({self._fenced}): a newer writer owns "
-                "the store; send writes to the promoted writer",
+                "the store; send writes to the promoted writer or POST "
+                "/promote here to take ownership back",
                 ts.admission.bounds.retry_after_s,
             )
         if ack not in (None, "wal"):
             raise ValueError(f"unknown ack mode {ack!r} (use 'wal')")
-        if ack == "wal":
+        if ack == "wal" and self.wal is None and ts.plane is None:
             raise ValueError(
                 "X-Delta-Ack: wal needs a server running with a "
                 "write-ahead log (serve --wal or --writer-shards)"
@@ -681,6 +900,14 @@ class SnapshotServer:
         deadline_s = bound if deadline_s is None else max(
             0.001, min(float(deadline_s), bound)
         )
+        # Fast-path dedupe: a retry of an id this log already holds maps
+        # onto the original accept (applied or still pending), never a
+        # second apply. Tenant-scoped: two tenants reusing one id are
+        # distinct batches.
+        if delta_id and self.wal is not None:
+            seq = self.wal.lookup(delta_id, tenant=tenant)
+            if seq is not None:
+                return self._duplicate_payload(delta_id, seq, tenant=tenant)
         delta = EdgeDelta.from_pairs(
             insert=payload.get("insert", ()), delete=payload.get("delete", ())
         )
@@ -699,7 +926,10 @@ class SnapshotServer:
         rows = delta.num_inserts + delta.num_deletes
         # Only memory-cheap work happens under the queue lock (the
         # worker, /healthz and every other handler contend on it); the
-        # sink's record writes happen after release.
+        # sink's record writes (potentially a disk fsync each) happen
+        # after release. `reserved` holds this batch's queue slot across
+        # the out-of-lock log fsync below, so concurrent submitters can't
+        # resolve their way past max_queue_depth through that window.
         with self._queue_cv:
             if self._worker_stop:
                 # stop() already drained the queue; parking here would
@@ -710,35 +940,132 @@ class SnapshotServer:
                 )
             debt_at_resolve = ts.debt.snapshot()
             decision = ts.admission.resolve(
-                rows=rows, queue_depth=len(ts.queue),
+                rows=rows, queue_depth=len(ts.queue) + ts.reserved,
                 debt=debt_at_resolve, applying=self._applying, emit=False,
             )
-            pending = None
             if decision.verdict != "shed":
-                pending = _PendingDelta(
-                    delta, rows, time.monotonic() + deadline_s, deadline_s,
-                )
-                pending.delta_id = delta_id or ""
-                pending.trace = self._current_trace_header()
-                pending.tenant = tenant
-                # Debt accrues at ACCEPTANCE: batches parked on the
-                # apply queue are pending work the ledger (and /healthz)
-                # must already see; it is exactly what the shed bound
-                # reads.
-                ts.debt.submitted(rows)
-                ts.queue.append(pending)
-                if tenant not in self._rr:
-                    self._rr.append(tenant)
-                self._queue_cv.notify_all()
-        ts.admission.emit_admission(decision, debt_at_resolve)
-        if pending is None:
+                ts.reserved += 1
+        if decision.verdict == "shed":
+            ts.admission.emit_admission(decision, debt_at_resolve)
             ts.debt.shed(rows)
             ts.admission.record_shed(
                 decision.reason, rows, decision.queue_depth,
                 ts.debt.snapshot(),
             )
             return self._shed_payload(decision.reason, decision.retry_after_s)
+        # Durability point: the fsync'd append happens before the batch
+        # can queue, so from here on a kill replays it on restart and the
+        # acknowledgement below never lies.
+        pending = _PendingDelta(delta, rows, 0.0, deadline_s)
+        pending.delta_id = delta_id or ""
+        pending.async_ack = ack == "wal"
+        pending.trace = self._current_trace_header()
+        pending.tenant = tenant
+        try:
+            if ts.plane is not None:
+                # Sharded plane: the plane splits the batch by dst-range
+                # ownership, runs each owner shard's admission ladder,
+                # dedupes (delta_id, shard) per shard, and fsyncs one
+                # sub-batch per touched range. The batch queues with the
+                # original unsplit delta: the apply splices exactly what
+                # a single-log server would.
+                try:
+                    sub = ts.plane.submit(
+                        delta, delta_id=delta_id or "",
+                        deadline_s=deadline_s,
+                        queue_depth=decision.queue_depth,
+                        applying=self._applying, trace=pending.trace,
+                    )
+                except ShardRangeUnavailableError as exc:
+                    ts.admission.emit_admission(decision, debt_at_resolve)
+                    ts.debt.shed(rows)
+                    ts.admission.record_shed(
+                        str(exc), rows, decision.queue_depth,
+                        ts.debt.snapshot(),
+                    )
+                    return self._shed_payload(
+                        str(exc), ts.admission.bounds.retry_after_s
+                    )
+                if sub["verdict"] == "duplicate":
+                    ts.admission.emit_admission(decision, debt_at_resolve)
+                    return self._duplicate_plane_payload(
+                        ts, delta_id or "", sub
+                    )
+                if sub["verdict"] == "shed":
+                    ts.admission.emit_admission(decision, debt_at_resolve)
+                    ts.debt.shed(rows)
+                    return self._shed_payload(
+                        sub["reason"], sub["retry_after_s"]
+                    )
+                pending.shard_seqs = sub["shard_seqs"]
+                pending.t_durable = time.monotonic()
+            elif self.wal is not None:
+                seq, dup = self.wal.append(
+                    payload, delta_id=delta_id or "", deadline_s=deadline_s,
+                    trace=pending.trace, tenant=tenant,
+                )
+                if dup:
+                    # one admission record per resolve, duplicate or not
+                    # (the finally below releases the reserved slot)
+                    ts.admission.emit_admission(decision, debt_at_resolve)
+                    return self._duplicate_payload(
+                        delta_id or "", seq, tenant=tenant,
+                    )
+                pending.seq = seq
+                pending.t_durable = time.monotonic()
+        finally:
+            enqueued = False
+            with self._queue_cv:
+                ts.reserved = max(0, ts.reserved - 1)
+                # In plane mode, only a plane-accepted batch (shard_seqs
+                # set) may queue: a plane shed/duplicate/refusal
+                # returning through this finally must not enqueue work
+                # the client was just told is not pending.
+                durable_ok = (
+                    pending.shard_seqs is not None
+                    if ts.plane is not None
+                    else (pending.seq is not None or self.wal is None)
+                )
+                if not self._worker_stop and durable_ok:
+                    if pending.status == "queued":
+                        # durable acknowledgements never deadline-shed;
+                        # sync callers keep the client's budget
+                        pending.deadline = (
+                            math.inf if pending.async_ack
+                            else time.monotonic() + deadline_s
+                        )
+                        # Debt accrues at ACCEPTANCE: batches parked on
+                        # the apply queue are pending work the ledger
+                        # (and /healthz) must already see; it is exactly
+                        # what the shed bound reads.
+                        ts.debt.submitted(rows)
+                        ts.queue.append(pending)
+                        if tenant not in self._rr:
+                            self._rr.append(tenant)
+                        self._queue_cv.notify_all()
+                        enqueued = True
+                elif self._worker_stop and (
+                    pending.seq is not None or pending.shard_seqs
+                ):
+                    # stop() won the race after the append: the batch is
+                    # durable and replays on restart (acknowledged, not
+                    # shed)
+                    pending.status = "accepted"
+                    pending.result = self._accepted_payload(
+                        pending,
+                        note="server stopping; replays on restart",
+                    )
+        ts.admission.emit_admission(decision, debt_at_resolve)
+        if not enqueued:
+            if pending.status == "accepted":
+                return pending.result
+            return self._shed_payload(
+                "server shutting down", ts.admission.bounds.retry_after_s
+            )
         self._ensure_worker()
+        if pending.async_ack:
+            # the 202 path: durable in the log IS the acknowledgement
+            return self._accepted_payload(pending)
 
         # Wait for a terminal state. First leg: bounded by the deadline;
         # a batch STILL QUEUED past it is shed here (the worker's pop
@@ -761,6 +1088,7 @@ class SnapshotServer:
                     )
                     shed_now = True
         if shed_now:
+            self._skip_walled(pending)
             ts.debt.abandoned()
             ts.debt.shed(pending.rows)
             ts.admission.record_shed(
@@ -772,7 +1100,7 @@ class SnapshotServer:
         # bounded by the repair budget) and the client gets the real
         # outcome, never a 503 for published work.
         pending.event.wait()
-        if pending.status == "done":
+        if pending.status in ("done", "accepted"):
             return pending.result
         if pending.status == "shed":
             return self._shed_payload(
@@ -788,13 +1116,227 @@ class SnapshotServer:
             "retry_after_s": float(retry_after_s),
         }
 
+    def _accepted_payload(self, pending: _PendingDelta, note: str = "") -> dict:
+        """The 202 body: durable in the log, not yet in a published
+        snapshot."""
+        out = {
+            "verdict": "accepted",
+            "applied": False,
+            "durable": (
+                pending.seq is not None or bool(pending.shard_seqs)
+            ),
+            "seq": pending.seq,
+            "delta_id": pending.delta_id,
+        }
+        if pending.shard_seqs:
+            out["shard_seqs"] = {
+                str(k): int(v) for k, v in pending.shard_seqs.items()
+            }
+        if note:
+            out["note"] = note
+        return out
+
+    def _duplicate_plane_payload(
+        self, ts: _TenantState, delta_id: str, sub: dict,
+    ) -> dict:
+        """A retried key every touched shard already holds maps onto the
+        original accept (the per-shard twin of _duplicate_payload)."""
+        applied = bool(sub.get("applied"))
+        out = {
+            "verdict": "duplicate",
+            "delta_id": delta_id,
+            "shard_seqs": {
+                str(k): int(v) for k, v in sub["shard_seqs"].items()
+            },
+            "applied": applied,
+        }
+        if applied:
+            out["version"] = ts.engine.version
+        return out
+
+    def _duplicate_payload(
+        self, delta_id: str, seq: int, tenant: str = DEFAULT_TENANT,
+    ) -> dict:
+        """A retried idempotency key maps onto its original accept."""
+        applied = self.wal.seq_applied(seq)
+        out = {
+            "verdict": "duplicate",
+            "delta_id": delta_id,
+            "seq": int(seq),
+            "applied": applied,
+        }
+        if applied:
+            out["version"] = self.engine_for(tenant).version
+            out["applied_version"] = self.wal.applied_version
+        return out
+
+    def _skip_walled(self, pending: _PendingDelta) -> None:
+        """Tombstone a durable batch that was shed off the queue so a
+        later replay can't resurrect work the client was told is NOT
+        applied (its retry still dedupes-by-id into a fresh accept)."""
+        if pending.shard_seqs:
+            ts = self._tenants.get(pending.tenant)
+            if ts is not None and ts.plane is not None:
+                ts.plane.skip(pending.shard_seqs)
+            return
+        if pending.seq is None or self.wal is None:
+            return
+        try:
+            self.wal.skip(pending.seq)
+        except OSError:
+            pass  # tombstone is best-effort; dedupe bounds the damage
+
     # -- WAL replay / log shipping / promotion ----------------------------
+    def _replay_wal(self, source: str = "startup") -> int:
+        """Re-enqueue every accepted-but-unapplied log entry through the
+        admission path (``replay=True``: acknowledged work is never
+        shed), as async batches nobody waits on. The pending entries
+        coalesce into the apply worker's next group, so a replay is one
+        real apply on the device. Returns the count."""
+        entries = self.wal.pending()
+        if not entries:
+            return 0
+        n = 0
+        for e in entries:
+            payload = e.get("payload") or {}
+            try:
+                delta = EdgeDelta.from_pairs(
+                    insert=payload.get("insert", ()),
+                    delete=payload.get("delete", ()),
+                )
+            except ValueError:
+                continue  # the accept path parsed it once; be defensive
+            # Route the entry back to the tenant whose frame it is; a
+            # frame naming a tenant whose namespace vanished is skipped
+            # loudly rather than misapplied.
+            entry_tenant = e.get("tenant") or DEFAULT_TENANT
+            try:
+                ts = self._tenant_state(entry_tenant)
+            except (UnknownTenantError, ValueError):
+                self._warn(
+                    f"wal replay ({source}): seq {e.get('seq')} names "
+                    f"tenant {entry_tenant!r} with no store namespace — "
+                    "skipping (the tenant's snapshot chain is gone)"
+                )
+                continue
+            rows = delta.num_inserts + delta.num_deletes
+            with self._queue_cv:
+                if self._worker_stop:
+                    break
+                debt_at = ts.debt.snapshot()
+                decision = ts.admission.resolve(
+                    rows=rows,
+                    queue_depth=len(ts.queue) + ts.reserved,
+                    debt=debt_at, applying=self._applying, emit=False,
+                    replay=True,
+                )
+                ts.debt.submitted(rows)
+                p = _PendingDelta(delta, rows, math.inf, float(
+                    e.get("deadline_s") or ts.admission.bounds.deadline_s
+                ))
+                p.seq = int(e["seq"])
+                p.delta_id = e.get("id", "")
+                p.async_ack = True
+                p.tenant = ts.tenant
+                # replayed entries keep their originating request's
+                # trace: the durable header re-adopts across the kill
+                # (or across a promotion, via the shipped copy)
+                p.trace = e.get("trace", "")
+                p.t_durable = p.t_accept
+                ts.queue.append(p)
+                if ts.tenant not in self._rr:
+                    self._rr.append(ts.tenant)
+                self._queue_cv.notify_all()
+            ts.admission.emit_admission(decision, debt_at)
+            n += 1
+        if self.sink is not None:
+            self.sink.emit(
+                "wal_replay", entries=n, from_seq=int(entries[0]["seq"]),
+                to_seq=int(entries[-1]["seq"]), source=source,
+            )
+        if n:
+            self._ensure_worker()
+        return n
+
+    def _replay_plane(self, ts: _TenantState, source: str = "startup") -> int:
+        """Per-range log replay: each shard's accepted-but-unapplied
+        sub-batches re-enqueue as independent async batches. Applying
+        the sub-batches separately equals the original whole-batch apply
+        (disjoint dst ranges mean disjoint delete keys, so the per-shard
+        applies commute). Each replayed batch carries exactly its own
+        ``{shard: seq}`` pair, so the commit after its publish advances
+        only that range's log."""
+        n, lo_seq, hi_seq = 0, None, 0
+        for ws in ts.plane.shards:
+            if ws.read_only:
+                continue
+            for e in ws.wal.pending():
+                payload = e.get("payload") or {}
+                try:
+                    delta = EdgeDelta.from_pairs(
+                        insert=payload.get("insert", ()),
+                        delete=payload.get("delete", ()),
+                    )
+                except ValueError:
+                    continue  # the accept path parsed it once
+                rows = delta.num_inserts + delta.num_deletes
+                with self._queue_cv:
+                    if self._worker_stop:
+                        break
+                    debt_at = ws.debt.snapshot()
+                    decision = ws.admission.resolve(
+                        rows=rows,
+                        queue_depth=len(ts.queue) + ts.reserved,
+                        debt=debt_at, applying=self._applying,
+                        emit=False, replay=True,
+                    )
+                    ws.debt.submitted(rows)
+                    ts.debt.submitted(rows)
+                    p = _PendingDelta(delta, rows, math.inf, float(
+                        e.get("deadline_s")
+                        or ts.admission.bounds.deadline_s
+                    ))
+                    p.shard_seqs = {ws.shard: int(e["seq"])}
+                    p.delta_id = e.get("id", "")
+                    p.async_ack = True
+                    p.tenant = ts.tenant
+                    p.trace = e.get("trace", "")
+                    p.t_durable = p.t_accept
+                    ts.queue.append(p)
+                    if ts.tenant not in self._rr:
+                        self._rr.append(ts.tenant)
+                    self._queue_cv.notify_all()
+                ws.admission.emit_admission(decision, debt_at)
+                seq = int(e["seq"])
+                lo_seq = seq if lo_seq is None else min(lo_seq, seq)
+                hi_seq = max(hi_seq, seq)
+                n += 1
+        if n and self.sink is not None:
+            self.sink.emit(
+                "wal_replay", entries=n, from_seq=int(lo_seq),
+                to_seq=int(hi_seq), source=source, tenant=ts.tenant,
+                shards=ts.plane.plan.num_shards,
+            )
+        if n:
+            self._ensure_worker()
+        return n
+
     def wal_entries(self, from_seq: int, limit: int = 512) -> dict:
-        """The ``GET /wal`` body. This server keeps no write-ahead log, so
-        it answers as the JAX server does without one (HTTP 400)."""
-        raise ValueError(
-            "this server runs without a write-ahead log (serve --wal)"
-        )
+        """The ``GET /wal`` body: the log-shipping feed the standby's
+        :class:`~graphmine_tpu_torch.serve.wal.LogShipper` tails."""
+        if self.wal is None:
+            raise ValueError(
+                "this server runs without a write-ahead log (serve --wal)"
+            )
+        return {
+            "entries": self.wal.entries(max(0, int(from_seq)),
+                                        limit=max(1, int(limit))),
+            "last_seq": self.wal.last_seq,
+            "applied_seq": self.wal.applied_seq,
+            "applied_version": self.wal.applied_version,
+            "history": self.wal.commit_history(),
+            "epoch": self.writer_epoch,
+        }
 
     def wait_applied(self, timeout: float = 60.0) -> bool:
         """Block until the apply queue is drained and nothing is
@@ -821,14 +1363,214 @@ class SnapshotServer:
         if self.sink is not None:
             self.sink.emit("warning", message=message)
 
-    def promote(self) -> dict:
-        """Standby → writer. Promotion replays a write-ahead log, which
-        this server does not keep, so it answers as the JAX server does
-        without one (HTTP 400); standbys are ROADMAP item A4's later
-        batch."""
-        raise ValueError(
-            "promote needs a write-ahead log (serve --wal)"
+    def _rewind_wal(self, floor: int, snap, context: str) -> None:
+        oldest = self.wal.oldest_retained_seq()
+        if oldest is not None and floor + 1 < oldest:
+            self._warn(
+                f"{context}: rewind to seq {floor} reaches below the "
+                f"compaction horizon (oldest retained seq {oldest}): "
+                f"entries {floor + 1}..{oldest - 1} were pruned here "
+                "and cannot replay — acknowledged-delta loss past the "
+                "shipped lag"
+            )
+        self._warn(
+            f"{context}: adopted snapshot v{snap.version} is behind the "
+            f"WAL watermark (seq {self.wal.applied_seq}, "
+            f"v{self.wal.applied_version}): rewinding the replay cursor "
+            f"to seq {floor} so durable-but-unapplied entries replay"
         )
+        self.wal.rewind(floor, snap.version)
+
+    def _reconcile_wal_cursor(self, snap, context: str) -> None:
+        """Place the log's replay cursor to match the store state
+        actually adopted. The watermark is a claim about this store, and
+        three windows can break it: a crash between publish and commit
+        (store ahead), a store rollback to ``.prev`` (store behind), and
+        a separate-store standby whose mirrored watermark describes the
+        primary's store. Voucher priority: the manifest's own
+        ``wal_applied_seq`` (stamped at publish, exact), then the
+        watermark-history pair recorded at the adopted version, then a
+        loud refusal to guess (deltas are not idempotent). An entry-less
+        log skips: there is nothing to replay."""
+        if self.wal.last_seq == 0:
+            return
+        # Publish-time vouchers from every tenant namespace: the
+        # watermark is one cursor over an interleaved multi-tenant log,
+        # advanced by whichever tenant published last, so the default
+        # manifest's voucher alone can lag a later non-default publish.
+        # The max voucher wins; every manifest's absorbed-above list is
+        # excluded from replay.
+        vouchers = []  # (seq, version-at-that-publish, absorbed-above)
+        voucher = snap.meta.get("wal_applied_seq")
+        if voucher is not None:
+            vouchers.append((
+                int(voucher), snap.version,
+                tuple(snap.meta.get("wal_applied_above") or ()),
+            ))
+        for tid in self.store.list_tenants():
+            if tid == self.store.tenant:
+                continue  # the adopted snap already vouched above
+            man = self.store.for_tenant(tid)._peek_manifest()
+            if not man:
+                continue
+            mv = man.get("wal_applied_seq")
+            if mv is None:
+                continue
+            try:
+                ver = int(man.get("version", 0))
+            except (TypeError, ValueError):
+                ver = 0
+            vouchers.append((
+                int(mv), ver, tuple(man.get("wal_applied_above") or ()),
+            ))
+        if vouchers:
+            best_seq, best_ver, _ = max(vouchers)
+            if best_seq > self.wal.applied_seq:
+                # publish landed, its wal.commit was lost to the crash:
+                # move the cursor forward so replay can't double-apply
+                self.wal.commit(best_seq, best_ver)
+            elif best_seq < self.wal.applied_seq:
+                self._rewind_wal(best_seq, snap, context)
+            for _, ver, above in vouchers:
+                if above:
+                    # entries a snapshot absorbed above the contiguous
+                    # floor (published over a then-unresolved gap):
+                    # exclude them from replay the same crash-safe way
+                    self.wal.commit_applied(above, ver)
+            return
+        if self.wal.applied_version > snap.version:
+            floor = self.wal.replay_floor(snap.version)
+            if floor is not None:
+                self._rewind_wal(floor, snap, context)
+            else:
+                self._warn(
+                    f"{context}: adopted snapshot v{snap.version} is "
+                    "behind the WAL watermark "
+                    f"(v{self.wal.applied_version}) and no retained "
+                    "watermark pair vouches for it — the replay cursor "
+                    "cannot be placed exactly; continuing from the "
+                    "watermark. Loss bound exceeds the shipped lag: "
+                    "re-bootstrap this standby from a fresher copy (or "
+                    "run the shared-store deployment)"
+                )
+
+    def promote(self) -> dict:
+        """Standby → writer: (1) a final ship pass, catching up from the
+        primary's ``/wal`` if it still answers, then copying the
+        un-shipped tail straight from its log directory when reachable
+        (the shared-store deployment: a same-filesystem writer kill loses
+        nothing; without shared storage the loss bound is the shipped
+        lag); (2) **fence the epoch** durably at the store, so the
+        deposed writer's publishes refuse with ``publish_fenced``; (3)
+        adopt the newest published snapshot; (4) replay the log tail
+        through admission (one apply on the device); (5) resume writes.
+        Emits one ``writer_promote`` record.
+
+        Serialized and idempotent: concurrent calls queue on the lock,
+        and a call landing after the promotion completed answers
+        ``promoted: false, already_writer: true`` with the live epoch
+        instead of fencing again and re-enqueuing the same entries."""
+        if self.wal is None:
+            raise ValueError(
+                "promote needs a write-ahead log (serve --wal)"
+            )
+        with self._promote_lock:
+            return self._promote_locked()
+
+    def _promote_locked(self) -> dict:
+        if self._promoted:
+            # This process already completed a promotion: the caller is
+            # a retry of it. A plain writer that never promoted does not
+            # short-circuit: an explicit /promote on it is a fence
+            # request (the epoch bump cuts off a suspected zombie).
+            return {
+                "promoted": False,
+                "already_writer": True,
+                "epoch": self.writer_epoch,
+                "version": self._engine.version,
+                "replayed": 0,
+                "copied_tail": 0,
+            }
+        t0 = time.perf_counter()
+        if self._shipper is not None:
+            try:
+                self._shipper.poll_once()  # final catch-up, best effort
+            except Exception:  # noqa: BLE001 — primary usually dead here
+                pass
+            self._shipper.stop()
+        copied = 0
+        if self.primary_wal and os.path.isdir(self.primary_wal):
+            try:
+                # read_only: the primary may be a partitioned-but-alive
+                # zombie sharing this storage; a writable open's scan
+                # would truncate its in-flight append as a torn tail.
+                foreign = WriteAheadLog(self.primary_wal, read_only=True)
+                copied = self.wal.copy_from(
+                    foreign.entries(self.wal.last_seq + 1)
+                )
+                self.wal.merge_history(foreign.commit_history())
+                foreign.close()
+            except Exception as e:  # noqa: BLE001 — promote must proceed
+                self._warn(
+                    "promotion could not read the deposed "
+                    f"primary's WAL at {self.primary_wal!r}: {e!r}"
+                    " — continuing from the shipped copy (loss "
+                    "bound = replication lag)"
+                )
+        # Mint-and-fence atomically: composing current_epoch() + 1 with
+        # fence_epoch would let two concurrent promotions fence the same
+        # epoch and both pass the store's fence.
+        new_epoch = self.store.advance_epoch(
+            sink=None,
+            reason=f"standby promotion (was standby of {self.standby_of})",
+        )
+        was = self.standby_of or ""
+        self.standby_of = None
+        self.writer_epoch = new_epoch
+        # The fence is now in our favour: a previously-deposed writer
+        # taking ownership back resumes accepting writes.
+        self._fenced = None
+        # Every tenant namespace inherits the new fence and adopts its
+        # newest published snapshot: the deposed writer loses all
+        # tenants at once. Namespaces this process never served are
+        # fenced lazily on first touch (_make_tenant_state).
+        with self._delta_lock:
+            for ts in list(self._tenants.values()):
+                if ts.tenant != DEFAULT_TENANT:
+                    try:
+                        ts.store.fence_epoch(new_epoch)
+                    except (OSError, ValueError):
+                        pass  # already at/above: fence holds
+                fresh_t = ts.store.load(sink=self.sink)
+                if fresh_t is not None and fresh_t.version != ts.engine.version:
+                    self._swap(
+                        QueryEngine(fresh_t, device=self.device),
+                        tenant=ts.tenant,
+                    )
+                ts.ingestor = None
+            fresh = self._engine.snapshot
+        self._reconcile_wal_cursor(fresh, "promotion")
+        replayed = self._replay_wal(source="promotion")
+        # Now the primary: local commits describe this store, so the
+        # standby-era compaction guard lifts.
+        self.wal.protect_version = None
+        self._promoted = True
+        seconds = round(time.perf_counter() - t0, 3)
+        if self.sink is not None:
+            self.sink.emit(
+                "writer_promote", epoch=new_epoch, replayed=replayed,
+                copied_tail=copied, version=self._engine.version,
+                was_standby_of=was, seconds=seconds,
+            )
+        return {
+            "promoted": True,
+            "epoch": new_epoch,
+            "replayed": replayed,
+            "copied_tail": copied,
+            "version": self._engine.version,
+            "was_standby_of": was,
+            "seconds": seconds,
+        }
 
     # -- the apply worker --------------------------------------------------
     def _pop_group(self) -> tuple[str, list, list]:
@@ -922,6 +1664,7 @@ class SnapshotServer:
                     # every already-popped 'applying' batch on an event
                     # that nobody will ever set.
                     pts = self._tenants[p.tenant]
+                    self._skip_walled(p)
                     pts.debt.abandoned()
                     pts.debt.shed(p.rows)
                     pts.admission.record_shed(
@@ -946,7 +1689,8 @@ class SnapshotServer:
                 self._tenants[tenant].ingestor = None
                 if isinstance(e, PublishFencedError) and self._fenced is None:
                     # Deposed: flip the write path closed (reads keep
-                    # serving).
+                    # serving). Latched until a /promote re-fences the
+                    # epoch in this process's favour.
                     self._fenced = str(e)
                     self._warn(
                         "publish fenced by a newer writer epoch — this "
@@ -1053,7 +1797,28 @@ class SnapshotServer:
                 else:
                     merged = group[0].delta
                 lof_mode = ts.admission.lof_mode(ts.debt.snapshot())
-                snap = ing.apply(merged, lof_mode=lof_mode, batches=len(group))
+                # The manifest voucher must survive a crash between this
+                # publish and the wal.commit below (restart replay of
+                # absorbed entries would double-apply). It cannot be the
+                # group's max seq: appends fsync outside the queue lock,
+                # so an acked lower seq can still be racing toward the
+                # queue while this group publishes. Stamp the contiguous
+                # floor the log would reach plus the resolved seqs parked
+                # above it (wal_applied_above); replay excludes exactly
+                # those.
+                seqs = [p.seq for p in group if p.seq is not None]
+                if seqs and self.wal is not None:
+                    floor, above = self.wal.preview_commit(seqs)
+                    extra = {
+                        "wal_applied_seq": floor,
+                        "wal_applied_above": above,
+                    }
+                else:
+                    extra = None
+                snap = ing.apply(
+                    merged, lof_mode=lof_mode, batches=len(group),
+                    extra_meta=extra,
+                )
             except BaseException:
                 if ts.debt.applies_total == settled_before:
                     for _ in group:
@@ -1062,6 +1827,24 @@ class SnapshotServer:
             # The next engine is built whole (its device table copied
             # and synchronized) before the one-reference swap.
             self._swap(QueryEngine(snap, device=self.device), tenant=tenant)
+            if self.wal is not None and seqs:
+                # Compaction keyed to the published snapshot version:
+                # commit_applied advances the watermark only over the
+                # contiguous resolved run.
+                self.wal.commit_applied(seqs, snap.version)
+            if ts.plane is not None:
+                # Sharded plane: advance each touched range's log
+                # watermark, then two-phase-publish the epoch (stage
+                # every range's arrays, durably commit epoch → version
+                # vector). A multi-range group becomes visible whole or,
+                # on a torn commit, not at all.
+                merged_seqs: dict[int, list] = {}
+                for p in group:
+                    for s, q in (p.shard_seqs or {}).items():
+                        merged_seqs.setdefault(int(s), []).append(int(q))
+                if merged_seqs:
+                    ts.plane.commit_applied(merged_seqs, snap.version)
+                self._publish_epoch(ts, snap)
             # Adopt the ingestor's quality pass (drift + canary) for
             # /statusz, /alertz and the alert rules — the served engine
             # and the report now describe the same version.
@@ -1084,11 +1867,38 @@ class SnapshotServer:
             "lof_stale": bool(snap.meta.get("lof_stale", False)),
         }
 
+    def _publish_epoch(self, ts: _TenantState, snap) -> int:
+        """Stage and commit the next publish epoch (two-phase): each
+        range's slice of the per-vertex result arrays lands in its own
+        shard directory, then the coordinator durably commits epoch →
+        version vector under the store's fence lock. Growth rows
+        (vertices born past the plan) ride with the last range, the
+        splitter's ownership rule."""
+        plane = ts.plane
+        labels = np.asarray(snap["labels"])
+        lof = snap.get("lof")
+        n = len(labels)
+        shard_arrays: dict[int, dict] = {}
+        versions: dict[int, int] = {}
+        last = plane.plan.num_shards - 1
+        for ws in plane.shards:
+            lo = min(ws.lo, n)
+            hi = n if ws.shard == last else min(ws.hi, n)
+            arrs = {"labels": labels[lo:hi]}
+            if lof is not None:
+                arrs["lof"] = np.asarray(lof)[lo:hi]
+            shard_arrays[ws.shard] = arrs
+            versions[ws.shard] = int(ws.version)
+        epoch = plane.coordinator.committed_epoch() + 1
+        plane.coordinator.stage(epoch, shard_arrays, versions=versions)
+        plane.coordinator.commit(epoch, plane.version_vector())
+        return epoch
+
     # -- per-delta time-to-visible stages ---------------------------------
     def _emit_delta_stages(self, group: list, snap, t_apply_start: float):
         """The writer-side causal chain of every batch this publish
-        absorbed: admission accept → queued → apply → published (no WAL
-        fsync stage: this server keeps no log), observed into per-stage histograms
+        absorbed: admission accept → log fsync → queued → apply →
+        published, observed into per-stage histograms
         (``graphmine_serve_delta_stage_seconds{stage=...}``, the
         ``/statusz`` breakdown) and emitted as one ``delta_stages``
         record per batch IN THAT BATCH's trace — telemetry only, so a
@@ -1097,8 +1907,12 @@ class SnapshotServer:
         try:
             for p in group:
                 stages = {}
+                if p.t_durable is not None:
+                    stages["wal_fsync_s"] = round(
+                        max(0.0, p.t_durable - p.t_accept), 6
+                    )
                 stages["queued_s"] = round(
-                    max(0.0, t_apply_start - p.t_accept), 6
+                    max(0.0, t_apply_start - (p.t_durable or p.t_accept)), 6
                 )
                 stages["apply_s"] = round(
                     max(0.0, t_done - t_apply_start), 6
@@ -1111,7 +1925,7 @@ class SnapshotServer:
                         "graphmine_serve_delta_stage_seconds",
                         "per-stage delta latency: accept to queryable "
                         "on this writer",
-                        stage=stage[:-2],  # queued_s -> queued
+                        stage=stage[:-2],  # wal_fsync_s -> wal_fsync
                     ).observe(seconds)
                 if self.sink is None:
                     continue
@@ -1127,7 +1941,7 @@ class SnapshotServer:
                     self.sink.emit(
                         "delta_stages",
                         version=snap.version,
-                        seq=None,
+                        seq=p.seq,
                         delta_id=p.delta_id,
                         rows=p.rows,
                         coalesced=len(group),
@@ -1380,6 +2194,32 @@ class SnapshotServer:
             # deposed writer: reads serve, writes refuse 503 — the
             # balancer/operator signal that this process lost ownership
             out["fenced"] = self._fenced
+        if self.standby_of is not None:
+            out["standby"] = True
+            out["standby_of"] = self.standby_of
+            if self._shipper is not None:
+                ship = self._shipper.snapshot()
+                # the replication-lag pair: entries behind, seconds behind
+                out["replication_lag_entries"] = ship["lag_entries"]
+                out["replication_lag_s"] = ship["lag_s"]
+        if self.wal is not None:
+            out["wal"] = self.wal.snapshot()
+        dts = self._tenants[DEFAULT_TENANT]
+        if dts.plane is not None:
+            # Sharded-plane probe surface: the committed epoch and the
+            # per-range version vector (the router's /healthz aggregates
+            # these, and the prober's mixed-epoch guard keys off them).
+            out["writer_shards"] = self.writer_shards
+            out["epoch"] = dts.plane.coordinator.committed_epoch()
+            out["shard_versions"] = {
+                str(k): int(v)
+                for k, v in dts.plane.version_vector().items()
+            }
+            degraded = [
+                ws.shard for ws in dts.plane.shards if ws.read_only
+            ]
+            if degraded:
+                out["degraded_shards"] = degraded
         if not ready:
             out["not_ready_reason"] = not_ready_why
         if overloaded:
@@ -1396,14 +2236,30 @@ class SnapshotServer:
         """The ``/statusz`` "memory" section + ``graphmine_memory_*``
         gauges (docs/OBSERVABILITY.md "Memory plane"): host
         RSS and headroom against the process budget, the served
-        snapshot's array bytes vs the derived query index — byte
-        accounting for everything this process deliberately holds, so "RSS grew" decomposes into WHICH
+        snapshot's array bytes vs the derived query index, and the
+        retained log segment bytes: byte accounting for everything this
+        process deliberately holds, so "RSS grew" decomposes into which
         plane grew. Updated on the cadences that already read it
         (/statusz, and /healthz through the alert values — the prober
         cadence); no new threads."""
         out = host_memory(self._mem_budget)
         eng = self._engine
         out.update(eng.memory_bytes())
+        if self.wal is not None:
+            out["wal_segment_bytes"] = int(
+                self.wal.snapshot().get("segment_bytes", 0)
+            )
+        if self.device.type == "cuda":
+            # the caching allocator's counters (host-side, no sync): what
+            # this process holds on the card, beside nvidia-smi's view
+            import torch
+
+            out["device_bytes_in_use"] = int(
+                torch.cuda.memory_allocated(self.device)
+            )
+            out["device_peak_bytes"] = int(
+                torch.cuda.max_memory_allocated(self.device)
+            )
         export_memory_gauges(self.registry, out)
         return out
 
@@ -1584,6 +2440,15 @@ class SnapshotServer:
                 },
             },
         }
+        if self.wal is not None:
+            payload["wal"] = self.wal.snapshot()
+        dts = self._tenants[DEFAULT_TENANT]
+        if dts.plane is not None:
+            # per-shard log/admission/debt children: one entry per
+            # shard, mirroring the per-shard gauge children on /metrics
+            payload["shardplane"] = dts.plane.snapshot()
+        if self._shipper is not None:
+            payload["replication"] = self._shipper.snapshot()
         if self.sink is not None:
             self.sink.emit(
                 "slo_rollup",
@@ -1766,6 +2631,9 @@ class _Handler(BaseHTTPRequestHandler):
         self._tenant = ""
         self._tenant_explicit = False
         self.srv.request_started()
+        chaos = self.srv.chaos_delay_s
+        if chaos > 0:
+            time.sleep(chaos)  # replica_slow injector (testing/faults.py)
         # Inherited trace identity (docs/OBSERVABILITY.md "Fleet
         # tracing"): a propagated traceparent header makes this whole
         # request — access_log, admission, wal_append, query_batch,
@@ -1977,9 +2845,9 @@ class _Handler(BaseHTTPRequestHandler):
                 deadline_s = max(1, int(raw_ms)) / 1000.0
             except ValueError:
                 deadline_s = None
-        # X-Delta-Id: the client's idempotency key (the JAX server's WAL
-        # dedupes on it; here it rides the delta_stages record) — same
-        # constrained alphabet as request ids.
+        # X-Delta-Id: the client's idempotency key, the same constrained
+        # alphabet as request ids (it lands in records and response
+        # bodies verbatim).
         delta_id = self.headers.get("X-Delta-Id", "")
         if delta_id and not _REQUEST_ID_RE.fullmatch(delta_id):
             self._error(
@@ -2020,6 +2888,11 @@ class _Handler(BaseHTTPRequestHandler):
                     max(1, math.ceil(out.get("retry_after_s", 1.0)))
                 ),
             })
+        elif verdict == "accepted":
+            # durable in the log, not yet published: the honest 202
+            self._reply(202, out)
+        elif verdict == "duplicate":
+            self._reply(200 if out.get("applied") else 202, out)
         else:
             self._reply(200, out)
 

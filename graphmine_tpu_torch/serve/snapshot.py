@@ -61,6 +61,9 @@ from graphmine_tpu_torch.pipeline.checkpoint import (
 MANIFEST_NAME = "manifest.json"
 EPOCH_NAME = "EPOCH"
 TENANTS_DIRNAME = "tenants"
+# Sharded-write-plane publish epochs (serve/shardplane.py): staged
+# per-range generations and their commit records live under <root>/epochs.
+EPOCHS_DIRNAME = "epochs"
 _FORMAT_VERSION = 1
 
 

@@ -32,6 +32,15 @@ Serving: :func:`slow_repair` stalls every delta apply at the
 ``POST /delta`` payloads, :func:`noisy_neighbor_burst` aims a burst and a
 tenant-scoped stall at one tenant, and :func:`slow_client_post` dribbles a
 request body to a live server.
+
+Fleet and replicated writers: :func:`replica_kill` and
+:func:`writer_kill_mid_apply` kill a replica's listener in place,
+:func:`replica_slow` stalls every request of one replica,
+:func:`replica_stale` pins one replica's version, :func:`wal_torn_tail`
+tears a write-ahead log's newest segment, :func:`ship_lag` slows a
+standby's log shipping, :func:`writer_shard_kill` kills one range of the
+sharded write plane and :func:`shard_publish_torn` crashes its epoch
+commit between stage and commit.
 """
 
 from __future__ import annotations
@@ -346,6 +355,136 @@ def slow_client_post(
     status = int(status_line.split()[1])
     _, _, resp_body = rest.partition(b"\r\n\r\n")
     return status, _json.loads(resp_body.decode())
+
+
+# ---- fleet / replicated-writer injectors ------------------------------------
+# The per-replica seams (SnapshotServer.chaos_delay_s and
+# chaos_hold_version, per-instance attributes the production middleware and
+# reload() consult) are zero-cost no-ops in production and deterministic
+# handles in chaos tests. Host-only: none of them touches a device.
+
+
+def replica_kill(server) -> None:
+    """Hard-kill a replica's HTTP listener in place — every subsequent
+    connection is refused, exactly what the fleet router sees when a
+    replica process dies. Unlike ``SnapshotServer.stop()`` there is no
+    graceful queue drain: the 'process' just stops answering. The
+    Python object survives, so the test can still inspect its state;
+    'restarting the replica' is constructing a fresh SnapshotServer on
+    the same port (ThreadingHTTPServer sets SO_REUSEADDR)."""
+    httpd = server._httpd
+    server._httpd = None
+    if httpd is not None:
+        httpd.shutdown()
+        httpd.server_close()
+    t = server._thread
+    server._thread = None
+    if t is not None:
+        t.join(timeout=10)
+
+
+def replica_slow(server, seconds: float) -> None:
+    """Slow ONE replica: every request (including its /healthz) stalls
+    ``seconds`` before handling. With the fleet's generous probe timeout
+    the replica stays alive-and-healthy while its data-plane latency
+    blows the router's per-attempt read timeout — the exact shape that
+    must open the per-replica circuit breaker rather than mark the
+    replica down. ``replica_slow(server, 0.0)`` heals it."""
+    server.chaos_delay_s = float(seconds)
+
+
+def wal_torn_tail(wal_root: str, cut_bytes: int = 7) -> str:
+    """Tear the tail of the newest write-ahead-log segment in place —
+    the bytes a kill mid-append leaves behind (a frame whose payload
+    never finished). ``cut_bytes`` lands inside the final record's
+    payload, so the sha256 (or the length) can no longer verify; the
+    next :class:`~graphmine_tpu_torch.serve.wal.WriteAheadLog` open must keep
+    every record BEFORE the tear, truncate it, and keep appending —
+    never refuse the whole log. Returns the damaged segment path."""
+    import glob as _glob
+
+    segs = sorted(_glob.glob(os.path.join(wal_root, "wal-*.seg")))
+    if not segs:
+        raise ValueError(f"no WAL segments under {wal_root!r} to tear")
+    path = segs[-1]
+    size = os.path.getsize(path)
+    keep = max(8, size - max(1, cut_bytes))  # never cut into the magic
+    with open(path, "r+b") as f:
+        f.truncate(keep)
+    return path
+
+
+def writer_kill_mid_apply(server) -> None:
+    """SIGKILL-shaped writer loss for an in-process chaos test: the
+    HTTP listener dies instantly (every later connection refused — what
+    the fleet prober sees when the writer process is killed) while the
+    apply worker is left RUNNING with whatever it already popped — the
+    zombie half of a killed writer. That zombie's eventual publish is
+    exactly the deposed-writer comeback the store's epoch fence must
+    refuse once the standby is promoted (``publish_fenced``); its
+    WAL-durable queue survives on disk for the promotion replay. (A
+    real SIGKILL also stops the worker — in-process we cannot kill a
+    thread, and leaving it grinding makes the test STRICTER: the fence,
+    not process death, is what protects the store.)"""
+    replica_kill(server)
+
+
+def ship_lag(server_or_shipper, seconds: float) -> None:
+    """Slow ONE standby's log shipping: every poll of the primary's
+    /wal stalls ``seconds`` first — the deterministic stand-in for a
+    congested replication link. The standby stays healthy and serving
+    reads while its replication lag (the /healthz gauge pair) grows;
+    ``ship_lag(x, 0.0)`` heals. Accepts a SnapshotServer (standby) or a
+    LogShipper."""
+    shipper = getattr(server_or_shipper, "_shipper", server_or_shipper)
+    if shipper is None or not hasattr(shipper, "chaos_delay_s"):
+        raise ValueError(
+            "ship_lag needs a standby server (standby_of=...) or a "
+            "LogShipper"
+        )
+    shipper.chaos_delay_s = float(seconds)
+
+
+def writer_shard_kill(server, shard: int, tenant: str = "default") -> None:
+    """Kill ONE vertex-range writer shard of a sharded write plane
+    (serve/shardplane.py): the shard's WAL handle closes
+    un-flushed and its range flips read-only — batches touching it
+    refuse 503 while every OTHER range keeps accepting writes. The
+    restart is ``plane.restart_shard(shard)`` (per-range WAL replay;
+    acked sub-batches survive by append-time fsync) or a standby
+    promotion via ``plane.promote_shard``. Acts on an in-process
+    SnapshotServer started with ``writer_shards > 1``."""
+    ts = server._tenants.get(tenant)
+    plane = getattr(ts, "plane", None) if ts is not None else None
+    if plane is None:
+        raise ValueError(
+            f"writer_shard_kill needs a server running with "
+            f"writer_shards > 1 (tenant {tenant!r} has no shard plane)"
+        )
+    plane.kill_shard(int(shard), reason="writer_shard_kill")
+
+
+def shard_publish_torn(at: int = 1, repeat: int = 1) -> FaultInjector:
+    """A coordinator crash BETWEEN stage and commit: every shard's
+    per-range arrays are staged, the ``publish_epoch`` record is never
+    written. Returns a ready-to-install :class:`FaultInjector` targeting
+    the ``shard_publish_commit`` seam (inside the store's fence lock,
+    before the stage→final rename). The recovery contract: readers keep
+    serving the PREVIOUS committed epoch, and the next startup's
+    ``EpochCoordinator.recover()`` finishes the staged generation (or
+    sweeps an incomplete one) — never a half-visible epoch."""
+    inj = FaultInjector()
+    inj.add("shard_publish_commit", preemption, at=at, repeat=repeat)
+    return inj
+
+
+def replica_stale(server, hold: bool = True) -> None:
+    """Pin ONE replica to its current snapshot version: /reload becomes
+    a no-op (``swapped: false, held: true``), so the replica falls
+    behind every publish — the stale replica the committed-version rule
+    must keep out of the read path without ever surfacing a
+    mixed-version answer. ``replica_stale(server, False)`` releases."""
+    server.chaos_hold_version = bool(hold)
 
 
 def corrupt_file(path: str, offset: int = -64, nbytes: int = 16) -> None:

@@ -327,3 +327,128 @@ def test_kernels_entries_carry_the_serving_launches():
                                                      "knn_topk_general": 0, "knn_topk_wide": 0})
     assert [e["serving_launches"] for e in out] == [7, 0, 0]
     assert [e["launches"] for e in out] == [1, 1, 1]
+
+
+# ---- phases 7c and 7d: the replicated serving plane -------------------------
+
+
+def test_canary_launches_count_the_replicas_canary_records(tmp_path):
+    a, b = tmp_path / "serve-1.jsonl", tmp_path / "standby-2.jsonl"
+    recs = [{"phase": "canary_score", "version": 2}, {"phase": "delta_apply"},
+            {"phase": "canary_score", "version": 3}]
+    a.write_text("\n".join(json.dumps(r) for r in recs) + "\n")
+    b.write_text(json.dumps({"phase": "canary_score", "version": 4}) + "\n\n")
+    assert chip_smoke.canary_launches([a, b]) == 3
+    assert chip_smoke.canary_launches([]) == 0
+
+
+def test_fleet_line_must_carry_every_key():
+    line = {k: 0 for k in chip_smoke.FLEET_KEYS}
+    assert chip_smoke.check_fleet_line(line) is line
+    json.dumps(line)
+    del line["promote_seconds"]
+    with pytest.raises(RuntimeError, match="promote_seconds"):
+        chip_smoke.check_fleet_line(line)
+
+
+def test_banners_parse_the_serve_and_fleet_cli_lines():
+    assert chip_smoke.banner_port(
+        "serving snapshot v3 on http://127.0.0.1:40123 [writer (WAL-durable), epoch 0, "
+        "device cuda]") == 40123
+    port, pids = chip_smoke.fleet_banner(
+        "fleet: 3 replica(s) behind http://127.0.0.1:8400 (writer replica-0 on port 8450, "
+        "standby replica-1 log-shipping its WAL; replica pids [11, 12, 13])")
+    assert (port, pids) == (8400, [11, 12, 13])
+
+
+class _Proc:
+    def __init__(self, stubborn=False, done=False):
+        self.pid, self.stubborn, self.calls = 999_999, stubborn, []
+        self.returncode = 0 if done else None
+
+    def poll(self):
+        return self.returncode
+
+    def terminate(self):
+        self.calls.append("terminate")
+        if not self.stubborn:
+            self.returncode = -15
+
+    def kill(self):
+        self.calls.append("kill")
+        self.returncode = -9
+
+    def wait(self, timeout=None):
+        if self.returncode is None:
+            raise subprocess.TimeoutExpired("p", timeout)
+        return self.returncode
+
+
+def test_processes_stop_every_one_when_a_phase_fails():
+    procs = chip_smoke.Processes(grace_s=0.01)
+    polite, stubborn, done = _Proc(), _Proc(stubborn=True), _Proc(done=True)
+    with pytest.raises(RuntimeError, match="the phase failed"):
+        with procs:
+            procs.procs += [(polite, False), (stubborn, False), (done, False)]
+            chip_smoke.require(False, "the phase failed")
+    assert polite.calls == ["terminate"] and stubborn.calls == ["terminate", "kill"]
+    assert done.calls == [] and procs.procs == []
+    assert all(p.returncode is not None for p in (polite, stubborn, done))
+
+
+def test_banner_fails_when_the_process_exits_first(tmp_path):
+    log = tmp_path / "x.log"
+    log.write_text("Traceback: no CUDA\n")
+    with pytest.raises(RuntimeError, match="exited"):
+        chip_smoke.banner(log, chip_smoke.SERVE_BANNER, _Proc(done=True), timeout=5)
+    with pytest.raises(RuntimeError, match="timed out"):
+        chip_smoke.banner(log, chip_smoke.SERVE_BANNER, _Proc(), timeout=0.2)
+    log.write_text("warn\nserving snapshot v1 on http://127.0.0.1:5 [writer]\n")
+    assert chip_smoke.banner(log, chip_smoke.SERVE_BANNER, _Proc(), timeout=5).endswith(
+        "[writer]")
+
+
+def test_edge_keys_are_a_multiset():
+    a = chip_smoke.edge_keys([3, 1, 1], [2, 5, 5])
+    b = chip_smoke.edge_keys([1, 3, 1], [5, 2, 5])
+    assert np.array_equal(a, b)
+    assert not np.array_equal(a, chip_smoke.edge_keys([1, 3], [5, 2]))
+
+
+def test_sharded_and_small_deltas_on_a_cpu_store(tmp_path):
+    """7c's in-process part at a small size on the CPU: a ``writer_shards
+    = 2`` server and a ``writer_shards = 1`` one publish the same arrays,
+    with the shard records."""
+    store, _ = _serving_stores(tmp_path, v=256, e=1500)
+    out = chip_smoke.sharded_compare(store, tmp_path, devices=("cpu", "cpu"))
+    assert out["version"] == 4 and out["epoch"] == 3
+    assert out["epoch_commits"] == 3 and out["shard_publishes"] == 6
+    assert len(out["repairs"]) == 3
+
+
+def test_device_file_and_driver_probes_read_proc(tmp_path):
+    """The router check's probes: a process without CUDA holds no
+    ``/dev/nvidia*`` file; a gone pid reads as nothing."""
+    import os
+
+    assert chip_smoke.nvidia_fds(os.getpid()) == [] or torch.cuda.is_initialized()
+    assert chip_smoke.nvidia_fds(2 ** 22 + 7) == []
+    assert chip_smoke.libcuda_mapped(2 ** 22 + 7) is False
+
+
+def test_failover_timeline_reads_the_records(tmp_path):
+    kill = 1000.0
+    recs = [{"phase": "replica_health", "t": 999.0, "replica": "replica-0", "to_state": "down"},
+            {"phase": "replica_health", "t": 1000.7, "replica": "replica-0", "to_state": "down"},
+            {"phase": "fleet_degraded", "t": 1000.71, "read_only": True},
+            {"phase": "wal_replay", "t": 1001.0, "entries": 1, "from_seq": 2},
+            {"phase": "writer_promote", "t": 1001.0, "epoch": 1, "replayed": 1, "seconds": 0.3,
+             "copied_tail": 1},
+            {"phase": "writer_promote", "t": 1001.01, "epoch": 1, "replica": "replica-1"},
+            {"phase": "fleet_degraded", "t": 1001.02, "read_only": False}]
+    path = tmp_path / "router-1.jsonl"
+    path.write_text("\n".join(json.dumps(r) for r in recs))
+    out = chip_smoke.failover_timeline([path], kill)
+    assert out["replica-0_down_s"] == 0.7 and out["read_only_s"] == 0.71
+    assert out["writable_s"] == 1.02 and out["replay"] == {"after_kill_s": 1.0, "entries": 1}
+    assert out["server_promote"]["seconds"] == 0.3 and out["router_promote"]["epoch"] == 1

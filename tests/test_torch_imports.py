@@ -89,7 +89,11 @@ _BLOCKED = "import sys\nsys.modules['jax'] = None\nsys.modules['graphmine_tpu'] 
                                     "graphmine_tpu_torch.serve.delta",
                                     "graphmine_tpu_torch.serve.query",
                                     "graphmine_tpu_torch.serve.server",
-                                    "graphmine_tpu_torch.serve.__main__"])
+                                    "graphmine_tpu_torch.serve.__main__",
+                                    "graphmine_tpu_torch.serve.wal",
+                                    "graphmine_tpu_torch.serve.shardplane",
+                                    "graphmine_tpu_torch.serve.fleet",
+                                    "graphmine_tpu_torch.serve.fleet_cli"])
 def test_slice_modules_import_without_jax(module):
     code = _BLOCKED + f"import importlib\nimportlib.import_module({module!r})\nprint('ok')\n"
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -7,9 +7,9 @@ tolerance after deltas). Admission verdicts, coalescing and the LOF-defer
 rung are held against the JAX ``AdmissionController`` and
 ``coalesce_deltas``; the alert rules against the JAX ``AlertManager``; the
 tenant registry against the JAX one. Then the port's own contracts: swap
-under live queries, 400 on null fields, the constructor's refusals for
-the later batch (WAL, standby, writer shards), ``/profilez`` and the serve
-CLI, which the JAX ``serve_cli.py`` client drives over HTTP.
+under live queries, 400 on null fields, the constructor's answers to the
+WAL, standby and writer-shard arguments (as the JAX server's), ``/profilez``
+and the serve CLI, which the JAX ``serve_cli.py`` client drives over HTTP.
 """
 
 import json
@@ -402,11 +402,30 @@ def test_tenant_namespace_is_served_and_charged(tmp_path):
                                     ({}, {"GRAPHMINE_WRITER_SHARDS": "4"})],
                          ids=["wal", "standby", "primary_wal", "writer_shards", "env_shards"])
 def test_later_batch_raises_naming_the_roadmap(tmp_path, monkeypatch, kw, env):
+    """The durable write path, standbys and the sharded write plane have
+    landed: the constructor answers these arguments as the JAX server's
+    does (a standby without its own log is a ValueError in both, the rest
+    construct) and never with NotImplementedError; only the sharded repair
+    (``num_shards > 1``) still raises, naming its ROADMAP item."""
     _base(tmp_path)
+    shutil.copytree(tmp_path / "base", tmp_path / "j")
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="ROADMAP item A4"):
-        SnapshotServer(SnapshotStore(str(tmp_path / "base")), device="cpu", **kw)
+    outs = []
+    for make in (lambda: JSnapshotServer(JSnapshotStore(str(tmp_path / "j")), **kw),
+                 lambda: SnapshotServer(SnapshotStore(str(tmp_path / "base")), device="cpu",
+                                        **kw)):
+        try:
+            srv = make()
+        except ValueError as e:
+            outs.append(("ValueError", str(e)))
+        else:
+            outs.append(("ok", srv.writer_shards, srv.wal is not None,
+                         srv.standby_of, srv.healthz().get("writer_shards")))
+            srv.stop()
+    assert outs[0] == outs[1]
+    with pytest.raises(NotImplementedError, match="ROADMAP item A7"):
+        SnapshotServer(SnapshotStore(str(tmp_path / "base")), device="cpu", num_shards=2)
 
 
 def test_wal_ack_and_promote_answer_as_without_a_log(pair):
