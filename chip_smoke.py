@@ -5,6 +5,7 @@ Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --kernels-only   # phases 1-3, then the kernel alone
+    python3 chip_smoke.py --community-only # phases 1-3, then phase 8
 
 In order, and failing on the first phase that fails:
 
@@ -138,7 +139,27 @@ In order, and failing on the first phase that fails:
    ``knn_topk`` launch each) join the ``kernels`` line's
    ``serving_launches``; every process a part starts is stopped when it
    ends, pass or fail;
-8. prints the smoke's total seconds, the card line again and the last
+8. (after phase 6) Louvain and Leiden, and the graph-ops surface: 8a, on
+   phase 4's graph, ``run_pipeline`` with ``community_method`` "louvain"
+   and "leiden", ``lof_impl="exact"``, unweighted and in quarter weights,
+   on the card and on the CPU: labels, community counts and
+   recursive-LPA flags equal, Q (float32) within 1e-6, LOF within phase
+   4's tolerances; the unweighted Louvain run's store loaded back under the
+   graph's fingerprint; then every op of the surface (degrees, BFS and its
+   parents and paths, 16-landmark shortest paths, weighted shortest paths,
+   SCC, k-core, ``aggregate_messages``, five ``pregel`` supersteps, a motif,
+   assortativity, reciprocity, density, diameter, ARI and NMI) on that
+   graph, card against CPU: integer outputs equal, floats within rtol 1e-5
+   / atol 1e-6 (float sums reduce in another order on each device); prints
+   the ``community_small`` line. 8b, on phase 5's parquet file with phase
+   5's ``batch_rows``: ``run_pipeline`` with ``community_method="leiden"``
+   and ``lof_impl="exact"`` (the fast instance at its full shape: launches
+   >= 1), then ``louvain`` on its graph; prints the ``community`` line
+   (wall and phase seconds, Q, communities, the largest, peak device
+   bytes, Louvain's seconds and Q); then every op once on its graph
+   (directed where the op reads direction, BFS from vertex 0), held to its
+   own invariants; prints the ``ops`` line with each op's seconds;
+9. prints the smoke's total seconds, the card line again and the last
    line, ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only`` skips the pipelines: after phase 3 it holds and times
@@ -213,8 +234,11 @@ KNN_REPLACES = "graphmine_tpu/pallas_kernels/knn_pallas.py:117"
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description="Chip smoke of graphmine_tpu_torch on one GPU.")
-    ap.add_argument("--kernels-only", action="store_true",
-                    help="phases 1-3, then the kernel alone at the main path's shape")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--kernels-only", action="store_true",
+                      help="phases 1-3, then the kernel alone at the main path's shape")
+    mode.add_argument("--community-only", action="store_true",
+                      help="phases 1-3, then phase 8 (Louvain, Leiden and the graph ops)")
     return ap.parse_args(argv)
 
 
@@ -655,7 +679,7 @@ def main(argv=None) -> int:
         shutil.rmtree(work, ignore_errors=True)
         work.mkdir(parents=True)
         try:
-            run_main_path(work)
+            (run_community_only if args.community_only else run_main_path)(work)
         finally:
             shutil.rmtree(work, ignore_errors=True)
 
@@ -685,6 +709,20 @@ def read_launches() -> dict:
             **{f"knn_topk_{name}": n for name, n in knn_cuda.instance_launches.items()}}
 
 
+def small_inputs(work: Path) -> tuple:
+    """Phase 4's graph, ``planted_anomaly_graph(4096, 60_000, seed=9)``,
+    as an edge list with weights in quarters (``small.txt``) and as a
+    parquet file (``small.parquet``) in ``work``."""
+    from graphmine_tpu_torch import datasets
+
+    v = 4096
+    src, dst, _, _ = datasets.planted_anomaly_graph(v, 60_000, seed=SEED_MAIN)
+    small, small_pq = work / "small.txt", work / "small.parquet"
+    write_edge_list(small, src, dst, np.random.default_rng(7).integers(1, 16, len(src)) / 4)
+    write_parquet(small_pq, src, dst, v)
+    return small, small_pq
+
+
 def small_pipelines(work: Path) -> dict:
     """Phase 4: the pipeline on the card against the CPU on 4,096-vertex
     planted graphs: exact kNN, quarter weights, the IVF index, parquet
@@ -693,16 +731,11 @@ def small_pipelines(work: Path) -> dict:
     lof_k = 1500 (``"widest_k"``) runs on the card."""
     import torch
 
-    from graphmine_tpu_torch import datasets
     from graphmine_tpu_torch.pipeline import PipelineConfig, run_pipeline
     from graphmine_tpu_torch.pipeline.checkpoint import graph_fingerprint
     from graphmine_tpu_torch.serve.snapshot import SnapshotStore
 
-    v = 4096
-    src, dst, _, _ = datasets.planted_anomaly_graph(v, 60_000, seed=SEED_MAIN)
-    small, small_pq = work / "small.txt", work / "small.parquet"
-    write_edge_list(small, src, dst, np.random.default_rng(7).integers(1, 16, len(src)) / 4)
-    write_parquet(small_pq, src, dst, v)
+    small, small_pq = small_inputs(work)
     edges = dict(data_path=str(small), data_format="edgelist")
     cases = {"exact": dict(edges, lof_impl="exact"),
              "weighted": dict(edges, lof_impl="exact", edge_weight_col=2),
@@ -2321,6 +2354,375 @@ def run_replicated(work: Path) -> dict:
     return out
 
 
+# ---- 8. community methods and the graph-ops surface -------------------------
+
+COMMUNITY_Q_TOL = 1e-6  # Q of card and CPU labels, float32 sums in other orders
+# Float outputs of the ops, card against CPU: sums of floats (aggregate
+# means, out-weights) reduce in another order on each device.
+OPS_RTOL, OPS_ATOL = 1e-5, 1e-6
+OPS_LANDMARKS = 16
+PREGEL_STEPS = 5
+MOTIF = "(a)-[]->(b); !(b)-[]->(a)"  # edges with no reverse edge
+BFS_TARGETS = 8
+COMMUNITY_KEYS = ("method", "graph", "vertices", "edges", "wall_seconds", "phase_seconds",
+                  "q", "communities", "largest", "peak_device_bytes", "launches", "lof_impl",
+                  "louvain_seconds", "louvain_q", "louvain_communities", "louvain_largest",
+                  "louvain_level0")
+OPS = ("degrees", "in_degrees", "out_degrees", "out_weights", "bfs_distances", "bfs_parents",
+       "bfs", "shortest_paths", "weighted_shortest_paths", "strongly_connected_components",
+       "core_numbers", "aggregate_messages", "pregel", "find_motifs", "degree_assortativity",
+       "reciprocity", "density", "diameter", "adjusted_rand_index", "normalized_mutual_info")
+
+
+def _host(value):
+    """An op's output on the host: tensors as arrays, tuples and lists
+    item by item, motif results as their columns."""
+    import torch
+
+    if torch.is_tensor(value):
+        return value.cpu().numpy()
+    if isinstance(value, (tuple, list)):
+        return [_host(v) for v in value]
+    if hasattr(value, "num_matches"):
+        return {"num_matches": value.num_matches, **value.vertices, **value.edges}
+    return value
+
+
+def graph_ops(graph, digraph, weights, labels_a, labels_b) -> tuple:
+    """Each op of the graph-ops surface once: ``(outputs on the host,
+    seconds per op)``. ``graph`` is symmetric, ``digraph`` the same edges
+    directed (for the ops that read direction), ``weights`` one float per
+    edge, ``labels_a`` and ``labels_b`` two partitions to compare."""
+    import torch
+
+    import graphmine_tpu_torch as gm
+
+    dev, v = graph.device, graph.num_vertices
+    ids = torch.arange(v, dtype=torch.int32, device=dev)
+    landmarks = np.arange(OPS_LANDMARKS) * max(v // OPS_LANDMARKS, 1) % v
+    out_deg = gm.out_degrees(digraph).to(torch.float32)
+    calls = {
+        "degrees": lambda: gm.degrees(digraph),
+        "in_degrees": lambda: gm.in_degrees(digraph),
+        "out_degrees": lambda: gm.out_degrees(digraph),
+        "out_weights": lambda: gm.out_weights(digraph),
+        "bfs_distances": lambda: gm.bfs_distances(digraph, [0]),
+        "bfs_parents": lambda: gm.bfs_parents(digraph, [0]),
+        "bfs": lambda: gm.bfs(digraph, [0], np.arange(1, BFS_TARGETS + 1)),
+        "shortest_paths": lambda: gm.shortest_paths(digraph, landmarks,
+                                                    landmark_batch=OPS_LANDMARKS),
+        "weighted_shortest_paths": lambda: gm.weighted_shortest_paths(digraph, [0], weights),
+        "strongly_connected_components": lambda: gm.strongly_connected_components(digraph),
+        "core_numbers": lambda: gm.core_numbers(graph),
+        "aggregate_messages": lambda: gm.aggregate_messages(
+            digraph, out_deg, to_dst=lambda s, d, e: s, reduce="mean"),
+        "pregel": lambda: gm.pregel(
+            digraph, ids, to_dst=lambda s, d, e: s, to_src=lambda s, d, e: d, reduce="min",
+            update=torch.minimum, max_iter=PREGEL_STEPS),
+        "find_motifs": lambda: gm.find_motifs(digraph, MOTIF),
+        "degree_assortativity": lambda: gm.degree_assortativity(graph),
+        "reciprocity": lambda: gm.reciprocity(digraph),
+        "density": lambda: gm.density(graph),
+        "diameter": lambda: gm.diameter(graph, seed=0),
+        "adjusted_rand_index": lambda: gm.adjusted_rand_index(labels_a, labels_b),
+        "normalized_mutual_info": lambda: gm.normalized_mutual_info(labels_a, labels_b),
+    }
+    assert tuple(calls) == OPS
+    outputs, seconds = {}, {}
+    for name, call in calls.items():
+        _sync_device(dev)
+        t0 = time.perf_counter()
+        value = call()
+        _sync_device(dev)
+        seconds[name] = time.perf_counter() - t0
+        outputs[name] = _host(value)
+        log(f"op {name}: {seconds[name]:.3f} s")
+    return outputs, seconds
+
+
+def _sync_device(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _same_value(got, want, what: str) -> None:
+    """Integers (and integer arrays) equal; floats within OPS_RTOL /
+    OPS_ATOL, inf and NaN where the other has them."""
+    if isinstance(want, dict):
+        require(isinstance(got, dict) and sorted(got) == sorted(want), f"{what}: keys differ")
+        for key in want:
+            _same_value(got[key], want[key], f"{what}.{key}")
+        return
+    if isinstance(want, list):
+        require(isinstance(got, list) and len(got) == len(want), f"{what}: lengths differ")
+        for i, (g, w) in enumerate(zip(got, want)):
+            _same_value(g, w, f"{what}[{i}]")
+        return
+    g, w = np.asarray(got), np.asarray(want)
+    require(g.shape == w.shape, f"{what}: shape {g.shape} against {w.shape}")
+    if np.issubdtype(w.dtype, np.floating):
+        close = np.isclose(g, w, rtol=OPS_RTOL, atol=OPS_ATOL, equal_nan=True)
+        require(bool(close.all()), f"{what}: floats differ beyond rtol {OPS_RTOL}")
+    else:
+        require(g.dtype == w.dtype and np.array_equal(g, w), f"{what}: values differ")
+
+
+def check_ops(got: dict, want: dict, what: str) -> None:
+    """Every op's output present on both sides and equal (integers) or
+    within tolerance (floats)."""
+    for name in OPS:
+        require(name in got and name in want, f"{what}: op {name} missing")
+        _same_value(got[name], want[name], f"{what}: {name}")
+
+
+def community_q(res) -> float:
+    """The float32 modularity of a run's labels on its graph, as Louvain
+    and Leiden score a level."""
+    import torch
+
+    from graphmine_tpu_torch.ops.modularity import message_weights, modularity_weighted
+
+    g = res.graph
+    w, self_w = message_weights(g)
+    labels = torch.from_numpy(np.asarray(res.labels, np.int32)).to(g.device)
+    return float(modularity_weighted(labels, g.msg_recv, g.msg_send, w, self_w,
+                                     g.num_vertices))
+
+
+def check_community(gpu, cpu, what: str) -> dict:
+    """A Louvain or Leiden pipeline on the card against the CPU: labels,
+    community count and recursive-LPA flags equal, Q within
+    COMMUNITY_Q_TOL, LOF within phase 4's tolerances. Returns |dQ| and
+    LOF's largest relative difference."""
+    require(np.array_equal(gpu.labels, cpu.labels), f"{what}: labels differ from the CPU's")
+    require(gpu.num_communities == cpu.num_communities, f"{what}: community counts differ")
+    require(np.array_equal(gpu.outliers.outlier_vertices, cpu.outliers.outlier_vertices),
+            f"{what}: recursive-LPA flags differ from the CPU's")
+    dq = abs(community_q(gpu) - community_q(cpu))
+    require(dq <= COMMUNITY_Q_TOL, f"{what}: Q differs by {dq:.3g}")
+    _lof_close(gpu.lof, cpu.lof, what)
+    lof_rel = float((np.abs(gpu.lof - cpu.lof) / np.abs(cpu.lof)).max())
+    return {"q_abs_diff": dq, "lof_max_rel_diff": lof_rel}
+
+
+def _op_graphs(table, device, weighted: bool):
+    """The symmetric graph and the directed one of an edge table on
+    ``device``, with the table's weights or the quarter weights of phase 4
+    for the weighted shortest paths."""
+    from graphmine_tpu_torch.graph.container import build_graph
+
+    w = table.weights if weighted else None
+    graph = build_graph(table.src, table.dst, num_vertices=table.num_vertices,
+                        edge_weights=w, device=device)
+    digraph = build_graph(table.src, table.dst, num_vertices=table.num_vertices,
+                          symmetric=False, edge_weights=w, device=device)
+    sp_w = (table.weights if weighted
+            else np.random.default_rng(7).integers(1, 16, table.num_edges) / 4)
+    return graph, digraph, np.asarray(sp_w, np.float32)
+
+
+def community_small(work: Path, devices=("cuda", "cpu")) -> dict:
+    """Phase 8a: Louvain and Leiden through ``run_pipeline`` on phase 4's
+    4,096-vertex graph, unweighted and in quarter weights, card against
+    CPU (:func:`check_community`); a Louvain run's store published and
+    loaded back under the fingerprint; then every op of the graph-ops
+    surface on the same graph, card against CPU (:func:`check_ops`)."""
+    from graphmine_tpu_torch.pipeline import PipelineConfig, run_pipeline
+    from graphmine_tpu_torch.pipeline.checkpoint import graph_fingerprint
+    from graphmine_tpu_torch.serve.snapshot import SnapshotStore
+
+    small = work / "small.txt"
+    summary, results = {}, {}
+    reset_launches()  # the CPU runs launch nothing
+    for method in ("louvain", "leiden"):
+        for weighted in (False, True):
+            case = f"{method}{'_weighted' if weighted else ''}"
+            runs, walls = {}, {}
+            for d in devices:
+                cfg = dict(data_path=str(small), data_format="edgelist",
+                           community_method=method, outlier_method="both",
+                           lof_k=SMALL_LOF_K, lof_impl="exact", device=d)
+                if weighted:
+                    cfg["edge_weight_col"] = 2
+                if case == "louvain":
+                    cfg["snapshot_out"] = str(work / f"community_store_{d}")
+                t0 = time.perf_counter()
+                runs[d] = run_pipeline(PipelineConfig(**cfg))
+                walls[d] = time.perf_counter() - t0
+            gpu, cpu = (runs[d] for d in devices)
+            diffs = check_community(gpu, cpu, case)
+            summary[case] = {"communities": gpu.num_communities, "q": community_q(gpu),
+                             **diffs, "seconds_card": walls[devices[0]],
+                             "seconds_cpu": walls[devices[1]],
+                             "phase_seconds": gpu.metrics.phase_seconds()[method]}
+            results[case] = runs
+            log(f"community 8a, {case}: card == CPU, {summary[case]}")
+    gpu = results["louvain"][devices[0]]
+    fp = graph_fingerprint(gpu.edge_table.src, gpu.edge_table.dst)
+    for d in devices:
+        snap = SnapshotStore(str(work / f"community_store_{d}")).load(fingerprint=fp)
+        require(snap is not None and np.array_equal(snap["labels"], gpu.labels),
+                f"community store ({d}): labels")
+    summary["launches"] = read_launches()
+    summary["store_version"] = snap.version
+    outs = []
+    for d in devices:
+        res = results["louvain"][d]
+        graph, digraph, sp_w = _op_graphs(res.edge_table, d, weighted=False)
+        out, secs = graph_ops(graph, digraph, sp_w, res.labels, results["leiden"][d].labels)
+        outs.append(out)
+        summary.setdefault("ops_seconds_card", secs)
+    check_ops(outs[0], outs[1], "8a ops")
+    return summary
+
+
+def check_community_line(line: dict) -> dict:
+    """The ``community`` line carries every key of COMMUNITY_KEYS."""
+    missing = [k for k in COMMUNITY_KEYS if k not in line]
+    require(not missing, f"community line lacks {missing}")
+    return line
+
+
+def ops_line(outputs: dict, seconds: dict) -> dict:
+    """The ``ops`` line: each op's seconds and a summary of its output."""
+    missing = [k for k in OPS if k not in seconds or k not in outputs]
+    require(not missing, f"ops line lacks {missing}")
+    scc = np.asarray(outputs["strongly_connected_components"])
+    dist = np.asarray(outputs["bfs_distances"])
+    from graphmine_tpu_torch.ops.paths import UNREACHABLE
+
+    return {
+        "seconds": {k: seconds[k] for k in OPS},
+        "scc_count": int(len(np.unique(scc))),
+        "scc_largest": int(np.bincount(np.unique(scc, return_inverse=True)[1]).max()),
+        "bfs_reached": int((dist < UNREACHABLE).sum()),
+        "bfs_depth": int(dist[dist < UNREACHABLE].max(initial=0)),
+        "bfs_paths": len(outputs["bfs"]),
+        "max_core": int(np.asarray(outputs["core_numbers"]).max(initial=0)),
+        "motif_matches": int(outputs["find_motifs"]["num_matches"]),
+        "degree_assortativity": float(outputs["degree_assortativity"]),
+        "reciprocity": float(outputs["reciprocity"]),
+        "density": float(outputs["density"]),
+        "diameter": int(outputs["diameter"]),
+        "adjusted_rand_index": float(outputs["adjusted_rand_index"]),
+        "normalized_mutual_info": float(outputs["normalized_mutual_info"]),
+    }
+
+
+def check_full_ops(outputs: dict, v: int) -> None:
+    """What phase 8b can hold the full-size ops to without a reference:
+    shapes, ranges and the ops' own invariants."""
+    from graphmine_tpu_torch.ops.paths import UNREACHABLE
+
+    dist, (d2, parent) = outputs["bfs_distances"], outputs["bfs_parents"]
+    require(dist.shape == (v,) and dist[0] == 0 and np.array_equal(dist, d2), "8b: BFS")
+    reached = (dist < UNREACHABLE) & (dist > 0)
+    require(bool((dist[parent[reached]] == dist[reached] - 1).all()), "8b: BFS parents")
+    sp = outputs["shortest_paths"]
+    require(sp.shape == (v, OPS_LANDMARKS), "8b: shortest_paths shape")
+    scc = outputs["strongly_connected_components"]
+    require(scc.shape == (v,) and bool(((scc >= 0) & (scc < v)).all())
+            and bool((scc[scc] == scc).all()), "8b: SCC ids are not member representatives")
+    core = outputs["core_numbers"]
+    require(bool((core >= 0).all()) and bool((core <= outputs["degrees"]).all()), "8b: cores")
+    require(np.array_equal(outputs["degrees"], outputs["in_degrees"] + outputs["out_degrees"]),
+            "8b: degrees")
+    wsp = outputs["weighted_shortest_paths"]
+    require(bool(np.isfinite(wsp[dist < UNREACHABLE]).all()), "8b: weighted distances")
+    require(0.0 <= outputs["adjusted_rand_index"] <= 1.0
+            and 0.0 <= outputs["normalized_mutual_info"] <= 1.0, "8b: ARI / NMI")
+
+
+def level0_breakdown(graph) -> dict:
+    """Louvain's first level taken apart on ``graph``'s device: the host
+    level build, one sweep alone, the local moves to their stop rule and
+    the host contraction, each ending in a synchronise."""
+    from graphmine_tpu_torch.ops import louvain as lv
+
+    def timed(fn):
+        _sync_device(graph.device)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync_device(graph.device)
+        return out, time.perf_counter() - t0
+
+    level, build_s = timed(lambda: lv._level_from_graph(graph))
+    moves = lambda sweeps: lv._local_moves(
+        level.recv, level.send, level.weight, level.self_weight,
+        num_vertices=len(level.self_weight), gamma=1.0, max_sweeps=sweeps, device=graph.device)
+    _, one_sweep_s = timed(lambda: moves(1))
+    comm, moves_s = timed(lambda: moves(32))
+    comm = comm.cpu().numpy()
+    (new_level, _), contract_s = timed(lambda: lv._contract(level, comm))
+    return {"padded_messages": len(level.recv), "padded_vertices": len(level.self_weight),
+            "level_build_seconds": build_s, "one_sweep_seconds": one_sweep_s,
+            "local_moves_seconds": moves_s, "contract_seconds": contract_s,
+            "communities_after": new_level.num_vertices}
+
+
+def community_full(parquet: Path) -> None:
+    """Phase 8b: Leiden through ``run_pipeline`` on phase 5's parquet file
+    (``batch_rows`` of phase 5, ``lof_impl="exact"``: the fast instance
+    at its full shape), then Louvain on that run's graph, then every op of
+    the graph-ops surface on its graph; prints the ``community`` and
+    ``ops`` lines."""
+    import torch
+
+    from graphmine_tpu_torch.ops.louvain import louvain
+    from graphmine_tpu_torch.pipeline import PipelineConfig
+
+    res, wall, launches, peak = drive(
+        PipelineConfig(data_path=str(parquet), batch_rows=BATCH_ROWS, community_method="leiden",
+                       outlier_method="both", lof_k=LOF_K, lof_impl="exact", device="cuda"),
+        "leiden path")
+    require(launches["knn_topk"] >= 1, "the Leiden path never launched knn_topk")
+    v = res.graph.num_vertices
+    require(res.labels.shape == (v,) and 1 < res.num_communities < v, "8b: Leiden labels")
+    require(bool(np.isfinite(res.lof).all()), "8b: LOF scores not finite")
+    m = res.metrics
+    (comm,) = m.of_phase("communities")
+    q = community_q(res)
+    require(abs(q - comm["modularity"]) <= 1e-6 and q > 0, f"8b: Q {q} against {comm}")
+    sizes = np.bincount(res.labels)
+    t0 = time.perf_counter()
+    lv_labels, lv_q = louvain(res.graph)
+    torch.cuda.synchronize()
+    lv_s = time.perf_counter() - t0
+    lv_sizes = np.bincount(lv_labels.cpu().numpy())
+    (lof_sel,) = [r for r in m.of_phase("impl_selected") if r["op"] == "lof_knn"]
+    line = check_community_line({
+        "method": "leiden",
+        "graph": f"planted_anomaly_graph({V_MAIN}, {E_MAIN}, seed={SEED_MAIN})",
+        "vertices": v, "edges": res.graph.num_edges, "wall_seconds": wall,
+        "phase_seconds": m.phase_seconds(), "q": q, "communities": res.num_communities,
+        "largest": int(sizes.max()), "peak_device_bytes": peak, "launches": launches,
+        "lof_impl": lof_sel["impl"], "louvain_seconds": lv_s, "louvain_q": lv_q,
+        "louvain_communities": int((lv_sizes > 0).sum()), "louvain_largest": int(lv_sizes.max()),
+        "louvain_level0": level0_breakdown(res.graph),
+    })
+    print(json.dumps({"community": line}), flush=True)
+    graph, digraph, sp_w = _op_graphs(res.edge_table, "cuda", weighted=False)
+    outputs, seconds = graph_ops(graph, digraph, sp_w, res.labels, lv_labels)
+    check_full_ops(outputs, v)
+    print(json.dumps({"ops": ops_line(outputs, seconds)}), flush=True)
+
+
+def run_community_only(work: Path) -> None:
+    """``--community-only``: phase 8 on phase 4's and phase 5's inputs,
+    written here."""
+    from graphmine_tpu_torch import datasets
+
+    small_inputs(work)
+    src, dst, _, _ = datasets.planted_anomaly_graph(V_MAIN, E_MAIN, seed=SEED_MAIN)
+    edges_pq = work / "edges.parquet"
+    write_parquet(edges_pq, src, dst, V_MAIN)
+    del src, dst
+    print(json.dumps({"community_small": community_small(work)}), flush=True)
+    community_full(edges_pq)
+
+
 def run_main_path(work: Path) -> None:
     """Phases 4-7: small pipelines on the card against the CPU, the run
     harness on them, the main path, the main path under the harness,
@@ -2411,6 +2813,11 @@ def run_main_path(work: Path) -> None:
         ivf_entry(torch.from_numpy(gate).cuda(), gate_out, "blob_jax_gate", k=32,
                   min_recall=IVF_MIN_RECALL),
     ]}), flush=True)
+    del feats_main, full, full_out, gate, gate_out
+
+    # ---- 8. Louvain and Leiden, and the graph-ops surface ---------------
+    print(json.dumps({"community_small": community_small(work)}), flush=True)
+    community_full(edges_pq)
 
 
 if __name__ == "__main__":

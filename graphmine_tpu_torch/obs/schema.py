@@ -54,6 +54,8 @@ register("plan", "schedule", "bytes_per_device", "hbm_budget", "reason")
 register("warning", "message")
 register("build_graph", "seconds")
 register("lpa", "seconds")
+register("louvain", "seconds", "gamma")
+register("leiden", "seconds", "gamma")
 register("lpa_iter", "iteration", "labels_changed", "seconds",
          "edges_per_sec", "edges_per_sec_per_chip")
 register("superstep_telemetry", "iteration", "labels_changed", "frontier",

@@ -63,11 +63,15 @@ def _vertex_features(graph: Graph, communities: torch.Tensor,
     same_cnt = torch.zeros(v, dtype=torch.int64, device=recv.device).index_add_(0, recv, same)
     same_frac = same_cnt.to(torch.float32) / torch.clamp(msg_deg, min=1).to(torch.float32)
     distinct = _distinct_neighbor_communities(graph, communities)
-    feats = torch.log1p(torch.stack(
+    counts = torch.stack(
         [out_deg.to(torch.float32), in_deg.to(torch.float32),
          msg_deg.to(torch.float32), comm_size.to(torch.float32),
          mean_neigh_deg, distinct.to(torch.float32)], dim=1,
-    ))
+    )
+    # log1p on the host: the card's float32 log1p differs from the CPU's in
+    # the last place, and LOF turns such a difference into another
+    # neighbour among near-tied ones
+    feats = torch.log1p(counts.cpu()).to(counts.device)
     return torch.cat(
         [feats, same_frac[:, None], clust[:, None].to(torch.float32)], dim=1
     )
@@ -83,7 +87,10 @@ def _distinct_neighbor_communities(graph: Graph, communities: torch.Tensor) -> t
 
 def standardize(feats: torch.Tensor) -> torch.Tensor:
     """Zero-mean unit-variance columns (population std, guarding constant
-    features)."""
-    mu = feats.mean(dim=0, keepdim=True)
-    sd = feats.std(dim=0, correction=0, keepdim=True)
+    features). The column means and deviations are reduced on the host,
+    in the CPU's order, so features on the card carry the CPU's bits (a
+    float32 reduction rounds differently on the card)."""
+    host = feats.cpu()
+    mu = host.mean(dim=0, keepdim=True).to(feats.device)
+    sd = host.std(dim=0, correction=0, keepdim=True).to(feats.device)
     return (feats - mu) / torch.clamp(sd, min=1e-6)

@@ -99,3 +99,57 @@ def _segment_mode_weighted(segment_ids, values, weights, num_segments: int):
     mode = torch.full((num_segments + 1,), _INT32_MAX, dtype=torch.int64, device=dev)
     mode.scatter_reduce_(0, seg_x, cand, "amin")
     return mode[:num_segments].to(torch.int32), torch.clamp(best[:num_segments], min=0.0)
+
+
+def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """Per-segment sums ``[num_segments, ...]`` along dim 0
+    (``jax.ops.segment_sum``): out-of-range ids are dropped, empty segments
+    give 0. Integer sums are exact in any order. Float elements are grouped
+    by a stable sort (skipped when the ids already ascend) and each segment
+    is reduced on its own (``torch.segment_reduce``): on the CPU in element
+    order, as the JAX package's scatter-add runs there, on CUDA by a fixed
+    tree. Deterministic on each device, and equal across devices wherever
+    every partial sum is exact (integer or quarter weights in float32)."""
+    seg = segment_ids.to(torch.int64)
+    seg = torch.where((seg >= 0) & (seg < num_segments), seg, num_segments)
+    if not values.is_floating_point():
+        out = values.new_zeros((num_segments + 1, *values.shape[1:]))
+        return out.index_add_(0, seg, values)[:num_segments]
+    if seg.shape[0] > 1 and not bool((seg[1:] >= seg[:-1]).all()):
+        seg, order = torch.sort(seg, stable=True)
+        values = values[order]
+    lengths = torch.bincount(seg, minlength=num_segments + 1)
+    return torch.segment_reduce(values, "sum", lengths=lengths)[:num_segments]
+
+
+def _scatter_extreme(values: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                     reduce: str) -> torch.Tensor:
+    """``segment_min``/``segment_max`` along dim 0 with the JAX identities
+    for empty segments (the dtype's max for a minimum, its min for a
+    maximum; +-inf for floats); out-of-range ids are dropped. Exact in any
+    order, so equal on every device."""
+    if values.is_floating_point():
+        fill = float("inf") if reduce == "amin" else float("-inf")
+    elif values.dtype == torch.bool:
+        fill = reduce == "amin"
+    else:
+        info = torch.iinfo(values.dtype)
+        fill = info.max if reduce == "amin" else info.min
+    seg = segment_ids.to(torch.int64)
+    seg = torch.where((seg >= 0) & (seg < num_segments), seg, num_segments)
+    out = values.new_full((num_segments + 1, *values.shape[1:]), fill)
+    index = seg.view(-1, *([1] * (values.dim() - 1))).expand_as(values)
+    return out.scatter_reduce_(0, index, values, reduce)[:num_segments]
+
+
+def segment_min(values: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """``jax.ops.segment_min`` (see :func:`_scatter_extreme`)."""
+    return _scatter_extreme(values, segment_ids, num_segments, "amin")
+
+
+def segment_max(values: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """``jax.ops.segment_max`` (see :func:`_scatter_extreme`)."""
+    return _scatter_extreme(values, segment_ids, num_segments, "amax")

@@ -4,9 +4,10 @@ Counterpart of ``graphmine_tpu/pipeline/config.py`` for the fields the
 single-device driver reads, plus ``device``: the same names, defaults,
 validation and flags, the resilience knobs flattened onto the CLI
 (``--max-retries``, ``--superstep-timeout-s``, ``--tripwire-every-k``,
-...). The JAX package's ``backend``, ``num_devices``, ``schedule``,
-``community_method`` and ``gamma`` are not here yet (ROADMAP queue 1,
-items A6 and A7).
+...). ``community_method`` and ``gamma`` choose LPA, Louvain or Leiden
+(``--community-method``, ``--gamma``). The JAX package's ``backend``,
+``num_devices`` and ``schedule`` are not here yet (ROADMAP queue 1, items
+A6b and A7).
 """
 
 from __future__ import annotations
@@ -29,8 +30,11 @@ class PipelineConfig:
     # edgelist only: 0-based column holding a per-edge float weight
     # (weighted LPA: mode = argmax of incoming weight sums)
     edge_weight_col: int | None = None
-    # community detection: exactly max_iter LPA supersteps
+    # community detection: lpa (exactly max_iter supersteps) | louvain |
+    # leiden (their modularity resolution is gamma)
+    community_method: str = "lpa"
     max_iter: int = 5
+    gamma: float = 1.0
     # outlier detection
     outlier_method: str = "both"  # recursive_lpa | lof | both | none
     sub_max_iter: int = 5
@@ -85,6 +89,8 @@ class PipelineConfig:
             raise ValueError(f"unknown outlier_method {self.outlier_method!r}")
         if self.lof_impl not in LOF_IMPLS:
             raise ValueError(f"unknown lof_impl {self.lof_impl!r}")
+        if self.community_method not in ("lpa", "louvain", "leiden"):
+            raise ValueError(f"unknown community_method {self.community_method!r}")
         if self.max_iter < 0 or self.sub_max_iter < 0:
             raise ValueError("max_iter must be >= 0")
         if self.batch_rows is not None and self.batch_rows <= 0:

@@ -21,8 +21,10 @@ device, with the same phases, records and run harness:
   ``memory_watermark`` records and a ``torch.profiler`` trace of the LPA
   phase make the run observable.
 
-The multi-device schedules, the blocked superstep family and Louvain wait
-for later slices (ROADMAP.md queue 1).
+``community_method="louvain"`` or ``"leiden"`` runs that algorithm in
+LPA's place, as the JAX driver does: no LPA plan, no checkpoints, and the
+census takes its Q. The multi-device schedules and the blocked superstep
+family wait for later slices (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -90,7 +92,7 @@ def run_pipeline(config: PipelineConfig) -> PipelineResult:
     tracer = Tracer(run_id=config.run_id)
     m = MetricsSink(stream_path=config.metrics_out, tracer=tracer)
     m.emit("run_start", pid=os.getpid(), data_path=config.data_path, device=str(device),
-           max_iter=config.max_iter)
+           community_method=config.community_method, max_iter=config.max_iter)
     hb = None
     if config.heartbeat_every_s:
         from graphmine_tpu_torch.obs.heartbeat import Heartbeat
@@ -156,8 +158,104 @@ def _run_pipeline(config: PipelineConfig, m: MetricsSink,
     if table.quarantine and config.quarantine_inputs:
         m.emit("quarantine", **table.quarantine)
 
-    # ---- plan: the operating point against the card's memory -----------
+    # ---- plan: LPA's operating point against the card's memory ---------
+    # (Louvain and Leiden read no LPA plan, so none is built for them)
     v, e = table.num_vertices, table.num_edges
+    run_plan = sstep_plan = None
+    if config.community_method == "lpa":
+        run_plan, sstep_plan = _plan_lpa(config, table, m, device)
+
+    # ---- build: message CSR + degree-bucketed plan, one pass -----------
+    def _build():
+        resilience.fault_point("build_graph")
+        if sstep_plan is None or sstep_plan.family == "sort":
+            g = build_graph(table.src, table.dst, num_vertices=v, edge_weights=table.weights,
+                            device=device)
+            _sync(device)
+            return g, [None]
+        t0 = time.perf_counter()
+        g, plan = build_graph_and_plan(table.src, table.dst, num_vertices=v,
+                                       edge_weights=table.weights, device=device)
+        _sync(device)
+        m.emit("plan_build", op="lpa_superstep", seconds=round(time.perf_counter() - t0, 6),
+               cached=False,
+               cost=superstep_cost("lpa_superstep", "bucketed", v, g.num_messages, e,
+                                   plan=plan).record(),
+               max_degree=int(g.degrees().max()) if g.num_vertices else 0,
+               **plan_build_stats(plan, e))
+        # a holder, so the LPA loop can release the plan when the ladder
+        # leaves the bucketed superstep
+        return g, [plan]
+
+    with m.span("build_graph"), m.timed("build_graph"):
+        graph, plan_holder = resilience.run_phase("build_graph", _build, policy, m)
+
+    # ---- community detection: LPA, or Louvain / Leiden ------------------
+    if config.community_method in ("louvain", "leiden"):
+        from graphmine_tpu_torch.ops.louvain import leiden, louvain
+
+        if config.checkpoint_dir:
+            m.emit("warning", message="checkpoint/resume applies to LPA only; "
+                   f"{config.community_method} runs are not checkpointed")
+        algo = leiden if config.community_method == "leiden" else louvain
+        with m.span(config.community_method), m.timed(config.community_method,
+                                                      gamma=config.gamma):
+            labels, q_algo = algo(graph, gamma=config.gamma)
+            _sync(device)
+    else:
+        with m.span("lpa"), m.timed("lpa", max_iter=config.max_iter):
+            labels = _run_lpa(config, table, graph, m, plan_holder, run_plan, sstep_plan,
+                              device)
+        q_algo = None
+    del plan_holder
+
+    # ---- census ---------------------------------------------------------
+    def _census():
+        resilience.fault_point("census")
+        q = q_algo if q_algo is not None else modularity(labels, graph, gamma=config.gamma)
+        return num_communities(labels), census_table(labels, graph), q
+
+    with m.span("census"), m.timed("census"):
+        n_comm, (present, sizes, edge_counts), q = resilience.run_phase(
+            "census", _census, policy, m)
+    m.emit("communities", count=n_comm, largest=int(sizes.max(initial=0)),
+           modularity=round(q, 6))
+
+    result = PipelineResult(
+        edge_table=table, graph=graph, labels=labels.cpu().numpy(),
+        num_communities=n_comm, community_table=(present, sizes, edge_counts),
+        metrics=m,
+    )
+
+    # ---- recursive-LPA outliers ----------------------------------------
+    if config.outlier_method in ("recursive_lpa", "both"):
+        from graphmine_tpu_torch.ops.outliers import recursive_lpa_outliers
+
+        def _outliers():
+            resilience.fault_point("outliers_recursive")
+            return recursive_lpa_outliers(graph, labels, max_iter=config.sub_max_iter,
+                                          decile=config.decile)
+
+        with m.span("outliers_recursive_lpa"), m.timed("outliers_recursive_lpa"):
+            result.outliers = resilience.run_phase("outliers_recursive", _outliers, policy, m)
+        m.emit("outlier_summary", method="recursive_lpa",
+               flagged_vertices=int(result.outliers.outlier_vertices.sum()),
+               sub_communities=len(result.outliers.sub_sizes))
+
+    # ---- features + kNN/LOF: the planner's family, the other as rung ----
+    if config.outlier_method in ("lof", "both"):
+        _run_lof(config, graph, labels, result, m, run_plan, device)
+    return result
+
+
+def _plan_lpa(config: PipelineConfig, table: EdgeTable, m: MetricsSink,
+              device: torch.device) -> tuple:
+    """``(run_plan, sstep_plan)`` of an LPA run: the operating point
+    checked against the card's memory (the ``plan`` record), the superstep
+    family with its plan-time pre-degrade, and the ``impl_selected``
+    record."""
+    v, e = table.num_vertices, table.num_edges
+    policy = config.resilience
     weighted = table.weights is not None
     run_plan = planner.plan_run(
         v, e, 1, weighted=weighted,
@@ -196,73 +294,7 @@ def _run_pipeline(config: PipelineConfig, m: MetricsSink,
            thresholds=planner.crossover_thresholds(),
            cost=superstep_cost("lpa_superstep", sstep_plan.family, v, 2 * e, e,
                                weighted=weighted).record())
-
-    # ---- build: message CSR + degree-bucketed plan, one pass -----------
-    def _build():
-        resilience.fault_point("build_graph")
-        if sstep_plan.family == "sort":
-            g = build_graph(table.src, table.dst, num_vertices=v, edge_weights=table.weights,
-                            device=device)
-            _sync(device)
-            return g, [None]
-        t0 = time.perf_counter()
-        g, plan = build_graph_and_plan(table.src, table.dst, num_vertices=v,
-                                       edge_weights=table.weights, device=device)
-        _sync(device)
-        m.emit("plan_build", op="lpa_superstep", seconds=round(time.perf_counter() - t0, 6),
-               cached=False,
-               cost=superstep_cost("lpa_superstep", "bucketed", v, g.num_messages, e,
-                                   plan=plan).record(),
-               max_degree=int(g.degrees().max()) if g.num_vertices else 0,
-               **plan_build_stats(plan, e))
-        # a holder, so the LPA loop can release the plan when the ladder
-        # leaves the bucketed superstep
-        return g, [plan]
-
-    with m.span("build_graph"), m.timed("build_graph"):
-        graph, plan_holder = resilience.run_phase("build_graph", _build, policy, m)
-
-    # ---- LPA ------------------------------------------------------------
-    with m.span("lpa"), m.timed("lpa", max_iter=config.max_iter):
-        labels = _run_lpa(config, table, graph, m, plan_holder, run_plan, sstep_plan, device)
-    del plan_holder
-
-    # ---- census ---------------------------------------------------------
-    def _census():
-        resilience.fault_point("census")
-        return num_communities(labels), census_table(labels, graph), modularity(labels, graph)
-
-    with m.span("census"), m.timed("census"):
-        n_comm, (present, sizes, edge_counts), q = resilience.run_phase(
-            "census", _census, policy, m)
-    m.emit("communities", count=n_comm, largest=int(sizes.max(initial=0)),
-           modularity=round(q, 6))
-
-    result = PipelineResult(
-        edge_table=table, graph=graph, labels=labels.cpu().numpy(),
-        num_communities=n_comm, community_table=(present, sizes, edge_counts),
-        metrics=m,
-    )
-
-    # ---- recursive-LPA outliers ----------------------------------------
-    if config.outlier_method in ("recursive_lpa", "both"):
-        from graphmine_tpu_torch.ops.outliers import recursive_lpa_outliers
-
-        def _outliers():
-            resilience.fault_point("outliers_recursive")
-            return recursive_lpa_outliers(graph, labels, max_iter=config.sub_max_iter,
-                                          decile=config.decile)
-
-        with m.span("outliers_recursive_lpa"), m.timed("outliers_recursive_lpa"):
-            result.outliers = resilience.run_phase("outliers_recursive", _outliers, policy, m)
-        m.emit("outlier_summary", method="recursive_lpa",
-               flagged_vertices=int(result.outliers.outlier_vertices.sum()),
-               sub_communities=len(result.outliers.sub_sizes))
-
-    # ---- features + kNN/LOF: the planner's family, the other as rung ----
-    if config.outlier_method in ("lof", "both"):
-        _run_lof(config, graph, labels, result, m, run_plan, device)
-    return result
+    return run_plan, sstep_plan
 
 
 def _run_lof(config: PipelineConfig, graph: Graph, labels: torch.Tensor,
@@ -325,7 +357,8 @@ def _run_lof(config: PipelineConfig, graph: Graph, labels: torch.Tensor,
         result.lof = scores.cpu().numpy()
         memmodel.emit_memory_watermark(
             m, "lof_knn", mem_holder[0], memmodel.device_sample(device),
-            budget_bytes=run_plan.hbm_bytes, impl=mem_holder[0].family)
+            budget_bytes=run_plan.hbm_bytes if run_plan is not None else None,
+            impl=mem_holder[0].family)
     m.emit("outlier_summary", method="lof", max_score=float(result.lof.max()),
            over_1_5=int((result.lof > 1.5).sum()))
 

@@ -657,14 +657,31 @@ class SnapshotStore:
         ``*.corrupt`` — ``checkpoint_rollback`` records through ``sink``);
         a wrong ``fingerprint`` raises :class:`FingerprintMismatch`
         without rollback. ``sink`` also gets a ``snapshot_load`` record.
+
+        The rollback runs under the fence lock, which a publish holds
+        across its two renames: a load that finds the current slot empty
+        or unreadable re-checks it there, so it never moves ``.prev`` back
+        into a slot that a publish is about to fill, and reads the new
+        generation when a publish finished meanwhile.
         """
         t0 = time.perf_counter()
-        out = _load_with_rollback(
-            self._gen(), self._prev(),
-            lambda p: self._read_confirmed(p, fingerprint),
-            sink, "snapshot",
-            f"delete {self._gen()!r} (and its .prev) and republish",
-        )
+        gen = self._gen()
+        out = None
+        if os.path.exists(gen):
+            try:
+                out = self._read_confirmed(gen, fingerprint)
+            except FingerprintMismatch:
+                raise
+            except _CORRUPTION_ERRORS:
+                out = None
+        if out is None and (os.path.exists(gen) or os.path.exists(self._prev())):
+            with self._fence_lock():
+                out = _load_with_rollback(
+                    gen, self._prev(),
+                    lambda p: self._read_confirmed(p, fingerprint),
+                    sink, "snapshot",
+                    f"delete {gen!r} (and its .prev) and republish",
+                )
         if out is None:
             return None
         snap, version = out

@@ -452,3 +452,122 @@ def test_failover_timeline_reads_the_records(tmp_path):
     assert out["replica-0_down_s"] == 0.7 and out["read_only_s"] == 0.71
     assert out["writable_s"] == 1.02 and out["replay"] == {"after_kill_s": 1.0, "entries": 1}
     assert out["server_promote"]["seconds"] == 0.3 and out["router_promote"]["epoch"] == 1
+
+
+def test_parses_community_only():
+    assert chip_smoke.parse_args(["--community-only"]).community_only
+    assert not chip_smoke.parse_args([]).community_only
+    with pytest.raises(SystemExit):
+        chip_smoke.parse_args(["--community-only", "--kernels-only"])
+
+
+def test_community_only_exits_nonzero_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the smoke would run")
+    out = subprocess.run([sys.executable, "chip_smoke.py", "--community-only"], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and "CUDA is not available" in out.stderr
+
+
+@pytest.fixture(scope="module")
+def community_runs(tmp_path_factory):
+    """Two CPU runs of each community method on one small planted graph
+    (phase 8a's check compares the card's run with the CPU's)."""
+    from graphmine_tpu_torch import datasets
+    from graphmine_tpu_torch.pipeline import PipelineConfig, run_pipeline
+
+    src, dst, _, _ = datasets.planted_anomaly_graph(512, 5_000, seed=3)
+    path = tmp_path_factory.mktemp("phase8") / "small.txt"
+    chip_smoke.write_edge_list(path, src, dst)
+    runs = {}
+    for method in ("louvain", "leiden"):
+        cfg = dict(data_path=str(path), data_format="edgelist", community_method=method,
+                   outlier_method="both", lof_k=16, lof_impl="exact", device="cpu")
+        runs[method] = (run_pipeline(PipelineConfig(**cfg)), run_pipeline(PipelineConfig(**cfg)))
+    return runs
+
+
+def test_community_check_passes_equal_runs_and_fails_a_swapped_label(community_runs):
+    import copy
+
+    for method, (a, b) in community_runs.items():
+        assert chip_smoke.check_community(a, b, method) == {"q_abs_diff": 0.0,
+                                                            "lof_max_rel_diff": 0.0}
+        assert abs(chip_smoke.community_q(a) - a.metrics.of_phase("communities")[0][
+            "modularity"]) <= 1e-6
+        swapped = copy.copy(b)
+        swapped.labels = b.labels.copy()
+        i = int(np.flatnonzero(b.labels != b.labels[0])[0])
+        swapped.labels[[0, i]] = swapped.labels[[i, 0]]
+        with pytest.raises(RuntimeError, match="labels differ"):
+            chip_smoke.check_community(a, swapped, method)
+
+
+@pytest.fixture(scope="module")
+def cpu_ops(community_runs):
+    (lv, _), (ld, _) = community_runs["louvain"], community_runs["leiden"]
+    graph, digraph, sp_w = chip_smoke._op_graphs(lv.edge_table, "cpu", weighted=False)
+    outputs, seconds = chip_smoke.graph_ops(graph, digraph, sp_w, lv.labels, ld.labels)
+    return outputs, seconds, graph.num_vertices
+
+
+def test_ops_check_passes_equal_outputs_and_fails_a_swap_or_a_missing_op(cpu_ops):
+    import copy
+
+    outputs, _, _ = cpu_ops
+    chip_smoke.check_ops(outputs, copy.deepcopy(outputs), "cpu")
+    bad = copy.deepcopy(outputs)
+    scc = bad["strongly_connected_components"]
+    i = int(np.flatnonzero(scc != scc[0])[0])
+    scc[[0, i]] = scc[[i, 0]]
+    with pytest.raises(RuntimeError, match="strongly_connected_components"):
+        chip_smoke.check_ops(bad, outputs, "cpu")
+    bad = copy.deepcopy(outputs)
+    del bad["pregel"]
+    with pytest.raises(RuntimeError, match="pregel"):
+        chip_smoke.check_ops(bad, outputs, "cpu")
+    near = copy.deepcopy(outputs)
+    near["aggregate_messages"] = near["aggregate_messages"] * np.float32(1 + 1e-7)
+    chip_smoke.check_ops(near, outputs, "cpu")
+    far = copy.deepcopy(outputs)
+    far["aggregate_messages"] = far["aggregate_messages"] * np.float32(1.01)
+    with pytest.raises(RuntimeError, match="aggregate_messages"):
+        chip_smoke.check_ops(far, outputs, "cpu")
+
+
+def test_ops_line_and_full_size_invariants(cpu_ops):
+    import copy
+
+    outputs, seconds, v = cpu_ops
+    chip_smoke.check_full_ops(outputs, v)
+    line = chip_smoke.ops_line(outputs, seconds)
+    json.dumps(line)
+    assert sorted(line["seconds"]) == sorted(chip_smoke.OPS)
+    assert line["scc_count"] >= 1 and line["diameter"] >= 1 and line["motif_matches"] > 0
+    with pytest.raises(RuntimeError, match="core_numbers"):
+        chip_smoke.ops_line(outputs, {k: s for k, s in seconds.items() if k != "core_numbers"})
+    bad = copy.deepcopy(outputs)
+    dist, parent = bad["bfs_parents"]
+    reached = np.flatnonzero((dist > 0) & (dist < 2 ** 31 - 1))
+    parent[reached[0]] = reached[0]
+    with pytest.raises(RuntimeError, match="parents"):
+        chip_smoke.check_full_ops(bad, v)
+
+
+def test_community_line_must_carry_every_key():
+    line = {k: 0 for k in chip_smoke.COMMUNITY_KEYS}
+    assert chip_smoke.check_community_line(line) is line
+    del line["louvain_q"]
+    with pytest.raises(RuntimeError, match="louvain_q"):
+        chip_smoke.check_community_line(line)
+
+
+def test_level0_breakdown_on_a_cpu_graph(community_runs):
+    (lv, _) = community_runs["louvain"]
+    out = chip_smoke.level0_breakdown(lv.graph)
+    json.dumps(out)
+    assert out["padded_messages"] >= lv.graph.num_messages
+    assert out["padded_vertices"] >= lv.graph.num_vertices
+    assert 1 <= out["communities_after"] < lv.graph.num_vertices
+    assert min(v for k, v in out.items() if k.endswith("seconds")) >= 0

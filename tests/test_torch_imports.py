@@ -93,7 +93,18 @@ _BLOCKED = "import sys\nsys.modules['jax'] = None\nsys.modules['graphmine_tpu'] 
                                     "graphmine_tpu_torch.serve.wal",
                                     "graphmine_tpu_torch.serve.shardplane",
                                     "graphmine_tpu_torch.serve.fleet",
-                                    "graphmine_tpu_torch.serve.fleet_cli"])
+                                    "graphmine_tpu_torch.serve.fleet_cli",
+                                    "graphmine_tpu_torch.ops.louvain",
+                                    "graphmine_tpu_torch.ops.modularity",
+                                    "graphmine_tpu_torch.ops.segment",
+                                    "graphmine_tpu_torch.ops.degrees",
+                                    "graphmine_tpu_torch.ops.paths",
+                                    "graphmine_tpu_torch.ops.scc",
+                                    "graphmine_tpu_torch.ops.kcore",
+                                    "graphmine_tpu_torch.ops.aggregate",
+                                    "graphmine_tpu_torch.ops.motifs",
+                                    "graphmine_tpu_torch.ops.stats",
+                                    "graphmine_tpu_torch.ops.cluster_metrics"])
 def test_slice_modules_import_without_jax(module):
     code = _BLOCKED + f"import importlib\nimportlib.import_module({module!r})\nprint('ok')\n"
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -117,3 +128,18 @@ def test_parser_is_the_ports_own_library(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["False", "True"]
+
+
+def test_package_exports_the_graph_ops_without_jax():
+    # the package-level names resolve to the port's own functions
+    code = _BLOCKED + (
+        "import graphmine_tpu_torch as p\n"
+        "names = [n for n in p.__all__ if n != 'resolve_device']\n"
+        "mods = {getattr(p, n).__module__ for n in names}\n"
+        "assert all(m.startswith('graphmine_tpu_torch.') for m in mods), mods\n"
+        "print(len(names))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 25

@@ -13,12 +13,14 @@ fingerprint refusal without rollback, the writer-epoch fence, tenants.
 
 import json
 import os
+import threading
 
 import numpy as np
 import pyarrow as pa
 import pyarrow.parquet as pq
 import pytest
 
+from graphmine_tpu.pipeline import checkpoint as jckpt
 from graphmine_tpu.pipeline.checkpoint import graph_fingerprint as jgraph_fingerprint
 from graphmine_tpu.pipeline.config import PipelineConfig as JPipelineConfig
 from graphmine_tpu.pipeline.driver import run_pipeline as jrun_pipeline
@@ -27,12 +29,14 @@ from graphmine_tpu.serve.snapshot import SnapshotStore as JSnapshotStore
 from graphmine_tpu_torch import datasets
 from graphmine_tpu_torch.obs.quality import CanaryProbe, partition_churn, run_quality_pass
 from graphmine_tpu_torch.pipeline import PipelineConfig, run_pipeline, resilience
+from graphmine_tpu_torch.pipeline import checkpoint as ckpt
 from graphmine_tpu_torch.pipeline.checkpoint import (
     CheckpointCorruptionError,
     FingerprintMismatch,
     graph_fingerprint,
 )
 from graphmine_tpu_torch.pipeline.metrics import MetricsSink
+from graphmine_tpu_torch.serve import snapshot as snapshot_mod
 from graphmine_tpu_torch.serve.snapshot import PublishFencedError, SnapshotStore
 
 LOF_K = 32
@@ -229,3 +233,81 @@ def test_canary_probe_equals_the_jax_packages():
     got, want = probe.score(device="cpu"), ref.score()
     assert got["recall_at_k"] == want["recall_at_k"]
     assert got["mean_rank_frac"] == pytest.approx(want["mean_rank_frac"], abs=1e-3)
+
+
+def _load_between_the_renames(root: str, monkeypatch) -> dict:
+    """Make the next publish at ``root`` run a ``load`` of the same root in
+    another thread right after it rotates the current generation to
+    ``.prev`` and before it renames the new one into place. The publish
+    goes on once the load has returned or waits for the store's fence
+    lock. Returns the load's outcome (``snap`` or ``error``)."""
+    gen, prev = os.path.join(root, "snapshot"), os.path.join(root, "snapshot.prev")
+    real_replace, real_flock = os.replace, snapshot_mod.fcntl.flock
+    reader: dict = {}
+    arrived = threading.Event()  # the load returned, or it waits for the lock
+
+    def load_elsewhere():
+        try:
+            reader["snap"] = SnapshotStore(root).load(fingerprint="f")
+        except BaseException as e:  # noqa: BLE001 — the test reads it
+            reader["error"] = e
+        finally:
+            arrived.set()
+
+    def flock(fd, op):
+        if op == snapshot_mod.fcntl.LOCK_EX and threading.current_thread() is reader.get("thread"):
+            arrived.set()
+        return real_flock(fd, op)
+
+    def replace(src, dst):
+        real_replace(src, dst)
+        if (src, dst) == (gen, prev) and "thread" not in reader:
+            reader["thread"] = threading.Thread(target=load_elsewhere)
+            reader["thread"].start()
+            assert arrived.wait(60), "the load neither returned nor reached the lock"
+
+    monkeypatch.setattr(snapshot_mod.os, "replace", replace)
+    monkeypatch.setattr(snapshot_mod.fcntl, "flock", flock)
+    return reader
+
+
+def test_load_between_a_publishs_renames_keeps_the_publish(tmp_path, monkeypatch):
+    # A load that finds the current slot empty mid-publish (the old
+    # generation already at .prev) waits on the fence lock and reads the
+    # new generation; without the lock it moved .prev back into the slot
+    # and the publish's second rename failed on a non-empty target.
+    root = str(tmp_path)
+    store = SnapshotStore(root)
+    store.publish({"x": np.arange(2)}, fingerprint="f")
+    reader = _load_between_the_renames(root, monkeypatch)
+    snap = store.publish({"x": np.arange(3)}, fingerprint="f")
+    reader["thread"].join(60)
+    assert not reader["thread"].is_alive()
+    monkeypatch.undo()
+    assert "error" not in reader, reader.get("error")
+    assert snap.version == 2
+    assert reader["snap"].version in (1, 2)
+    got = store.load(fingerprint="f")
+    assert got.version == 2 and got["x"].tolist() == [0, 1, 2]
+    assert JSnapshotStore(root).load(fingerprint="f").version == 2
+    assert not list(tmp_path.glob("snapshot.corrupt*")) and not list(tmp_path.glob("snapshot.tmp.*"))
+
+
+def test_checkpoint_rollback_of_a_missing_generation_is_unchanged(tmp_path):
+    # LPA checkpoints load from one process without the lock: a missing
+    # current generation still rolls back to .prev, promoted into the
+    # slot, with the JAX package's records and answer.
+    out = {}
+    for name, mod in (("port", ckpt), ("jax", jckpt)):
+        d = str(tmp_path / name)
+        mod.save_labels(d, np.arange(8, dtype=np.int32), 1)
+        mod.save_labels(d, np.arange(8, dtype=np.int32) * 2, 2)
+        os.remove(os.path.join(d, "lpa_labels.npz"))
+        sink = MetricsSink()
+        labels, it = mod.load_labels(d, sink=sink)
+        out[name] = (np.asarray(labels).tolist(), it, [r["phase"] for r in sink.records],
+                     sorted(os.listdir(d)))
+    assert out["port"] == out["jax"]
+    assert out["port"][:3] == (list(range(8)), 1, ["checkpoint_rollback",
+                                                   "checkpoint_rollback_ok"])
+    assert out["port"][3] == ["lpa_labels.npz"]
