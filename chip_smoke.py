@@ -6,6 +6,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --kernels-only   # phases 1-3, then the kernel alone
     python3 chip_smoke.py --community-only # phases 1-3, then phase 8
+    python3 chip_smoke.py --frames-only    # phases 1-3, then phase 9
 
 In order, and failing on the first phase that fails:
 
@@ -81,9 +82,10 @@ In order, and failing on the first phase that fails:
    gave it (the pipeline's own feature matrix, whose duplicate rows tie;
    indices equal there too) and the general instance on normal clouds at
    (65536, 8, 256) and (65536, 16, 128), times each instance, the plain
-   version and one library call (``cdist`` + ``topk``) with CUDA events, and
-   prints the ``kernels`` line, with the operations bound, then the
-   unfused floors on a line of their own; then holds the IVF kNN of phase
+   version and one library call (``cdist`` + ``topk``) with CUDA events
+   (their ``kernels`` line, with the operations bound, and the unfused
+   floors on a line of their own are printed after phase 9); then holds
+   the IVF kNN of phase
    5's features and of clustered clouds with planted outliers (262,144 x 8
    at k = 128, and the JAX package's gate cloud, 20,000 x 8 at k = 32)
    against the kernel's exact kNN: |AUROC(IVF LOF) - AUROC(exact LOF)| <=
@@ -159,7 +161,40 @@ In order, and failing on the first phase that fails:
    bytes, Louvain's seconds and Q); then every op once on its graph
    (directed where the op reads direction, BFS from vertex 0), held to its
    own invariants; prints the ``ops`` line with each op's seconds;
-9. prints the smoke's total seconds, the card line again and the last
+9. (after phase 8) the GraphFrames entry point: 9a, on phase 4's graph,
+   ``GraphFrame`` on the card and on the CPU runs PageRank (plain, with
+   the quarter weights, with a seeded ``reset``), PPR from 8 sources,
+   HITS, eigenvector and Katz (``tol=0``, a fixed iteration count, so the
+   stop rule cannot land the two devices an iteration apart), closeness
+   from 16 landmarks, exact betweenness, MIS and ``greedy_color`` (seed
+   0), ``k_truss(4)``, the five link-prediction scores of 4,096 seeded
+   pairs, ``spectral_embedding(dim=8)``, SVD++ on seeded 1-5 ratings from
+   one seeded ``init`` and ``lof_scores(k=20, lof_impl="exact")``:
+   integers equal, floats within rtol 1e-5 / atol 1e-6, the embedding's
+   columns |cos| >= 0.9999 after sign alignment, LOF within phase 4's
+   tolerances; then the pyspark script :data:`SHIM_SCRIPT` (parquet read,
+   renames, the null filter, the RDD vertex dictionary, a per-row UDF,
+   ``GraphFrame(v, e)``, ``labelPropagation(maxIter=5)``, ``pageRank``,
+   the census loop) through ``python -m graphmine_tpu_torch.compat
+   --device cuda`` and ``--device cpu`` on a CommonCrawl-shaped ``_c0..
+   _c3`` parquet of phase 4's graph with null-domain rows: stdout
+   identical; prints the ``frames_small`` line. 9b, on phase 5's parquet
+   file with phase 5's ``batch_rows``: ``GraphFrame.from_edge_table`` on
+   the card, then each op once, held to its own invariants (PageRank sums
+   to 1 and equals a CPU run within rtol 1e-4; MIS independent and
+   maximal and the colouring proper over every message; each of 4,096
+   sampled ``k_truss(4)`` edges in two kept triangles; link prediction of
+   1,000,000 pairs against each formula on a sample; orthonormal
+   embedding columns; SVD++'s RMSE falls; ``lof_scores(k=20,
+   lof_impl="exact")`` launches ``knn_topk``'s fast instance); prints the
+   ``frames`` line with each op's seconds. 9c, the shim at scale: the
+   same script on ``planted_anomaly_graph(1 << 16, 1_000_000, seed=9)``
+   written CommonCrawl-shaped with 64 null-domain rows, through the shim
+   on the card; its LPA partition equals the ``GraphFrame`` API's on the
+   same file, name by name; prints the ``compat`` line. The ``kernels``
+   line of phase 6 is printed here, after phase 9, its entries carrying
+   phase 9's launches of their instance (``frames_launches``);
+10. prints the smoke's total seconds, the card line again and the last
    line, ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only`` skips the pipelines: after phase 3 it holds and times
@@ -239,6 +274,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                       help="phases 1-3, then the kernel alone at the main path's shape")
     mode.add_argument("--community-only", action="store_true",
                       help="phases 1-3, then phase 8 (Louvain, Leiden and the graph ops)")
+    mode.add_argument("--frames-only", action="store_true",
+                      help="phases 1-3, then phase 9 (the GraphFrames entry point)")
     return ap.parse_args(argv)
 
 
@@ -679,7 +716,8 @@ def main(argv=None) -> int:
         shutil.rmtree(work, ignore_errors=True)
         work.mkdir(parents=True)
         try:
-            (run_community_only if args.community_only else run_main_path)(work)
+            (run_community_only if args.community_only
+             else run_frames_only if args.frames_only else run_main_path)(work)
         finally:
             shutil.rmtree(work, ignore_errors=True)
 
@@ -2709,6 +2747,577 @@ def community_full(parquet: Path) -> None:
     print(json.dumps({"ops": ops_line(outputs, seconds)}), flush=True)
 
 
+# ---- 9. the GraphFrames entry point -----------------------------------------
+
+EMBED_DIM, EMBED_MIN_COS = 8, 0.9999
+FRAMES_LOF_K = 20
+PPR_SOURCES = {"small": 8, "full": 16}
+LINK_PAIRS = {"small": 4096, "full": 1_000_000}
+LINK_SAMPLE = 256  # pairs held to each formula at full size
+TRUSS_K, TRUSS_SAMPLE = 4, 4096
+BETWEENNESS_SOURCES, BETWEENNESS_BATCH = 64, 8  # full size; 9a runs them all
+SVDPP_RANK, SVDPP_EPOCHS = 10, 20
+FIXED_ITERS = {"hits": 30, "eigenvector": 100, "katz": 100}  # 9a, at tol=0
+PAGERANK_FULL = {"alpha": 0.85, "max_iter": 20}
+PAGERANK_CPU_RTOL = 1e-4
+FRAMES_OP_LIMIT_S = 60.0
+SHIM_V, SHIM_ROWS, SHIM_NULLS = 1 << 16, 1_000_000, 64
+LINK_METHODS = ("common_neighbors", "jaccard", "adamic_adar", "resource_allocation",
+                "preferential_attachment")
+FRAMES_OPS = ("pagerank", "pagerank_weighted", "pagerank_reset", "ppr", "hits",
+              "eigenvector", "katz", "closeness", "betweenness", "mis", "greedy_color",
+              "k_truss", *(f"link_{m}" for m in LINK_METHODS), "spectral_embedding",
+              "svd_plus_plus", "lof_scores")
+FRAMES_KEYS = ("graph", "vertices", "edges", "batch_rows", "load_seconds", "seconds",
+               "peak_device_bytes", "launches", "pagerank_cpu_seconds",
+               "pagerank_cpu_max_rel_diff", "mis_size", "colors", "k_truss_edges",
+               "svdpp_rmse", "reduced")
+FRAMES_SMALL_KEYS = ("vertices", "edges", "seconds_card", "seconds_cpu", "max_abs_diff",
+                     "embedding_min_cos", "lof_max_rel_diff", "launches", "shim_seconds",
+                     "shim_stdout_lines")
+COMPAT_KEYS = ("graph", "rows", "null_rows", "vertices", "communities", "stage_seconds",
+               "wall_seconds", "api_seconds", "device", "reduced")
+# A pyspark + GraphFrames script with the reference's idioms: the parquet
+# read, the four renames, the SQL null filter, the RDD vertex dictionary, a
+# per-row UDF for the endpoint ids, GraphFrame(v, e), labelPropagation,
+# pageRank, and the driver-side census loop. Stage markers go to stderr;
+# the labels are written to labels.parquet.
+SHIM_SCRIPT = r'''
+import hashlib
+import sys
+import time
+
+from graphframes import GraphFrame
+from pyspark import SparkContext
+from pyspark.sql import SparkSession, SQLContext
+from pyspark.sql.functions import desc, udf
+
+T0 = time.perf_counter()
+
+
+def stage(name):
+    print("stage %s %.6f" % (name, time.perf_counter() - T0), file=sys.stderr, flush=True)
+
+
+sc = SparkContext("local[*]")
+spark = SparkSession.builder.appName("CommunityDetection").getOrCreate()
+sqlContext = SQLContext(sc)
+df = spark.read.parquet("data/outlinks_pq")
+print(df.count())
+df = (df.withColumnRenamed("_c0", "ParentURL").withColumnRenamed("_c1", "ParentDomain")
+      .withColumnRenamed("_c2", "ChildDomain").withColumnRenamed("_c3", "ChildURL"))
+df = df.filter("ParentDomain is not null and ChildDomain is not null")
+print(df.count())
+stage("read")
+domains = df.select("ParentDomain", "ChildDomain").rdd.flatMap(lambda x: x).distinct()
+print(domains.count())
+
+
+def NodeHash(name):
+    return hashlib.sha1(name.encode("utf-8")).hexdigest()[:16]
+
+
+vertices = domains.map(lambda x: (NodeHash(x), x)).toDF(["id", "name"])
+node_hash = udf(NodeHash)
+edges = (df.select("ParentDomain", "ChildDomain")
+         .withColumn("src", node_hash("ParentDomain"))
+         .withColumn("dst", node_hash("ChildDomain")).select("src", "dst"))
+stage("vertices_edges")
+graph = GraphFrame(vertices, edges)
+stage("graphframe")
+communities = graph.labelPropagation(maxIter=5).persist()
+print(communities.select("label").distinct().count(), "Communities in the Dataset.")
+stage("label_propagation")
+communities.select("name", "label").write.mode("overwrite").parquet("labels.parquet")
+stage("write")
+ranks = graph.pageRank(resetProbability=0.15, maxIter=10).vertices.collect()
+print("pagerank sum %.4f top %s" % (sum(r["pagerank"] for r in ranks),
+                                    max(ranks, key=lambda r: r["pagerank"])["name"]))
+stage("pagerank")
+census = communities.groupBy("label").count().sort(desc("count")).collect()
+for row in census[:10]:
+    members = communities.filter(communities.label == row["label"]).collect()
+    print("Vertices in", row["label"], ":", row["count"], sorted(r["name"] for r in members)[:3])
+stage("census")
+'''
+
+
+def write_outlinks(path: Path, src: np.ndarray, dst: np.ndarray, num_vertices: int,
+                   null_rows: int, seed: int = 3) -> None:
+    """A CommonCrawl-shaped outlinks parquet file: ``_c0`` parent URL,
+    ``_c1`` parent domain, ``_c2`` child domain, ``_c3`` child URL, one
+    row per edge (``d<id:07d>.example`` domains), with ``null_rows``
+    seeded rows whose parent or child domain is null."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    names = np.array([f"d{i:07d}.example" for i in range(num_vertices)], dtype=object)
+    parent, child = names[src], names[dst]
+    null = np.random.default_rng(seed).choice(len(src), null_rows, replace=False)
+    parent[null[: null_rows // 2]] = None
+    child[null[null_rows // 2:]] = None
+    url = lambda doms: pa.array([None if d is None else f"http://{d}/page" for d in doms])
+    path.parent.mkdir(parents=True, exist_ok=True)
+    pq.write_table(pa.table({"_c0": url(parent), "_c1": pa.array(parent, pa.string()),
+                             "_c2": pa.array(child, pa.string()), "_c3": url(child)}), path)
+
+
+def run_shim(cwd: Path, device: str, timeout: float = 900.0) -> tuple:
+    """:data:`SHIM_SCRIPT` through ``python -m graphmine_tpu_torch.compat
+    --device DEVICE`` in ``cwd`` (which holds ``data/outlinks_pq``):
+    ``(stdout, {stage: seconds}, wall seconds)``; fails on a non-zero
+    exit."""
+    script = cwd / "script.py"
+    script.write_text(SHIM_SCRIPT)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else [])))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "graphmine_tpu_torch.compat", "--device", device,
+                          "--cwd", str(cwd), str(script)], capture_output=True, text=True,
+                         timeout=timeout, env=env)
+    wall = time.perf_counter() - t0
+    require(out.returncode == 0, f"the shim on {device} exited {out.returncode}: "
+                                 f"{out.stderr[-2000:]}")
+    marks = [ln.split() for ln in out.stderr.splitlines() if ln.startswith("stage ")]
+    stamps = {name: float(t) for _, name, t in marks}
+    names = list(stamps)
+    stages = {n: stamps[n] - (stamps[names[i - 1]] if i else 0.0) for i, n in enumerate(names)}
+    return out.stdout, stages, wall
+
+
+def _sample_pairs(v: int, n: int, seed: int) -> np.ndarray:
+    """``n`` seeded vertex pairs ``[n, 2]`` with distinct ends."""
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, v, n)
+    w = (u + rng.integers(1, v, n)) % v
+    return np.stack([u, w], axis=1).astype(np.int64)
+
+
+def frames_inputs(gf, size: str, weights=None) -> dict:
+    """The seeded inputs of phase 9's ops on ``gf``'s graph: PPR sources,
+    closeness landmarks, the betweenness sources (all at small size), the
+    reset vector, link-prediction pairs, ratings, Katz's ``alpha`` (half
+    the inverse of the largest message degree, below 1/λ_max) and SVD++'s
+    starting model (host arrays)."""
+    v, e = gf.num_vertices, gf.num_edges
+    rng = np.random.default_rng(11)
+    max_deg = int(gf.graph().degrees().max())
+    scale = 0.1 / np.sqrt(SVDPP_RANK)
+    return {
+        "weights": weights,
+        "reset": rng.random(v).astype(np.float32),
+        "ppr_sources": rng.choice(v, PPR_SOURCES[size], replace=False),
+        "landmarks": rng.choice(v, OPS_LANDMARKS, replace=False),
+        "bc_sources": None if size == "small" else rng.choice(v, BETWEENNESS_SOURCES,
+                                                              replace=False),
+        "pairs": _sample_pairs(v, LINK_PAIRS[size], seed=12),
+        "ratings": rng.integers(1, 6, e).astype(np.float32),
+        "katz_alpha": 0.5 / max(max_deg, 1),
+        "svdpp_init": [(rng.normal(size=(v, SVDPP_RANK)) * scale).astype(np.float32)
+                       for _ in range(3)],
+    }
+
+
+def frames_ops(gf, inputs: dict, size: str) -> tuple:
+    """Each op of phase 9 once through ``gf``: ``(outputs on the host,
+    seconds per op)``. At small size the power iterations run a fixed
+    count at ``tol=0``; at full size with their defaults."""
+    import torch
+
+    from graphmine_tpu_torch.ops.svdpp import SVDPlusPlusModel
+
+    dev = gf.device
+    small = size == "small"
+    fixed = lambda name: {"tol": 0.0, "max_iter": FIXED_ITERS[name]} if small else {}
+    pr_kw = {} if small else dict(PAGERANK_FULL)
+    init = inputs["svdpp_init"]
+
+    def svdpp():
+        mu = float(np.float32(inputs["ratings"].mean()))
+        start = SVDPlusPlusModel.from_numpy(*init, np.zeros(gf.num_vertices),
+                                            np.zeros(gf.num_vertices), mu, device=dev)
+        model, rmse = gf.svd_plus_plus(inputs["ratings"], rank=SVDPP_RANK,
+                                       max_iter=SVDPP_EPOCHS, init=start)
+        return [rmse, model.p, model.q, model.y, model.bu, model.bi]
+
+    calls = {
+        "pagerank": lambda: gf.pagerank(**pr_kw),
+        "pagerank_weighted": lambda: gf.pagerank(weights=inputs["weights"], **pr_kw),
+        "pagerank_reset": lambda: gf.pagerank(reset=inputs["reset"], **pr_kw),
+        "ppr": lambda: gf.parallel_personalized_pagerank(inputs["ppr_sources"]),
+        "hits": lambda: list(gf.hits(**fixed("hits"))),
+        "eigenvector": lambda: gf.eigenvector_centrality(**fixed("eigenvector")),
+        "katz": lambda: gf.katz_centrality(alpha=inputs["katz_alpha"], **fixed("katz")),
+        "closeness": lambda: gf.closeness_centrality(vertices=inputs["landmarks"]),
+        "betweenness": lambda: gf.betweenness_centrality(
+            sources=inputs["bc_sources"], source_batch=BETWEENNESS_BATCH),
+        "mis": lambda: gf.maximal_independent_set(seed=0),
+        "greedy_color": lambda: gf.greedy_color(seed=0),
+        "k_truss": lambda: list(gf.k_truss(TRUSS_K)),
+        **{f"link_{m}": (lambda m=m: gf.link_prediction(inputs["pairs"], method=m))
+           for m in LINK_METHODS},
+        "spectral_embedding": lambda: gf.spectral_embedding(dim=EMBED_DIM),
+        "svd_plus_plus": svdpp,
+        "lof_scores": lambda: gf.lof_scores(k=FRAMES_LOF_K, lof_impl="exact"),
+    }
+    assert tuple(calls) == FRAMES_OPS
+    if inputs["weights"] is None:
+        del calls["pagerank_weighted"]
+    outputs, seconds = {}, {}
+    for name, call in calls.items():
+        _sync_device(dev)
+        t0 = time.perf_counter()
+        value = call()
+        _sync_device(dev)
+        seconds[name] = time.perf_counter() - t0
+        outputs[name] = _host(value)
+        log(f"frames op {name} on {dev}: {seconds[name]:.3f} s")
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return outputs, seconds
+
+
+def _aligned_cos(got: np.ndarray, want: np.ndarray) -> np.ndarray:
+    """Per-column |cos| between two embeddings (the sign of a column is
+    arbitrary)."""
+    num = np.abs((got * want).sum(axis=0))
+    return num / np.maximum(np.linalg.norm(got, axis=0) * np.linalg.norm(want, axis=0), 1e-30)
+
+
+def check_frames_small(got: dict, want: dict) -> dict:
+    """9a: every op present on both devices; integers equal, floats within
+    OPS_RTOL / OPS_ATOL, the embedding's columns |cos| >= EMBED_MIN_COS,
+    LOF within phase 4's tolerances. Returns the largest differences."""
+    diffs = {}
+    for name in FRAMES_OPS:
+        if name == "pagerank_weighted" and name not in want:
+            continue
+        require(name in got and name in want, f"9a: op {name} missing")
+        if name == "spectral_embedding":
+            cos = _aligned_cos(got[name], want[name])
+            require(got[name].shape == want[name].shape and bool((cos >= EMBED_MIN_COS).all()),
+                    f"9a: embedding columns |cos| {cos.min():.6f} < {EMBED_MIN_COS}")
+            diffs[name] = float(cos.min())
+        elif name == "lof_scores":
+            _lof_close(got[name], want[name], "9a: lof_scores")
+            diffs[name] = float((np.abs(got[name] - want[name]) / np.abs(want[name])).max())
+        else:
+            _same_value(got[name], want[name], f"9a: {name}")
+            flat = lambda x: np.concatenate([np.ravel(np.asarray(a, np.float64)) for a in
+                                             (x if isinstance(x, list) else [x])])
+            diffs[name] = float(np.abs(flat(got[name]) - flat(want[name])).max(initial=0.0))
+    return diffs
+
+
+def frames_small(work: Path, devices=("cuda", "cpu")) -> dict:
+    """Phase 9a: the ops through ``GraphFrame`` on phase 4's graph on the
+    card and on the CPU (:func:`check_frames_small`), then the shim on
+    both devices with identical stdout."""
+    from graphmine_tpu_torch.frames import GraphFrame
+    from graphmine_tpu_torch.io.edges import load_edge_list
+
+    table = load_edge_list(str(work / "small.txt"), weight_col=2)
+    outs, secs = {}, {}
+    reset_launches()
+    for d in devices:
+        gf = GraphFrame.from_edge_table(table, device=d)
+        inputs = frames_inputs(gf, "small", weights=table.weights)
+        outs[d], secs[d] = frames_ops(gf, inputs, "small")
+        if d == devices[0]:
+            launches = read_launches()
+    diffs = check_frames_small(outs[devices[0]], outs[devices[1]])
+    from graphmine_tpu_torch import datasets
+
+    src, dst, _, _ = datasets.planted_anomaly_graph(4096, 60_000, seed=SEED_MAIN)
+    stdout, shim_s = {}, {}
+    for d in devices:
+        cwd = work / f"shim_small_{d}"
+        write_outlinks(cwd / "data" / "outlinks_pq" / "part-00000.parquet", src, dst, 4096,
+                       null_rows=SHIM_NULLS)
+        stdout[d], _, shim_s[d] = run_shim(cwd, d)
+    require(stdout[devices[0]] == stdout[devices[1]], "9a: the shim's stdout differs between "
+            f"the devices:\n{stdout[devices[0]][:2000]}\n---\n{stdout[devices[1]][:2000]}")
+    return check_keys({
+        "vertices": table.num_vertices, "edges": table.num_edges,
+        "seconds_card": secs[devices[0]], "seconds_cpu": secs[devices[1]],
+        "max_abs_diff": {k: v for k, v in diffs.items()
+                         if k not in ("spectral_embedding", "lof_scores")},
+        "embedding_min_cos": diffs["spectral_embedding"],
+        "lof_max_rel_diff": diffs["lof_scores"], "launches": launches,
+        "shim_seconds": shim_s, "shim_stdout_lines": len(stdout[devices[0]].splitlines()),
+    }, FRAMES_SMALL_KEYS, "frames_small")
+
+
+def check_keys(line: dict, keys: tuple, what: str) -> dict:
+    """A printed line carries every key of ``keys``."""
+    missing = [k for k in keys if k not in line]
+    require(not missing, f"{what} line lacks {missing}")
+    return line
+
+
+def _simple_adjacency(graph) -> tuple:
+    """Host CSR of the simple undirected graph: ``(indptr, neighbours)``."""
+    from graphmine_tpu_torch.graph.container import simple_undirected_edges
+
+    a, b = simple_undirected_edges(graph)
+    s, t = np.concatenate([a, b]), np.concatenate([b, a])
+    order = np.lexsort((t, s))
+    indptr = np.zeros(graph.num_vertices + 1, np.int64)
+    np.cumsum(np.bincount(s, minlength=graph.num_vertices), out=indptr[1:])
+    return indptr, t[order]
+
+
+def check_frames_full(outputs: dict, graph, inputs: dict) -> dict:
+    """9b: what the full-size ops can be held to without a reference.
+    ``graph`` is the frame's symmetric graph. Returns the line's facts."""
+    v = graph.num_vertices
+    f64 = lambda x: np.asarray(x, np.float64)  # sums of 262,144 terms, checked exactly
+    for name in ("pagerank", "pagerank_reset"):
+        pr = outputs[name]
+        total = float(f64(pr).sum())
+        require(pr.shape == (v,) and bool((pr >= 0).all()) and abs(total - 1) <= 1e-5,
+                f"9b: {name} sums to {total!r} (least rank {pr.min()!r})")
+    ppr = outputs["ppr"]
+    sums = f64(ppr).sum(axis=0)
+    require(ppr.shape == (v, PPR_SOURCES["full"]) and bool((ppr >= 0).all())
+            and bool((np.abs(sums - 1) <= 1e-5).all()),
+            f"9b: PPR shape {ppr.shape}, column sums {sums.min()!r}..{sums.max()!r}, "
+            f"least value {ppr.min()!r}")
+    hubs, auths = outputs["hits"]
+    for name, x, norm in (("hits hubs", hubs, f64(hubs).sum()),
+                          ("hits authorities", auths, f64(auths).sum()),
+                          ("eigenvector", outputs["eigenvector"],
+                           np.linalg.norm(f64(outputs["eigenvector"]))),
+                          ("katz", outputs["katz"], np.linalg.norm(f64(outputs["katz"])))):
+        require(x.shape == (v,) and bool((x >= 0).all()) and abs(float(norm) - 1) <= 1e-5,
+                f"9b: {name}: norm {float(norm)!r}, least value {x.min()!r}")
+    close = outputs["closeness"]
+    require(close.shape == (OPS_LANDMARKS,) and bool(((close >= 0) & (close <= 1)).all()),
+            "9b: closeness")
+    bc = outputs["betweenness"]
+    require(bc.shape == (v,) and bool(np.isfinite(bc).all()) and bool((bc >= 0).all()),
+            "9b: betweenness")
+    send = graph.msg_send.cpu().numpy()
+    recv = graph.msg_recv.cpu().numpy()
+    real = send != recv
+    mis = outputs["mis"]
+    require(not bool((mis[send] & mis[recv] & real).any()), "9b: MIS not independent")
+    covered = np.zeros(v, bool)
+    covered[recv[real & mis[send]]] = True
+    require(bool((mis | covered).all()), "9b: MIS not maximal")
+    colors = outputs["greedy_color"]
+    require(bool((colors >= 0).all()), "9b: a vertex left uncoloured")
+    require(not bool(((colors[send] == colors[recv]) & real).any()), "9b: colouring not proper")
+    del send, recv, real
+    ka, kb = outputs["k_truss"]
+    facts = {"mis_size": int(mis.sum()), "colors": int(colors.max()) + 1,
+             "k_truss_edges": int(len(ka))}
+    check_truss(ka, kb, v)
+    check_link_prediction(outputs, graph, inputs["pairs"])
+    emb = outputs["spectral_embedding"]
+    gram = emb.astype(np.float64).T @ emb.astype(np.float64)
+    require(emb.shape == (v, EMBED_DIM) and np.abs(gram - np.eye(EMBED_DIM)).max() <= 1e-3,
+            "9b: embedding columns not orthonormal within 1e-3")
+    rmse = np.asarray(outputs["svd_plus_plus"][0])
+    require(rmse.shape == (SVDPP_EPOCHS,) and bool(np.isfinite(rmse).all())
+            and rmse[-1] < rmse[0], "9b: SVD++ RMSE did not fall")
+    facts["svdpp_rmse"] = [float(rmse[0]), float(rmse[-1])]
+    lof = outputs["lof_scores"]
+    require(lof.shape == (v,) and bool(np.isfinite(lof).all()), "9b: LOF scores")
+    return facts
+
+
+def check_truss(a: np.ndarray, b: np.ndarray, v: int, sample: int = TRUSS_SAMPLE) -> None:
+    """Each of ``sample`` seeded kept edges closes at least ``TRUSS_K - 2``
+    triangles of kept edges."""
+    require(bool((a < b).all()), "9b: k-truss edges not as (a < b)")
+    if len(a) == 0:
+        return
+    s, t = np.concatenate([a, b]), np.concatenate([b, a])
+    order = np.lexsort((t, s))
+    indptr = np.zeros(v + 1, np.int64)
+    np.cumsum(np.bincount(s, minlength=v), out=indptr[1:])
+    nbr = t[order]
+    pick = np.random.default_rng(13).choice(len(a), min(sample, len(a)), replace=False)
+    for i in pick:
+        x, y = a[i], b[i]
+        common = np.intersect1d(nbr[indptr[x]:indptr[x + 1]], nbr[indptr[y]:indptr[y + 1]],
+                                assume_unique=True)
+        require(len(common) >= TRUSS_K - 2, f"9b: k-truss edge ({x}, {y}) closes "
+                                            f"{len(common)} kept triangles")
+
+
+def check_link_prediction(outputs: dict, graph, pairs: np.ndarray,
+                          sample: int = LINK_SAMPLE) -> None:
+    """Each method's score of ``sample`` seeded pairs against its formula
+    on the simple undirected graph."""
+    indptr, nbr = _simple_adjacency(graph)
+    deg = np.diff(indptr)
+    for i in np.random.default_rng(14).choice(len(pairs), sample, replace=False):
+        u, w = pairs[i]
+        nu, nw = nbr[indptr[u]:indptr[u + 1]], nbr[indptr[w]:indptr[w + 1]]
+        common = np.intersect1d(nu, nw, assume_unique=True)
+        union = len(nu) + len(nw) - len(common)
+        want = {
+            "common_neighbors": float(len(common)),
+            "jaccard": len(common) / union if union else 0.0,
+            "adamic_adar": float(np.sum(1.0 / np.log(deg[common]))),
+            "resource_allocation": float(np.sum(1.0 / deg[common])),
+            "preferential_attachment": float(deg[u] * deg[w]),
+        }
+        for m, value in want.items():
+            got = float(outputs[f"link_{m}"][i])
+            require(abs(got - value) <= 1e-9 * max(1.0, abs(value)),
+                    f"9b: link_{m} of ({u}, {w}) is {got}, the formula gives {value}")
+
+
+def frames_full(parquet: Path, device: str = "cuda") -> dict:
+    """Phase 9b: ``GraphFrame.from_edge_table`` of phase 5's parquet file
+    on ``device`` (the card), each op once (:func:`frames_ops`), held to
+    :func:`check_frames_full`; PageRank against a CPU run of the port on
+    the same graph. Returns the ``frames`` line, launches included."""
+    import torch
+
+    from graphmine_tpu_torch.frames import GraphFrame
+    from graphmine_tpu_torch.io.edges import load_parquet_edges
+
+    t0 = time.perf_counter()
+    table = load_parquet_edges(str(parquet), batch_rows=BATCH_ROWS)
+    gf = GraphFrame.from_edge_table(table, device=device)
+    gf.graph()
+    gf.graph(symmetric=False)
+    _sync_device(gf.device)
+    load_s = time.perf_counter() - t0
+    inputs = frames_inputs(gf, "full")
+    on_card = gf.device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    outputs, seconds = frames_ops(gf, inputs, "full")
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    require(launches["knn_topk_fast"] >= 1 or not on_card,
+            "9b: lof_scores never launched knn_topk's fast instance")
+    slow = {k: s for k, s in seconds.items() if s > FRAMES_OP_LIMIT_S}
+    require(not slow, f"9b: ops over {FRAMES_OP_LIMIT_S} s at full size: {slow}")
+    facts = check_frames_full(outputs, gf.graph(), inputs)
+    cpu = GraphFrame.from_edge_table(table, device="cpu")
+    t0 = time.perf_counter()
+    pr_cpu = cpu.pagerank(**PAGERANK_FULL).numpy()
+    cpu_s = time.perf_counter() - t0
+    del cpu
+    rel = np.abs(outputs["pagerank"] - pr_cpu) / np.maximum(np.abs(pr_cpu), 1e-30)
+    require(bool((rel <= PAGERANK_CPU_RTOL).all()),
+            f"9b: PageRank differs from the CPU's by {rel.max():.3g} relative")
+    return check_keys({
+        "graph": f"planted_anomaly_graph({V_MAIN}, {E_MAIN}, seed={SEED_MAIN})",
+        "vertices": gf.num_vertices, "edges": gf.num_edges, "batch_rows": BATCH_ROWS,
+        "load_seconds": load_s, "seconds": seconds, "peak_device_bytes": peak,
+        "launches": launches, "pagerank_cpu_seconds": cpu_s,
+        "pagerank_cpu_max_rel_diff": float(rel.max()), **facts, "reduced": {},
+    }, FRAMES_KEYS, "frames")
+
+
+def api_partition(cwd: Path, device: str) -> tuple:
+    """The partition the ``GraphFrame`` API gives on the shim's input:
+    ``Table.read_parquet``, the null filter, vertices in the RDD idiom's
+    order (first appearance over the rows' parent, child pairs),
+    ``GraphFrame(v, e)`` and ``label_propagation(max_iter=5)``.
+    ``({name: label}, seconds)``."""
+    import torch
+
+    from graphmine_tpu_torch.frames import GraphFrame
+    from graphmine_tpu_torch.table import read_parquet
+
+    t0 = time.perf_counter()
+    t = read_parquet(str(cwd / "data" / "outlinks_pq"))
+    t = t.filter("_c1 is not null and _c2 is not null")
+    parent, child = t["_c1"], t["_c2"]
+    both = np.stack([parent, child], axis=1).ravel()
+    uniq, first = np.unique(both, return_index=True)
+    names = uniq[np.argsort(first, kind="stable")]
+    gf = GraphFrame({"id": names}, {"src": parent, "dst": child}, device=device)
+    labels = gf.label_propagation(max_iter=5).cpu().numpy()
+    if gf.device.type == "cuda":
+        torch.cuda.synchronize()
+    return dict(zip(names.tolist(), labels.tolist())), time.perf_counter() - t0
+
+
+def same_partition(a: dict, b: dict) -> bool:
+    """Two {name: label} maps group the same names together."""
+    if a.keys() != b.keys():
+        return False
+    names = sorted(a)
+    canon = lambda m: np.unique(np.array([m[n] for n in names]), return_inverse=True)[1]
+    ga, gb = canon(a), canon(b)
+    # the same grouping: each label of one side maps to one label of the other
+    pairs = np.unique(np.stack([ga, gb], axis=1), axis=0)
+    return len(pairs) == ga.max(initial=-1) + 1 == gb.max(initial=-1) + 1
+
+
+def compat_full(work: Path, device: str = "cuda") -> dict:
+    """Phase 9c: :data:`SHIM_SCRIPT` through the shim on ``device`` (the
+    card) on
+    ``planted_anomaly_graph(SHIM_V, SHIM_ROWS, seed=9)`` written
+    CommonCrawl-shaped with SHIM_NULLS null-domain rows; its partition
+    against :func:`api_partition`'s on the same file and card."""
+    import pyarrow.parquet as pq
+
+    from graphmine_tpu_torch import datasets
+
+    src, dst, _, _ = datasets.planted_anomaly_graph(SHIM_V, SHIM_ROWS, seed=SEED_MAIN)
+    cwd = work / "shim_full"
+    write_outlinks(cwd / "data" / "outlinks_pq" / "part-00000.parquet", src, dst, SHIM_V,
+                   null_rows=SHIM_NULLS)
+    stdout, stages, wall = run_shim(cwd, device, timeout=1200.0)
+    got = pq.read_table(cwd / "labels.parquet").to_pydict()
+    shim = dict(zip(got["name"], got["label"]))
+    api, api_s = api_partition(cwd, device)
+    require(same_partition(shim, api), "9c: the shim's LPA partition differs from the "
+                                       "GraphFrame API's")
+    lines = stdout.splitlines()
+    return check_keys({
+        "graph": f"planted_anomaly_graph({SHIM_V}, {SHIM_ROWS}, seed={SEED_MAIN})",
+        "rows": len(src), "null_rows": SHIM_NULLS, "vertices": len(shim),
+        "communities": int(lines[3].split()[0]), "stage_seconds": stages,
+        "wall_seconds": wall, "api_seconds": api_s, "device": device,
+        "reduced": {"rows": f"{SHIM_ROWS:,} rows, not the e2e 25,000,000: the string Table "
+                            "runs host NumPy over object arrays and the RDD idioms per row"},
+    }, COMPAT_KEYS, "compat")
+
+
+def run_frames(work: Path, parquet: Path) -> dict:
+    """Phase 9: prints the ``frames_small``, ``frames`` and ``compat``
+    lines; returns phase 9's launches per instance (9a's card run and
+    9b)."""
+    small = frames_small(work)
+    print(json.dumps({"frames_small": small}), flush=True)
+    full = frames_full(parquet)
+    print(json.dumps({"frames": full}), flush=True)
+    print(json.dumps({"compat": compat_full(work)}), flush=True)
+    return {k: small["launches"][k] + full["launches"][k] for k in full["launches"]}
+
+
+def with_frames_launches(entries: list, frames_launches: dict) -> list:
+    """The ``kernels`` entries, each with phase 9's launch count of its
+    instance (``frames_launches``)."""
+    return [{**e, "frames_launches": frames_launches[f"knn_topk_{e['instance']}"]}
+            for e in entries]
+
+
+def run_frames_only(work: Path) -> None:
+    """``--frames-only``: phase 9 on phase 4's and phase 5's inputs,
+    written here."""
+    from graphmine_tpu_torch import datasets
+
+    small_inputs(work)
+    src, dst, _, _ = datasets.planted_anomaly_graph(V_MAIN, E_MAIN, seed=SEED_MAIN)
+    edges_pq = work / "edges.parquet"
+    write_parquet(edges_pq, src, dst, V_MAIN)
+    del src, dst
+    run_frames(work, edges_pq)
+
+
 def run_community_only(work: Path) -> None:
     """``--community-only``: phase 8 on phase 4's and phase 5's inputs,
     written here."""
@@ -2798,7 +3407,7 @@ def run_main_path(work: Path) -> None:
     general = general_entries(pipeline_launches["wide_k"]["knn_topk_general"], features=feats)
     del feats
     entries = [entry] + general + [wide_entry(pipeline_launches["widest_k"]["knn_topk_wide"])]
-    print_kernels(with_serving_launches(entries, serve_launches))
+    entries = with_serving_launches(entries, serve_launches)
     # The JAX package gates the index's recall at 0.999 on its LOF policy
     # tests' cloud (20,000 x 8, k = 32); at the main path's size, k = 128,
     # the index (its algorithm with its defaults) measured recall 0.998 on
@@ -2818,6 +3427,9 @@ def run_main_path(work: Path) -> None:
     # ---- 8. Louvain and Leiden, and the graph-ops surface ---------------
     print(json.dumps({"community_small": community_small(work)}), flush=True)
     community_full(edges_pq)
+
+    # ---- 9. the GraphFrames entry point; then the kernels line ----------
+    print_kernels(with_frames_launches(entries, run_frames(work, edges_pq)))
 
 
 if __name__ == "__main__":

@@ -2,15 +2,16 @@
 
 A package beside the JAX package (which stays the reference), with the
 same module layout and names: ``io``, ``datasets``, ``graph``, ``ops``,
-``pipeline``, ``obs``, ``serve``. It imports PyTorch, NumPy, SciPy and
+``pipeline``, ``obs``, ``serve``, ``frames``, ``table``, ``compat`` (the
+pyspark shim) and ``oracle``. It imports PyTorch, NumPy, SciPy and
 pyarrow, never JAX and never ``graphmine_tpu``. Every entry point runs on
 CUDA unless the caller passes another ``device`` (the CPU parity tests
 pass ``device="cpu"``). The exact kNN of the LOF scorer runs a
 hand-written CUDA kernel (``csrc/knn_topk.cu``) on CUDA tensors.
 
-The graph operations are exported here under the JAX package's names,
-lazily (PEP 562): ``graphmine_tpu_torch.louvain`` imports its module on
-first access.
+The graph operations, the ``GraphFrame`` front end and the relational
+``Table`` are exported here under the JAX package's names, lazily (PEP
+562): ``graphmine_tpu_torch.louvain`` imports its module on first access.
 """
 
 from graphmine_tpu_torch.device import resolve_device
@@ -47,6 +48,25 @@ _EXPORTS = {
     "density": ("graphmine_tpu_torch.ops.stats", "density"),
     "diameter": ("graphmine_tpu_torch.ops.stats", "diameter"),
     "reciprocity": ("graphmine_tpu_torch.ops.stats", "reciprocity"),
+    "GraphFrame": ("graphmine_tpu_torch.frames", "GraphFrame"),
+    "Table": ("graphmine_tpu_torch.table", "Table"),
+    "read_parquet": ("graphmine_tpu_torch.table", "read_parquet"),
+    "pagerank": ("graphmine_tpu_torch.ops.pagerank", "pagerank"),
+    "parallel_personalized_pagerank": ("graphmine_tpu_torch.ops.pagerank",
+                                       "parallel_personalized_pagerank"),
+    "hits": ("graphmine_tpu_torch.ops.centrality", "hits"),
+    "eigenvector_centrality": ("graphmine_tpu_torch.ops.centrality", "eigenvector_centrality"),
+    "katz_centrality": ("graphmine_tpu_torch.ops.centrality", "katz_centrality"),
+    "closeness_centrality": ("graphmine_tpu_torch.ops.centrality", "closeness_centrality"),
+    "betweenness_centrality": ("graphmine_tpu_torch.ops.centrality", "betweenness_centrality"),
+    "maximal_independent_set": ("graphmine_tpu_torch.ops.mis", "maximal_independent_set"),
+    "greedy_color": ("graphmine_tpu_torch.ops.mis", "greedy_color"),
+    "k_truss": ("graphmine_tpu_torch.ops.ktruss", "k_truss"),
+    "link_prediction": ("graphmine_tpu_torch.ops.linkpred", "link_prediction"),
+    "spectral_embedding": ("graphmine_tpu_torch.ops.embedding", "spectral_embedding"),
+    "svd_plus_plus": ("graphmine_tpu_torch.ops.svdpp", "svd_plus_plus"),
+    "svdpp_predict": ("graphmine_tpu_torch.ops.svdpp", "svdpp_predict"),
+    "graphx_label_propagation": ("graphmine_tpu_torch.oracle", "graphx_label_propagation"),
 }
 
 __all__ = ["resolve_device", *sorted(_EXPORTS)]

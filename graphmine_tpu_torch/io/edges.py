@@ -79,6 +79,25 @@ def edge_table_from_parts(src_parts, dst_parts, names, num_rows_raw,
     )
 
 
+def _isnull(col: np.ndarray) -> np.ndarray:
+    """``None`` cells of an object column (other dtypes hold no nulls)."""
+    if col.dtype == object:
+        return np.frompyfunc(lambda v: v is None, 1, 1)(col).astype(bool)
+    return np.zeros(len(col), dtype=bool)
+
+
+def _from_string_columns(parent_dom: np.ndarray, child_dom: np.ndarray,
+                         num_rows_raw: int) -> EdgeTable:
+    """An :class:`EdgeTable` of two host columns (``Table.to_edge_table``):
+    rows with a null endpoint dropped, the rest factorized over the union
+    of both columns in first-appearance order, source column first (the
+    JAX package's ids)."""
+    valid = ~(_isnull(parent_dom) | _isnull(child_dom))
+    parent_dom, child_dom = parent_dom[valid], child_dom[valid]
+    (src, dst), names = factorize(parent_dom, child_dom)
+    return EdgeTable(src=src, dst=dst, names=names, num_rows_raw=num_rows_raw)
+
+
 def _column_codes(col, interner: IncrementalFactorizer) -> np.ndarray:
     """Intern one Arrow column (Array or ChunkedArray) into int32 codes,
     through the dictionary indices where the column is dictionary-encoded

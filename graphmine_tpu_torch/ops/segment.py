@@ -111,16 +111,12 @@ def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
     order, as the JAX package's scatter-add runs there, on CUDA by a fixed
     tree. Deterministic on each device, and equal across devices wherever
     every partial sum is exact (integer or quarter weights in float32)."""
+    if values.is_floating_point():
+        return SegmentSums(segment_ids, num_segments).sum(values)
     seg = segment_ids.to(torch.int64)
     seg = torch.where((seg >= 0) & (seg < num_segments), seg, num_segments)
-    if not values.is_floating_point():
-        out = values.new_zeros((num_segments + 1, *values.shape[1:]))
-        return out.index_add_(0, seg, values)[:num_segments]
-    if seg.shape[0] > 1 and not bool((seg[1:] >= seg[:-1]).all()):
-        seg, order = torch.sort(seg, stable=True)
-        values = values[order]
-    lengths = torch.bincount(seg, minlength=num_segments + 1)
-    return torch.segment_reduce(values, "sum", lengths=lengths)[:num_segments]
+    out = values.new_zeros((num_segments + 1, *values.shape[1:]))
+    return out.index_add_(0, seg, values)[:num_segments]
 
 
 def _scatter_extreme(values: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
@@ -153,3 +149,29 @@ def segment_max(values: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     """``jax.ops.segment_max`` (see :func:`_scatter_extreme`)."""
     return _scatter_extreme(values, segment_ids, num_segments, "amax")
+
+
+class SegmentSums:
+    """Float :func:`segment_sum` over fixed segment ids, for loops that sum
+    new values over the same ids every iteration: the stable sort by
+    segment (skipped when the ids already ascend) and the segment lengths
+    are computed once; each :meth:`sum` gathers the values into that
+    order and reduces each segment on its own."""
+
+    def __init__(self, segment_ids: torch.Tensor, num_segments: int):
+        seg = segment_ids.to(torch.int64)
+        seg = torch.where((seg >= 0) & (seg < num_segments), seg, num_segments)
+        self.order = None
+        if seg.shape[0] > 1 and not bool((seg[1:] >= seg[:-1]).all()):
+            seg, self.order = torch.sort(seg, stable=True)
+        self.lengths = torch.bincount(seg, minlength=num_segments + 1)
+        self.num_segments = num_segments
+
+    def sum(self, values: torch.Tensor) -> torch.Tensor:
+        """Per-segment float sums ``[num_segments, ...]`` of ``values``
+        (one per element, in the ids' element order)."""
+        if values.shape[0] == 0:
+            return values.new_zeros((self.num_segments, *values.shape[1:]))
+        if self.order is not None:
+            values = values[self.order]
+        return torch.segment_reduce(values, "sum", lengths=self.lengths)[:self.num_segments]

@@ -21,7 +21,10 @@ from graphmine_tpu_torch.graph.container import Graph, simple_undirected_edges
 def _oriented_csr(graph: Graph, simple_edges=None):
     """Host-side: simple undirected edges oriented by (degree, id) rank.
 
-    Returns ``(ptr, col, wedge_u, wedge_v, wedge_w, simple_degree)``.
+    Returns ``(ptr, col, wedge_u, wedge_v, wedge_w, simple_degree,
+    wedge_e1, wedge_e2)``: the last two are each wedge's edge indices into
+    ``col`` (the edge order), the generating edge ``(u, v)`` and the row
+    entry ``(u, w)``; k-truss finds the third side by its binary search.
     ``simple_edges``: optional precomputed :func:`simple_undirected_edges`
     result — the driver's wedge-budget probe already paid that dedup.
     """
@@ -51,10 +54,11 @@ def _oriented_csr(graph: Graph, simple_edges=None):
     offsets = np.arange(total, dtype=np.int64) - np.repeat(starts, d_u)
     wedge_e2 = np.repeat(ptr[lo], d_u) + offsets
     wedge_w = hi[wedge_e2]
+    wedge_e1 = np.repeat(np.arange(len(lo), dtype=np.int64), d_u)
     return (
         ptr.astype(np.int64), hi.astype(np.int32),
         wedge_u.astype(np.int32), wedge_v.astype(np.int32), wedge_w.astype(np.int32),
-        deg.astype(np.int32),
+        deg.astype(np.int32), wedge_e1, wedge_e2,
     )
 
 
@@ -83,7 +87,7 @@ def _count_device(ptr, col, wedge_v, wedge_w, wedge_u, num_vertices: int,
 
 def _triangles(graph: Graph, simple_edges=None):
     """Host build + device count once: ``(tri [V], total, simple_degree [V])``."""
-    ptr, col, wu, wv, ww, deg = _oriented_csr(graph, simple_edges)
+    ptr, col, wu, wv, ww, deg, _, _ = _oriented_csr(graph, simple_edges)
     dev = graph.device
     deg_t = torch.from_numpy(deg).to(dev)
     if len(wu) == 0:
@@ -127,10 +131,12 @@ def oriented_wedge_count(graph: Graph, simple_edges=None) -> int:
     return int(counts[lo].sum())
 
 
-def clustering_coefficient(graph: Graph, simple_edges=None) -> torch.Tensor:
+def clustering_coefficient(graph: Graph, simple_edges=None, _cached=None) -> torch.Tensor:
     """Local clustering coefficient ``[V]`` (float32): triangles through a
-    vertex over its wedge count on the simplified graph."""
-    tri, _, deg = _triangles(graph, simple_edges)
+    vertex over its wedge count on the simplified graph. ``_cached``: a
+    prior :func:`_triangles` result, so a caller needing both the counts
+    and the coefficients builds the wedges once."""
+    tri, _, deg = _triangles(graph, simple_edges) if _cached is None else _cached
     deg = deg.to(torch.float32)
     wedges = deg * (deg - 1.0) / 2.0
     return torch.where(

@@ -5,9 +5,11 @@ single-device driver reads, plus ``device``: the same names, defaults,
 validation and flags, the resilience knobs flattened onto the CLI
 (``--max-retries``, ``--superstep-timeout-s``, ``--tripwire-every-k``,
 ...). ``community_method`` and ``gamma`` choose LPA, Louvain or Leiden
-(``--community-method``, ``--gamma``). The JAX package's ``backend``,
-``num_devices`` and ``schedule`` are not here yet (ROADMAP queue 1, items
-A6b and A7).
+(``--community-method``, ``--gamma``). ``backend`` takes the JAX
+package's names: ``"jax"`` (the default) is this package's own engine,
+``"graphframes"`` hands LPA to a pyspark + GraphFrames install
+(``pipeline/backends.py``). The JAX package's ``num_devices`` and
+``schedule`` are not here yet (ROADMAP queue 1, item A7).
 """
 
 from __future__ import annotations
@@ -33,6 +35,9 @@ class PipelineConfig:
     # community detection: lpa (exactly max_iter supersteps) | louvain |
     # leiden (their modularity resolution is gamma)
     community_method: str = "lpa"
+    # engine: "jax" (the JAX package's name for the native engine: here
+    # the port's own) | "graphframes" (LPA through pyspark + GraphFrames)
+    backend: str = "jax"
     max_iter: int = 5
     gamma: float = 1.0
     # outlier detection
@@ -91,6 +96,13 @@ class PipelineConfig:
             raise ValueError(f"unknown lof_impl {self.lof_impl!r}")
         if self.community_method not in ("lpa", "louvain", "leiden"):
             raise ValueError(f"unknown community_method {self.community_method!r}")
+        if self.backend not in ("jax", "graphframes"):
+            raise ValueError(f"unknown backend {self.backend!r}")
+        if self.backend == "graphframes" and self.community_method != "lpa":
+            raise ValueError(
+                "backend='graphframes' only provides labelPropagation; "
+                "use community_method='lpa' or backend='jax'"
+            )
         if self.max_iter < 0 or self.sub_max_iter < 0:
             raise ValueError("max_iter must be >= 0")
         if self.batch_rows is not None and self.batch_rows <= 0:
@@ -101,6 +113,11 @@ class PipelineConfig:
             raise ValueError("edge_weight_col applies to edgelist input only")
         if self.edge_weight_col is not None and self.edge_weight_col < 2:
             raise ValueError("edge_weight_col must be >= 2: columns 0-1 are the endpoints")
+        if self.edge_weight_col is not None and self.backend == "graphframes":
+            raise ValueError(
+                "backend='graphframes' runs unweighted labelPropagation; "
+                "use backend='jax' for weighted LPA"
+            )
         if not 0 < self.decile < 1:
             raise ValueError("decile must be in (0, 1)")
         if self.checkpoint_every < 1:

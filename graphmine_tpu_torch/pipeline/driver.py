@@ -162,7 +162,7 @@ def _run_pipeline(config: PipelineConfig, m: MetricsSink,
     # (Louvain and Leiden read no LPA plan, so none is built for them)
     v, e = table.num_vertices, table.num_edges
     run_plan = sstep_plan = None
-    if config.community_method == "lpa":
+    if config.community_method == "lpa" and config.backend != "graphframes":
         run_plan, sstep_plan = _plan_lpa(config, table, m, device)
 
     # ---- build: message CSR + degree-bucketed plan, one pass -----------
@@ -202,6 +202,13 @@ def _run_pipeline(config: PipelineConfig, m: MetricsSink,
                                                       gamma=config.gamma):
             labels, q_algo = algo(graph, gamma=config.gamma)
             _sync(device)
+    elif config.backend == "graphframes":
+        from graphmine_tpu_torch.pipeline.backends import lpa_graphframes
+
+        with m.span("lpa"), m.timed("lpa", backend="graphframes"):
+            labels = torch.as_tensor(lpa_graphframes(table, config.max_iter).astype(np.int32),
+                                     device=device)
+        q_algo = None
     else:
         with m.span("lpa"), m.timed("lpa", max_iter=config.max_iter):
             labels = _run_lpa(config, table, graph, m, plan_holder, run_plan, sstep_plan,

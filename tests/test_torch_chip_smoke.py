@@ -571,3 +571,150 @@ def test_level0_breakdown_on_a_cpu_graph(community_runs):
     assert out["padded_vertices"] >= lv.graph.num_vertices
     assert 1 <= out["communities_after"] < lv.graph.num_vertices
     assert min(v for k, v in out.items() if k.endswith("seconds")) >= 0
+
+
+def test_parses_frames_only():
+    assert chip_smoke.parse_args(["--frames-only"]).frames_only
+    assert not chip_smoke.parse_args([]).frames_only
+    with pytest.raises(SystemExit):
+        chip_smoke.parse_args(["--frames-only", "--community-only"])
+
+
+def test_frames_only_exits_nonzero_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the smoke would run")
+    out = subprocess.run([sys.executable, "chip_smoke.py", "--frames-only"], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and "CUDA is not available" in out.stderr
+
+
+@pytest.fixture(scope="module")
+def frames_cpu(tmp_path_factory):
+    """Phase 9's ops on a small planted graph on the CPU, at the small
+    size (9a) and at the full size's settings with fewer pairs (9b)."""
+    from graphmine_tpu_torch import datasets
+    from graphmine_tpu_torch.frames import GraphFrame
+    from graphmine_tpu_torch.io.edges import load_edge_list
+
+    src, dst, _, _ = datasets.planted_anomaly_graph(600, 8_000, seed=3)
+    path = tmp_path_factory.mktemp("phase9") / "small.txt"
+    chip_smoke.write_edge_list(path, src, dst, np.random.default_rng(7).integers(1, 16, len(src)) / 4)
+    table = load_edge_list(str(path), weight_col=2)
+    gf = GraphFrame.from_edge_table(table, device="cpu")
+    small, small_s = chip_smoke.frames_ops(gf, chip_smoke.frames_inputs(gf, "small", table.weights),
+                                           "small")
+    pairs = dict(chip_smoke.LINK_PAIRS)
+    chip_smoke.LINK_PAIRS["full"] = 2_000
+    try:
+        inputs = chip_smoke.frames_inputs(gf, "full")
+    finally:
+        chip_smoke.LINK_PAIRS.clear()
+        chip_smoke.LINK_PAIRS.update(pairs)
+    full, full_s = chip_smoke.frames_ops(gf, inputs, "full")
+    return gf, small, small_s, full, inputs
+
+
+def test_frames_small_check_passes_equal_outputs_and_fails_a_swap_or_a_missing_op(frames_cpu):
+    import copy
+
+    _, small, seconds, _, _ = frames_cpu
+    assert sorted(seconds) == sorted(chip_smoke.FRAMES_OPS)
+    diffs = chip_smoke.check_frames_small(small, copy.deepcopy(small))
+    assert diffs["spectral_embedding"] >= 0.9999 and diffs["pagerank"] == 0.0
+    bad = copy.deepcopy(small)
+    colors = bad["greedy_color"]
+    i = int(np.flatnonzero(colors != colors[0])[0])
+    colors[[0, i]] = colors[[i, 0]]
+    with pytest.raises(RuntimeError, match="greedy_color"):
+        chip_smoke.check_frames_small(bad, small)
+    bad = copy.deepcopy(small)
+    del bad["k_truss"]
+    with pytest.raises(RuntimeError, match="k_truss missing"):
+        chip_smoke.check_frames_small(bad, small)
+    bad = copy.deepcopy(small)
+    bad["betweenness"] = bad["betweenness"] * np.float32(1.01)
+    with pytest.raises(RuntimeError, match="betweenness"):
+        chip_smoke.check_frames_small(bad, small)
+    flipped = copy.deepcopy(small)
+    flipped["spectral_embedding"][:, 1] *= -1  # a column's sign is arbitrary
+    chip_smoke.check_frames_small(flipped, small)
+    bad["spectral_embedding"] = np.roll(bad["spectral_embedding"], 1, axis=1)
+    with pytest.raises(RuntimeError, match="embedding"):
+        chip_smoke.check_frames_small(dict(small, spectral_embedding=bad["spectral_embedding"]),
+                                      small)
+
+
+def test_frames_full_invariants_pass_and_fail_a_broken_mis_or_colouring(frames_cpu):
+    import copy
+
+    gf, _, _, full, inputs = frames_cpu
+    graph = gf.graph()
+    facts = chip_smoke.check_frames_full(full, graph, inputs)
+    assert facts["colors"] >= 2 and facts["mis_size"] >= 1
+    assert facts["svdpp_rmse"][1] < facts["svdpp_rmse"][0]
+    send, recv = graph.msg_send.numpy(), graph.msg_recv.numpy()
+    bad = copy.deepcopy(full)
+    mis = bad["mis"]
+    edge = np.flatnonzero(mis[send] & (send != recv))[0]
+    mis[recv[edge]] = True  # a neighbour of a member joins: not independent
+    with pytest.raises(RuntimeError, match="not independent"):
+        chip_smoke.check_frames_full(bad, graph, inputs)
+    bad = copy.deepcopy(full)
+    bad["mis"][:] = False
+    with pytest.raises(RuntimeError, match="not maximal"):
+        chip_smoke.check_frames_full(bad, graph, inputs)
+    bad = copy.deepcopy(full)
+    k = np.flatnonzero(send != recv)[0]
+    bad["greedy_color"][recv[k]] = bad["greedy_color"][send[k]]
+    with pytest.raises(RuntimeError, match="not proper"):
+        chip_smoke.check_frames_full(bad, graph, inputs)
+    bad = copy.deepcopy(full)
+    bad["link_jaccard"] = bad["link_jaccard"] + 0.5
+    with pytest.raises(RuntimeError, match="link_jaccard"):
+        chip_smoke.check_frames_full(bad, graph, inputs)
+    bad = copy.deepcopy(full)
+    bad["pagerank"] = bad["pagerank"] * np.float32(1.001)
+    with pytest.raises(RuntimeError, match="pagerank sums to"):
+        chip_smoke.check_frames_full(bad, graph, inputs)
+    a, b = full["k_truss"]
+    if len(a):
+        with pytest.raises(RuntimeError, match="k-truss"):
+            chip_smoke.check_truss(np.concatenate([a, [0]]), np.concatenate([b, [gf.num_vertices - 1]]),
+                                   gf.num_vertices, sample=len(a) + 1)
+
+
+def test_frames_lines_must_carry_every_key():
+    for keys, what in ((chip_smoke.FRAMES_KEYS, "frames"),
+                       (chip_smoke.FRAMES_SMALL_KEYS, "frames_small"),
+                       (chip_smoke.COMPAT_KEYS, "compat")):
+        line = {k: 0 for k in keys}
+        assert chip_smoke.check_keys(line, keys, what) is line
+        missing = keys[-1]
+        del line[missing]
+        with pytest.raises(RuntimeError, match=missing):
+            chip_smoke.check_keys(line, keys, what)
+
+
+def test_kernels_entries_carry_the_frames_launches():
+    entries = [{"instance": "fast", "launches": 1}, {"instance": "general", "launches": 2}]
+    out = chip_smoke.with_frames_launches(entries, {"knn_topk_fast": 3, "knn_topk_general": 0})
+    assert [e["frames_launches"] for e in out] == [3, 0]
+    assert "frames_launches" not in entries[0]
+
+
+def test_compat_phase_on_the_cpu(tmp_path, monkeypatch):
+    monkeypatch.setattr(chip_smoke, "SHIM_V", 600)
+    monkeypatch.setattr(chip_smoke, "SHIM_ROWS", 6_000)
+    line = chip_smoke.compat_full(tmp_path, device="cpu")
+    json.dumps(line)
+    assert line["vertices"] == 600 and line["null_rows"] == chip_smoke.SHIM_NULLS
+    assert line["communities"] >= 1 and set(line["stage_seconds"]) >= {"read", "label_propagation"}
+
+
+def test_same_partition_is_a_grouping_test():
+    a = {"x": 1, "y": 1, "z": 2}
+    assert chip_smoke.same_partition(a, {"x": 7, "y": 7, "z": 3})
+    assert not chip_smoke.same_partition(a, {"x": 7, "y": 8, "z": 3})
+    assert not chip_smoke.same_partition(a, {"x": 7, "y": 7, "z": 7})
+    assert not chip_smoke.same_partition(a, {"x": 7, "y": 7})
