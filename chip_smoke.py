@@ -7,6 +7,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py --kernels-only   # phases 1-3, then the kernel alone
     python3 chip_smoke.py --community-only # phases 1-3, then phase 8
     python3 chip_smoke.py --frames-only    # phases 1-3, then phase 9
+    python3 chip_smoke.py --blocked-only   # phases 1-3, then phase 10
 
 In order, and failing on the first phase that fails:
 
@@ -194,7 +195,31 @@ In order, and failing on the first phase that fails:
    same file, name by name; prints the ``compat`` line. The ``kernels``
    line of phase 6 is printed here, after phase 9, its entries carrying
    phase 9's launches of their instance (``frames_launches``);
-10. prints the smoke's total seconds, the card line again and the last
+10. (after the ``kernels`` line) the blocked superstep family: 10a
+   (:func:`blocked_small`) on phase 4's graph, unweighted and in quarter
+   weights, ~60 bins: the plan built on the card equal to the CPU's array
+   for array, every LPA and CC superstep card == CPU == the bucketed
+   superstep on the card, ``blocked_inflow`` and PageRank on a
+   ``BlockedPlan`` card against CPU within rtol 1e-5, ``run_pipeline``
+   with ``GRAPHMINE_SUPERSTEP_FAMILY=blocked`` against the bucketed
+   default (labels, flags, census equal, LOF within phase 4's
+   tolerances) and the same run with a real out-of-memory error at
+   superstep 3, which takes the ``single_bucketed`` rung and ends on the
+   same labels; prints the ``blocked_small`` line. 10b
+   (:func:`blocked_rung`): ``datasets.load("com-livejournal", seed=0)``
+   on the host (its R-MAT stand-in: 4M vertices, 34,812,723 edges), both
+   plans on the card: 5 LPA supersteps a family, labels bit-equal; CC to
+   the fixpoint a family, labels and superstep counts equal; PageRank 20
+   iterations on the directed graph, blocked against the segment path, L1
+   <= 1e-5 and max relative <= 1e-4; prints the ``blocked`` line. 10c
+   (:func:`blocked_ladder`): R-MAT graphs at edge factor 8.3, scales 20 to
+   24, drawn on the card: the median of 5 supersteps of each family after
+   a warm-up (labels equal each time), the bin pass's slots/s against a
+   random gather's on the same M slots, each family's peak bytes; at scale
+   22 the bin budget swept over 2^16, 2^18 and 2^20; prints the
+   ``blocked_ladder`` line (with the crossover scale, None when blocked
+   never wins from a scale on) and the phase's seconds;
+11. prints the smoke's total seconds, the card line again and the last
    line, ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only`` skips the pipelines: after phase 3 it holds and times
@@ -221,6 +246,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 
@@ -276,6 +302,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                       help="phases 1-3, then phase 8 (Louvain, Leiden and the graph ops)")
     mode.add_argument("--frames-only", action="store_true",
                       help="phases 1-3, then phase 9 (the GraphFrames entry point)")
+    mode.add_argument("--blocked-only", action="store_true",
+                      help="phases 1-3, then phase 10 (the blocked superstep family)")
     return ap.parse_args(argv)
 
 
@@ -717,7 +745,8 @@ def main(argv=None) -> int:
         work.mkdir(parents=True)
         try:
             (run_community_only if args.community_only
-             else run_frames_only if args.frames_only else run_main_path)(work)
+             else run_frames_only if args.frames_only
+             else run_blocked_only if args.blocked_only else run_main_path)(work)
         finally:
             shutil.rmtree(work, ignore_errors=True)
 
@@ -3305,6 +3334,421 @@ def with_frames_launches(entries: list, frames_launches: dict) -> list:
             for e in entries]
 
 
+# ---- 10. the blocked superstep family ----------------------------------------
+
+# 10c's ladder: R-MAT graphs at the com-LiveJournal rung's edge factor,
+# drawn on the card; at the rung's scale, the bin budgets swept
+BLOCKED_SCALES = (20, 21, 22, 23, 24)
+BLOCKED_EDGE_FACTOR = 8.3
+BLOCKED_SWEEP_SCALE = 22
+BLOCKED_TILE_SWEEP = (1 << 16, 1 << 18, 1 << 20)
+BLOCKED_REPS = 5
+BLOCKED_SMALL_TILE = 2048  # 10a's bin budget: ~60 bins on phase 4's graph
+RUNG = "com-livejournal"
+RUNG_LPA_STEPS = 5
+RUNG_PR_ITERS = 20
+# The ``blocked`` line's keys (tests/test_torch_chip_smoke.py holds them).
+BLOCKED_KEYS = ("rung", "num_vertices", "num_edges", "num_messages", "load_seconds",
+                "graph_build_seconds", "plan_build_seconds", "ms_per_superstep", "cc",
+                "pagerank", "bins", "tile_slots", "tile_alloc_over_m",
+                "padded_slots_per_edge", "peak_bytes", "predicted_bytes")
+LADDER_KEYS = ("scale", "num_vertices", "num_messages", "bucketed_ms", "blocked_ms",
+               "blocked_over_bucketed", "random_gather_slots_per_sec",
+               "binned_pass_slots_per_sec", "binned_over_random", "bins", "tile_slots",
+               "tile_alloc_over_m", "peak_bytes", "plan_build_seconds")
+
+
+def _sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def one_ms(fn, device) -> tuple:
+    """``(ms, result)`` of one run of ``fn()``: CUDA events on the card,
+    the host clock elsewhere."""
+    import torch
+
+    if torch.device(device).type != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return 1e3 * (time.perf_counter() - t0), out
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def timed_ms(fn, device, reps: int = BLOCKED_REPS) -> tuple:
+    """``(median ms, last result)`` of ``reps`` runs of ``fn()`` after one
+    warm-up run."""
+    fn()
+    _sync(device)
+    runs = [one_ms(fn, device) for _ in range(reps)]
+    return float(np.median([ms for ms, _ in runs])), runs[-1][1]
+
+
+def rmat_graph(scale: int, edge_factor: float, seed: int, device):
+    """An R-MAT graph (``datasets.rmat``'s recipe: quadrants 0.57 / 0.19 /
+    0.19, a random relabelling, duplicates kept) drawn on ``device`` from a
+    ``torch.Generator``, with its message CSR built there: ``(graph, host
+    row pointers)``."""
+    import torch
+
+    from graphmine_tpu_torch.graph.container import Graph, _message_csr
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    v, (a, b, c) = 1 << scale, (0.57, 0.19, 0.19)
+    e = int(edge_factor * v)
+    src = torch.zeros(e, dtype=torch.int64, device=device)
+    dst = torch.zeros_like(src)
+    for _ in range(scale):
+        r = torch.rand(e, generator=gen, device=device)
+        src = (src << 1) | (r >= a + b)
+        dst = (dst << 1) | (((r >= a) & (r < a + b)) | (r >= a + b + c))
+    perm = torch.randperm(v, generator=gen, device=device)
+    src, dst = perm[src].to(torch.int32), perm[dst].to(torch.int32)
+    del perm, r
+    ptr, recv, send, _ = _message_csr(src, dst, v, True)
+    graph = Graph(src=src, dst=dst, msg_recv=recv, msg_send=send, msg_ptr=ptr.to(torch.int32),
+                  num_vertices=v)
+    return graph, ptr.cpu().numpy()
+
+
+def blocked_small(work: Path, devices=("cuda", "cpu")) -> dict:
+    """Phase 10a on phase 4's graph, unweighted and in quarter weights: the
+    blocked plan built on the card equal to the CPU's array for array;
+    every LPA and CC superstep card == CPU == the bucketed superstep on the
+    card; ``blocked_inflow`` and PageRank on a ``BlockedPlan`` card against
+    CPU within rtol 1e-5; then ``run_pipeline`` with
+    ``GRAPHMINE_SUPERSTEP_FAMILY=blocked`` against the default (bucketed)
+    run on the card (labels, flags and census equal, LOF within phase 4's
+    tolerances), and the blocked run with a real out-of-memory error at
+    superstep 3, which must take the ``single_bucketed`` rung and end on
+    the uninterrupted labels."""
+    import torch
+
+    from graphmine_tpu_torch import datasets
+    from graphmine_tpu_torch.graph.container import build_graph
+    from graphmine_tpu_torch.ops.blocking import (
+        BlockedPlan,
+        blocked_inflow,
+        build_graph_and_blocked_plan,
+        cc_superstep_blocked,
+        lpa_superstep_blocked,
+    )
+    from graphmine_tpu_torch.ops.bucketed_mode import BucketedModePlan, lpa_superstep_bucketed
+    from graphmine_tpu_torch.ops.cc import cc_superstep_bucketed
+    from graphmine_tpu_torch.ops.pagerank import pagerank
+    from graphmine_tpu_torch.pipeline import PipelineConfig, run_pipeline
+    from graphmine_tpu_torch.testing import faults
+
+    card, host = devices
+    v = 4096
+    src, dst, _, _ = datasets.planted_anomaly_graph(v, 60_000, seed=SEED_MAIN)
+    quarters = np.random.default_rng(7).integers(1, 16, len(src)) / 4
+    summary: dict = {}
+    for weighted in (False, True):
+        w = quarters.astype(np.float32) if weighted else None
+        built = {d: build_graph_and_blocked_plan(src, dst, num_vertices=v, edge_weights=w,
+                                                 tile_slots=BLOCKED_SMALL_TILE, device=d)
+                 for d in devices}
+        (g, p), (hg, hp) = built[card], built[host]
+        for name in ("src_sorted", "scatter_pos", "row_idx", "row_vertex", "weight_mat"):
+            a, b = getattr(p, name), getattr(hp, name)
+            a, b = (a, b) if isinstance(a, tuple) or a is None else ((a,), (b,))
+            require((a is None) == (b is None) and len(a or ()) == len(b or ()) and all(
+                torch.equal(x.cpu(), y) for x, y in zip(a or (), b or ())),
+                f"10a: the plan's {name} differs between the card and the CPU")
+        require((p.num_bins, p.tile_slots, p.tile_alloc) == (hp.num_bins, hp.tile_slots,
+                                                            hp.tile_alloc), "10a: plan sizes")
+        bp = BucketedModePlan.from_ptr(g.msg_ptr.cpu().numpy(), v, g.msg_send,
+                                       weights=g.msg_weight)
+        lbl = torch.arange(v, dtype=torch.int32, device=card)
+        for step in range(RUNG_LPA_STEPS):
+            new = lpa_superstep_blocked(lbl, g, p)
+            require(torch.equal(new, lpa_superstep_bucketed(lbl, g, bp)), f"10a: LPA superstep "
+                    f"{step + 1} differs from the bucketed superstep")
+            require(torch.equal(new.cpu(), lpa_superstep_blocked(lbl.to(host), hg, hp)),
+                    f"10a: LPA superstep {step + 1} differs from the CPU's")
+            lbl = new
+        lbl, cc_steps = torch.arange(v, dtype=torch.int32, device=card), 0
+        while True:
+            new = cc_superstep_blocked(lbl, p)
+            cc_steps += 1
+            require(torch.equal(new, cc_superstep_bucketed(lbl, bp)) and torch.equal(
+                new.cpu(), cc_superstep_blocked(lbl.to(host), hp)),
+                f"10a: CC superstep {cc_steps} differs (bucketed or CPU)")
+            if torch.equal(new, lbl):
+                break
+            lbl = new
+        summary["weighted" if weighted else "unweighted"] = {
+            "bins": p.num_bins, "tile_slots": p.tile_slots,
+            "tile_alloc_over_m": p.tile_alloc / p.num_messages, "cc_supersteps": cc_steps}
+    # PageRank's inflow on a directed graph's plan, card against CPU
+    gd = {d: build_graph(src, dst, num_vertices=v, symmetric=False, device=d) for d in devices}
+    pd = {d: BlockedPlan.from_graph(gd[d], tile_slots=BLOCKED_SMALL_TILE) for d in devices}
+    contrib = np.random.default_rng(3).random(v).astype(np.float32)
+    flows = [blocked_inflow(pd[d], torch.from_numpy(contrib).to(d)).cpu().numpy()
+             for d in devices]
+    np.testing.assert_allclose(flows[0], flows[1], rtol=1e-5)
+    ranks = [pagerank(gd[d], tol=0.0, max_iter=RUNG_PR_ITERS, plan=pd[d]).cpu().numpy()
+             for d in devices]
+    np.testing.assert_allclose(ranks[0], ranks[1], rtol=1e-5)
+    summary["pagerank_max_rel"] = float(np.max(np.abs(ranks[0] - ranks[1]) / ranks[1]))
+    # the pipeline on the blocked family against the bucketed default
+    small = work / "small.txt"
+    if not small.exists():
+        small_inputs(work)
+    for weighted in (False, True):
+        cfg = dict(data_path=str(small), data_format="edgelist", outlier_method="both",
+                   lof_k=SMALL_LOF_K, lof_impl="exact", device=card)
+        if weighted:
+            cfg["edge_weight_col"] = 2
+        base = run_pipeline(PipelineConfig(**cfg))
+        with mock.patch.dict(os.environ, GRAPHMINE_SUPERSTEP_FAMILY="blocked"):
+            got = run_pipeline(PipelineConfig(**cfg))
+            inj = faults.FaultInjector().add("lpa_superstep",
+                                             lambda: faults.device_oom(card), at=3)
+            with inj.installed():
+                oom = run_pipeline(PipelineConfig(**cfg))
+        case = "weighted" if weighted else "unweighted"
+        for res, what in ((got, "blocked"), (oom, "blocked under OOM")):
+            require(np.array_equal(res.labels, base.labels), f"10a {case}: {what} labels "
+                    "differ from the bucketed run's")
+            require(np.array_equal(res.outliers.outlier_vertices,
+                                   base.outliers.outlier_vertices), f"10a {case}: {what} flags")
+            for x, y in zip(res.community_table, base.community_table):
+                require(np.array_equal(x, y), f"10a {case}: {what} census")
+            _lof_close(res.lof, base.lof, f"10a {case}: {what} against the bucketed run")
+        (sel,) = [r for r in got.metrics.of_phase("impl_selected") if r["op"] == "lpa_superstep"]
+        require(sel["impl"] == "blocked", f"10a {case}: the driver ran {sel['impl']}")
+        (deg,) = oom.metrics.of_phase("degrade")
+        fams = [r["family"] for r in oom.metrics.of_phase("plan_build")]
+        require(deg["to"] == "single_bucketed" and fams == ["blocked", "bucketed"],
+                f"10a {case}: the OOM took {deg['to']} with plans {fams}")
+        summary[case]["pipeline"] = {"communities": got.num_communities,
+                                     "degrade": deg["to"], "plans": fams}
+        log(f"10a {case}: blocked == bucketed == CPU; OOM -> {deg['to']}")
+    return summary
+
+
+def blocked_rung(device="cuda", max_scale=None) -> dict:
+    """Phase 10b: the com-LiveJournal rung at full size, loaded on the host
+    (its R-MAT stand-in when no SNAP file is on disk), its graph and both
+    plans on the card. LPA: 5 supersteps per family, labels bit-equal. CC:
+    to the fixpoint per family, labels and superstep counts equal.
+    PageRank: 20 iterations on the directed graph, blocked against the
+    segment path, L1 <= 1e-5 and max relative <= 1e-4. Returns the
+    ``blocked`` line: seconds of the load, the graph and each plan build,
+    ms per superstep of each family (blocked with its tile pass and its
+    reduce apart), bins, ``tile_slots``, ``tile_alloc / M``, padded slots
+    per edge, peak device bytes beside ``memmodel``'s prediction.
+    ``max_scale`` caps the stand-in's scale (the CPU tests' small run)."""
+    import torch
+
+    from graphmine_tpu_torch import datasets
+    from graphmine_tpu_torch.graph.container import build_graph
+    from graphmine_tpu_torch.obs import memmodel
+    from graphmine_tpu_torch.ops.blocking import (
+        _SENTINEL,
+        BlockedPlan,
+        _blocked_tile,
+        build_family_plan,
+        plan_build_stats,
+        timed_plan_build,
+    )
+    from graphmine_tpu_torch.ops.cc import connected_components
+    from graphmine_tpu_torch.ops.lpa import label_propagation
+    from graphmine_tpu_torch.ops.pagerank import pagerank
+
+    t0 = time.perf_counter()
+    table = datasets.load(RUNG, seed=0, max_scale=max_scale)
+    load_s = time.perf_counter() - t0
+    v, e = table.num_vertices, table.num_edges
+    t0 = time.perf_counter()
+    graph = build_graph(table.src, table.dst, num_vertices=v, device=device)
+    _sync(device)
+    build_s = time.perf_counter() - t0
+    m = graph.num_messages
+    out: dict = {"rung": RUNG, "num_vertices": v, "num_edges": e, "num_messages": m,
+                 "load_seconds": load_s, "graph_build_seconds": build_s,
+                 "plan_build_seconds": {}, "ms_per_superstep": {}, "cc": {},
+                 "peak_bytes": {}, "predicted_bytes": {}}
+    labels, cc = {}, {}
+    for family in ("bucketed", "blocked"):
+        plan, secs = timed_plan_build(lambda: build_family_plan(graph, family))
+        out["plan_build_seconds"][family] = secs
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        ms, labels[family] = timed_ms(
+            lambda: label_propagation(graph, RUNG_LPA_STEPS, plan=plan), device, reps=1)
+        out["ms_per_superstep"][family] = ms / RUNG_LPA_STEPS
+        if torch.device(device).type == "cuda":
+            out["peak_bytes"][family] = torch.cuda.max_memory_allocated()
+        out["predicted_bytes"][family] = memmodel.superstep_footprint(
+            "lpa_superstep", "auto", v, m, num_edges=e, plan=plan).total_bytes
+        t0 = time.perf_counter()
+        cc[family] = connected_components(graph, plan=plan, return_iterations=True)
+        _sync(device)
+        out["cc"][f"{family}_seconds"] = time.perf_counter() - t0
+        if family == "blocked":
+            tile_ms, _ = timed_ms(lambda: _blocked_tile(plan, labels[family], _SENTINEL), device)
+            out["ms_per_superstep"]["blocked_tile"] = tile_ms
+            out["ms_per_superstep"]["blocked_reduce"] = out["ms_per_superstep"]["blocked"] - tile_ms
+            stats = plan_build_stats(plan, e)
+            out.update(bins=plan.num_bins, tile_slots=plan.tile_slots,
+                       tile_alloc_over_m=plan.tile_alloc / m,
+                       padded_slots_per_edge=stats["padded_slots_per_edge"])
+        del plan
+    require(torch.equal(labels["bucketed"], labels["blocked"]),
+            "10b: the blocked LPA labels differ from the bucketed family's")
+    require(torch.equal(cc["bucketed"][0], cc["blocked"][0]) and
+            cc["bucketed"][1] == cc["blocked"][1],
+            "10b: CC labels or superstep counts differ between the families")
+    out["cc"]["iterations"] = cc["blocked"][1]
+    out["cc"]["components"] = int(torch.unique(cc["blocked"][0]).numel())
+    del graph, labels, cc
+    # PageRank on the directed graph: the segment path against the blocked one
+    gd = build_graph(table.src, table.dst, num_vertices=v, symmetric=False, device=device)
+    pd = BlockedPlan.from_graph(gd)
+    seg_ms, seg = timed_ms(lambda: pagerank(gd, tol=0.0, max_iter=RUNG_PR_ITERS, plan=None),
+                           device, reps=1)
+    blk_ms, blk = timed_ms(lambda: pagerank(gd, tol=0.0, max_iter=RUNG_PR_ITERS, plan=pd),
+                           device, reps=1)
+    l1 = float((seg - blk).abs().sum())
+    max_rel = float(((seg - blk).abs() / seg.abs()).max())
+    require(l1 <= 1e-5 and max_rel <= 1e-4,
+            f"10b: blocked PageRank off the segment path (L1 {l1:.3g}, max rel {max_rel:.3g})")
+    out["pagerank"] = {"iterations": RUNG_PR_ITERS, "segment_ms": seg_ms, "blocked_ms": blk_ms,
+                       "l1": l1, "max_rel": max_rel}
+    log(f"10b {RUNG}: {out['ms_per_superstep']} ms/superstep, CC {out['cc']}, "
+        f"PageRank {out['pagerank']}")
+    return out
+
+
+def ladder_point(scale: int, device="cuda", tile_slots=None, with_rates: bool = True) -> dict:
+    """One 10c point: an R-MAT graph of ``scale`` drawn on ``device``,
+    both plans, the median of 5 timed supersteps of each family after a
+    warm-up (labels checked equal each time), the binned pass's slots/s
+    against a uniform random gather's on the same M slots, and each
+    family's peak bytes."""
+    import torch
+
+    from graphmine_tpu_torch.ops.blocking import (
+        _SENTINEL,
+        BlockedPlan,
+        _blocked_tile,
+        build_family_plan,
+        lpa_superstep_blocked,
+        timed_plan_build,
+    )
+    from graphmine_tpu_torch.ops.bucketed_mode import lpa_superstep_bucketed
+
+    graph, ptr = rmat_graph(scale, BLOCKED_EDGE_FACTOR, seed=scale, device=device)
+    v, m = graph.num_vertices, graph.num_messages
+    on_card = torch.device(device).type == "cuda"
+    bucketed, b_s = timed_plan_build(lambda: build_family_plan(graph, "bucketed"))
+    blocked, k_s = timed_plan_build(lambda: BlockedPlan.from_ptr(
+        ptr, v, graph.msg_send, tile_slots=tile_slots))
+    # a state one superstep in: the supersteps after the first are the
+    # ones a run repeats
+    lbl = lpa_superstep_bucketed(torch.arange(v, dtype=torch.int32, device=device), graph,
+                                 bucketed)
+    out = {"scale": scale, "num_vertices": v, "num_messages": m,
+           "plan_build_seconds": {"bucketed": b_s, "blocked": k_s}, "peak_bytes": {}}
+    steps = {"bucketed": lambda: lpa_superstep_bucketed(lbl, graph, bucketed),
+             "blocked": lambda: lpa_superstep_blocked(lbl, graph, blocked)}
+    times = {family: [] for family in steps}
+    for rep in range(BLOCKED_REPS + 1):  # the first is the warm-up, with the peaks
+        outs = {}
+        for family, step in steps.items():
+            if rep == 0 and on_card:
+                torch.cuda.reset_peak_memory_stats()
+            ms, outs[family] = one_ms(step, device)
+            if rep == 0 and on_card:
+                out["peak_bytes"][family] = torch.cuda.max_memory_allocated()
+            elif rep:
+                times[family].append(ms)
+        require(torch.equal(outs["bucketed"], outs["blocked"]),
+                f"10c scale {scale}: the families' labels differ")
+    for family, ms in times.items():
+        out[f"{family}_ms"] = float(np.median(ms))
+    out["blocked_over_bucketed"] = out["blocked_ms"] / out["bucketed_ms"]
+    if with_rates:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(11)
+        idx = torch.randint(0, v, (m,), generator=gen, device=device, dtype=torch.int64).to(
+            torch.int32)
+        gather_ms, _ = timed_ms(lambda: lbl[idx], device)
+        binned_ms, _ = timed_ms(lambda: _blocked_tile(blocked, lbl, _SENTINEL), device)
+        out["random_gather_slots_per_sec"] = m / (gather_ms / 1e3)
+        out["binned_pass_slots_per_sec"] = m / (binned_ms / 1e3)
+        out["binned_over_random"] = gather_ms / binned_ms
+    out.update(bins=blocked.num_bins, tile_slots=blocked.tile_slots,
+               tile_alloc_over_m=blocked.tile_alloc / m)
+    return out
+
+
+def blocked_ladder(device="cuda", scales=BLOCKED_SCALES, sweep_scale=BLOCKED_SWEEP_SCALE,
+                   tiles=BLOCKED_TILE_SWEEP) -> dict:
+    """Phase 10c: :func:`ladder_point` at each scale, then the bin budget
+    swept at ``sweep_scale``; the crossover is the smallest scale from
+    which the blocked superstep beats the bucketed one at it and at every
+    larger scale (None when it never does)."""
+    import torch
+
+    points = []
+    for scale in scales:
+        points.append(ladder_point(scale, device))
+        log(f"10c scale {scale}: {points[-1]}")
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    sweep = []
+    for tile in tiles:
+        p = ladder_point(sweep_scale, device, tile_slots=tile, with_rates=False)
+        sweep.append({"tile_slots_budget": tile, **{k: p[k] for k in (
+            "bins", "tile_slots", "tile_alloc_over_m", "blocked_ms", "bucketed_ms",
+            "blocked_over_bucketed")}})
+        log(f"10c scale {sweep_scale} tile {tile}: {sweep[-1]}")
+    return {"edge_factor": BLOCKED_EDGE_FACTOR, "points": points, "tile_sweep": sweep,
+            "crossover_scale": crossover_scale(points)}
+
+
+def crossover_scale(points: list):
+    """The smallest scale from which the blocked superstep beats the
+    bucketed one at it and at every larger scale of ``points`` (ascending
+    scales), or None."""
+    crossover = None
+    for p in reversed(points):
+        if p["blocked_ms"] >= p["bucketed_ms"]:
+            break
+        crossover = p["scale"]
+    return crossover
+
+
+def run_blocked(work: Path) -> None:
+    """Phase 10: 10a on phase 4's graph, 10b on the com-LiveJournal rung,
+    10c on the ladder; prints the ``blocked_small``, ``blocked`` and
+    ``blocked_ladder`` lines and the phase's seconds."""
+    t0 = time.perf_counter()
+    print(json.dumps({"blocked_small": blocked_small(work)}), flush=True)
+    print(json.dumps({"blocked": blocked_rung()}), flush=True)
+    print(json.dumps({"blocked_ladder": blocked_ladder()}), flush=True)
+    print(json.dumps({"blocked_phase_seconds": time.perf_counter() - t0}), flush=True)
+
+
+def run_blocked_only(work: Path) -> None:
+    """``--blocked-only``: phase 10, with phase 4's inputs written here."""
+    small_inputs(work)
+    run_blocked(work)
+
+
 def run_frames_only(work: Path) -> None:
     """``--frames-only``: phase 9 on phase 4's and phase 5's inputs,
     written here."""
@@ -3430,6 +3874,9 @@ def run_main_path(work: Path) -> None:
 
     # ---- 9. the GraphFrames entry point; then the kernels line ----------
     print_kernels(with_frames_launches(entries, run_frames(work, edges_pq)))
+
+    # ---- 10. the blocked superstep family --------------------------------
+    run_blocked(work)
 
 
 if __name__ == "__main__":

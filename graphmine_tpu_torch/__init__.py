@@ -9,8 +9,8 @@ CUDA unless the caller passes another ``device`` (the CPU parity tests
 pass ``device="cpu"``). The exact kNN of the LOF scorer runs a
 hand-written CUDA kernel (``csrc/knn_topk.cu``) on CUDA tensors.
 
-The graph operations, the ``GraphFrame`` front end and the relational
-``Table`` are exported here under the JAX package's names, lazily (PEP
+The graph operations (the blocked superstep family among them), the
+``GraphFrame`` front end and the relational ``Table`` are exported here under the JAX package's names, lazily (PEP
 562): ``graphmine_tpu_torch.louvain`` imports its module on first access.
 """
 
@@ -67,6 +67,13 @@ _EXPORTS = {
     "svd_plus_plus": ("graphmine_tpu_torch.ops.svdpp", "svd_plus_plus"),
     "svdpp_predict": ("graphmine_tpu_torch.ops.svdpp", "svdpp_predict"),
     "graphx_label_propagation": ("graphmine_tpu_torch.oracle", "graphx_label_propagation"),
+    "BlockedPlan": ("graphmine_tpu_torch.ops.blocking", "BlockedPlan"),
+    "blocked_inflow": ("graphmine_tpu_torch.ops.blocking", "blocked_inflow"),
+    "build_graph_and_blocked_plan": ("graphmine_tpu_torch.ops.blocking",
+                                     "build_graph_and_blocked_plan"),
+    "cc_superstep_blocked": ("graphmine_tpu_torch.ops.blocking", "cc_superstep_blocked"),
+    "lpa_superstep_blocked": ("graphmine_tpu_torch.ops.blocking", "lpa_superstep_blocked"),
+    "select_superstep_family": ("graphmine_tpu_torch.ops.blocking", "select_superstep_family"),
 }
 
 __all__ = ["resolve_device", *sorted(_EXPORTS)]

@@ -1,17 +1,26 @@
-"""Synthetic graph generators (host-side NumPy).
+"""Synthetic graph generators (host-side NumPy) and the benchmark ladder.
 
 Counterpart of ``graphmine_tpu/datasets.py``: ``rmat``, ``sbm``,
-``planted_anomaly_graph`` and ``inject_structural_anomalies``, copied
-so that the port never imports the JAX package. They draw from
+``planted_anomaly_graph``, ``inject_structural_anomalies`` and the SNAP
+ladder (``LadderRung``, ``LADDER``, ``snap_path``, ``load``), copied so
+that the port never imports the JAX package. They draw from
 ``np.random.default_rng(seed)`` in the same order as the JAX package's
-copies, so both packages get bit-equal graphs from one seed.
+copies, so both packages get bit-equal graphs from one seed. A rung loads
+its real SNAP edge list when the file is on disk and its R-MAT stand-in
+otherwise, so nothing is downloaded.
 """
 
 from __future__ import annotations
 
+import os
+from dataclasses import dataclass
+
 import numpy as np
 
-__all__ = ["rmat", "sbm", "inject_structural_anomalies", "planted_anomaly_graph"]
+__all__ = [
+    "rmat", "sbm", "LadderRung", "LADDER", "load", "snap_path",
+    "inject_structural_anomalies", "planted_anomaly_graph",
+]
 
 
 def rmat(
@@ -114,6 +123,61 @@ def sbm(
     v = int(offsets[-1])
     pairs = np.unique(src * v + dst)
     return (pairs // v).astype(np.int32), (pairs % v).astype(np.int32), blocks
+
+
+@dataclass(frozen=True)
+class LadderRung:
+    """One rung of the BASELINE.json benchmark ladder."""
+
+    name: str
+    snap_file: str  # the SNAP edge list's file name, when downloaded
+    scale: int  # R-MAT scale of the stand-in
+    edge_factor: float
+    description: str
+
+
+# The SNAP graphs' sizes, rounded to powers of two (BASELINE.json "configs").
+LADDER: dict[str, LadderRung] = {
+    r.name: r
+    for r in [
+        LadderRung("ego-facebook", "facebook_combined.txt", 12, 21.5,
+                   "SNAP ego-Facebook: 4K nodes / 88K edges — LPA + CC"),
+        LadderRung("com-amazon", "com-amazon.ungraph.txt", 18, 3.5,
+                   "SNAP com-Amazon: 335K nodes / 926K edges — Louvain vs LPA"),
+        LadderRung("com-livejournal", "com-lj.ungraph.txt", 22, 8.3,
+                   "SNAP com-LiveJournal: 4M nodes / 34M edges — sharded CSR over the mesh"),
+        LadderRung("twitter-2010", "twitter-2010.txt", 25, 42.0,
+                   "Twitter-2010: 41M nodes / 1.4B edges — streaming LOF at slice scale"),
+    ]
+}
+
+
+def snap_path(name: str, data_dir: str = "data") -> str | None:
+    """Path of the rung's real SNAP edge list, or ``None`` when absent."""
+    rung = LADDER.get(name)
+    if rung is None:
+        raise KeyError(f"unknown ladder rung {name!r}; have {sorted(LADDER)}")
+    path = os.path.join(data_dir, rung.snap_file)
+    return path if os.path.exists(path) else None
+
+
+def load(name: str, data_dir: str = "data", seed: int = 0, max_scale: int | None = None):
+    """A ladder rung as an :class:`~graphmine_tpu_torch.io.edges.EdgeTable`:
+    the real SNAP file when present (always in full), else the R-MAT
+    stand-in of ``seed``, its scale capped at ``max_scale``."""
+    rung = LADDER.get(name)
+    if rung is None:
+        raise KeyError(f"unknown ladder rung {name!r}; have {sorted(LADDER)}")
+    path = snap_path(name, data_dir)
+    if path is not None:
+        from graphmine_tpu_torch.io.edges import load_edge_list
+
+        return load_edge_list(path)
+    from graphmine_tpu_torch.io.edges import from_arrays
+
+    scale = rung.scale if max_scale is None else min(rung.scale, max_scale)
+    src, dst = rmat(scale, rung.edge_factor, seed=seed)
+    return from_arrays(src, dst)
 
 
 def planted_anomaly_graph(

@@ -11,8 +11,7 @@ Counterpart of the single-device part of ``graphmine_tpu/obs/costmodel.py``:
    (``GRAPHMINE_ROOFLINE_<NAME>``). No anchor of the JAX package is
    carried over: its seeds were measured on a TPU. Each anchor here comes
    from a card run recorded in ``PERF.md`` (one H100 80GB HBM3 at 700 W);
-   the multi-device exchange and the blocked family's binned pass have no
-   anchor until those families are ported.
+   the multi-device exchange has no anchor until that family is ported.
 3. **Predicted time** and the ``cost`` sub-record
    (:meth:`CostEstimate.record`, the shape ``obs.schema.COST_KEYS``
    checks) that rides ``plan_build`` / ``impl_selected`` /
@@ -47,6 +46,10 @@ ROOFLINE_SEEDS: dict = {
     # IVF kNN points/s end to end (index, search, merge): 262,144 points
     # in 2.93 s, the slowest of five runs (2.05-2.93 s).
     "lof_ivf_points_per_sec": 8.947e4,
+    # The blocked family's bin pass (sender-major read + tile scatter),
+    # slots/s: 69,625,446 slots in 6.207 ms at the com-LiveJournal scale
+    # (smoke phase 10c, scale 22).
+    "binned_slots_per_sec": 1.1218e10,
 }
 
 _SEED_PROVENANCE = {
@@ -61,6 +64,10 @@ _SEED_PROVENANCE = {
     "lof_ivf_points_per_sec": (
         "PERF.md s5: IVF outliers_lof, 262,144 points in 2.93 s "
         "(H100 80GB HBM3, 700 W)"
+    ),
+    "binned_slots_per_sec": (
+        "PERF.md s6: smoke phase 10c, the bin pass at R-MAT scale 22, 69,625,446 "
+        "slots in 6.207 ms (H100 80GB HBM3, 700 W)"
     ),
 }
 
@@ -159,13 +166,16 @@ def _sig(x: float, digits: int = 4) -> float:
 def _plan_family(plan) -> str:
     if plan is None:
         return "sort"
+    if hasattr(plan, "padded_row_slots"):  # ops.blocking.BlockedPlan
+        return "blocked"
     if hasattr(plan, "vertex_ids"):  # ops.bucketed_mode.BucketedModePlan
         return "bucketed"
     raise TypeError(f"unknown plan type {type(plan).__name__}")
 
 
 def _bucketed_padded_slots(plan) -> int:
-    slots = sum(int(m.shape[0]) * int(m.shape[1]) for m in plan.send_idx)
+    mats = plan.send_idx if plan.send_idx is not None else plan.msg_idx
+    slots = sum(int(m.shape[0]) * int(m.shape[1]) for m in mats)
     if plan.hist_send is not None:
         slots += int(plan.hist_send.shape[0])
     return slots
@@ -181,13 +191,17 @@ def _plan_weighted(plan) -> bool:
 def superstep_cost(op: str, family: str, num_vertices: int, num_messages: int,
                    num_edges: int, plan=None, weighted: bool | None = None,
                    anchors: dict | None = None) -> CostEstimate:
-    """Cost of one single-device superstep of ``family`` (``"sort"`` or
-    ``"bucketed"``; ``"auto"`` with a plan reads the family off it).
+    """Cost of one single-device superstep of ``family`` (``"sort"``,
+    ``"bucketed"`` or ``"blocked"``; ``"auto"`` with a plan reads the
+    family off it).
 
     With a built plan the padded slots are exact; without one the width
     ladder's ~10% padding estimates them. ``weighted`` doubles the
-    gathered bytes (``None`` infers it from the plan; CC passes False).
-    The blocked family is not ported: asking for it raises.
+    gathered bytes of the rows (``None`` infers it from the plan; CC
+    passes False). Per family: ``sort`` gathers M label slots,
+    ``bucketed`` the plan's padded slots, both at the gather rate;
+    ``blocked`` streams M slots into the tile at the binned rate, then
+    gathers its padded row slots at the gather rate. Each scatters V.
     """
     a = anchors if anchors is not None else rooflines()
     if plan is not None:
@@ -199,23 +213,28 @@ def superstep_cost(op: str, family: str, num_vertices: int, num_messages: int,
     v = int(num_vertices)
     gather = a["gather_slots_per_sec"]["v"]
     wf = 2 if weighted else 1
-    if family == "sort":
-        padded = m
-    elif family == "bucketed":
-        padded = _bucketed_padded_slots(plan) if plan is not None else int(m * _EST_PAD)
+    if family in ("sort", "bucketed"):
+        if family == "sort":
+            padded = m
+        else:
+            padded = _bucketed_padded_slots(plan) if plan is not None else int(m * _EST_PAD)
+        bytes_g, bytes_s = _I32 * padded * wf, _I32 * v
+        compute = (padded * wf) / gather
+    elif family == "blocked":
+        rows = int(plan.padded_row_slots) if plan is not None else int(m * _EST_PAD)
+        padded = m + rows
+        bytes_g, bytes_s = _I32 * (m + rows * wf), _I32 * (m + v)
+        compute = m / a["binned_slots_per_sec"]["v"] + (rows * wf) / gather
     else:
-        raise ValueError(
-            f"superstep family {family!r} has no cost model in the port "
-            "(sort and bucketed only; blocked waits for ROADMAP item A5)"
-        )
-    compute = (padded * wf) / gather
+        raise ValueError(f"unknown superstep family {family!r}")
     return CostEstimate(
         op=op, family=family, devices=1, slots=m, padded_slots=padded,
-        bytes_gathered=_I32 * padded * wf, bytes_scattered=_I32 * v,
+        bytes_gathered=bytes_g, bytes_scattered=bytes_s,
         padding_overhead=padded / m, exchange_bytes=0,
         compute_seconds=compute, exchange_seconds=0.0, predicted_seconds=compute,
         predicted_per_chip=num_edges / compute if compute > 0 else 0.0,
-        unit="edges/s/chip", roofline={"gather_slots_per_sec": a["gather_slots_per_sec"]},
+        unit="edges/s/chip",
+        roofline={k: a[k] for k in ("gather_slots_per_sec", "binned_slots_per_sec")},
     )
 
 

@@ -11,6 +11,14 @@ are XLA's layout on a TPU and are not carried over):
   ``[n_b, w_b]`` sender matrix and one int32 ``[n_b]`` vertex list per
   width class, the hubs' int32 sender and row-offset arrays, and the
   float32 weight matrices of a weighted plan;
+- the blocked plan (``ops/blocking.py::BlockedPlan``): the int32 stream
+  pair ``src_sorted``/``scatter_pos`` [M], the int32 tile of
+  ``tile_alloc`` slots, the int32 reduce rows and their vertex lists, and
+  the float32 weight rows of a weighted plan; its superstep holds the
+  streamed values [M] while the tile fills, then, class by class, the
+  gathered rows with the mode's scratch (smoke phase 10b measured the
+  streamed values alone 17% short of its peak: the index kernel copies
+  the scatter indices to int64, which the model now counts);
 - a superstep's transient: the labels padded with the sentinel and the
   output copy, then, bucket by bucket, the gathered ``[n_b, w_b]`` labels
   and the mode's scratch (pairwise: two bool ``[n_b, w_b, w_b]`` masks
@@ -66,8 +74,9 @@ KNN_FAST_F, KNN_FAST_K = 8, 128
 KNN_TILE_POINTS, KNN_TILE_FLOATS = 512, 512 * 9
 KNN_SCRATCH_MIN_K = 1761
 
-# The plan-time pre-degrade ladder: bucketed -> sort; sort is the floor.
-FAMILY_DEGRADE = {"bucketed": "sort", "sort": None}
+# The plan-time pre-degrade ladder: blocked -> bucketed -> sort; sort is
+# the floor.
+FAMILY_DEGRADE = {"blocked": "bucketed", "bucketed": "sort", "sort": None}
 
 
 @dataclass(frozen=True)
@@ -172,13 +181,16 @@ def superstep_footprint(op: str, family: str, num_vertices: int, num_messages: i
                         num_edges: int | None = None, plan=None,
                         weighted: bool | None = None, num_devices: int = 1) -> MemEstimate:
     """Footprint of one single-device superstep operating point
-    (``"sort"`` or ``"bucketed"``; ``"auto"`` with a plan reads it off).
+    (``"sort"``, ``"bucketed"`` or ``"blocked"``; ``"auto"`` with a plan
+    reads it off).
 
     With a plan the counts are exact: the graph's arrays, the plan's
-    matrices and the largest per-bucket (or hub-histogram) transient.
-    Without one the seeds estimate them; ``sort`` drops the plan and its
-    transient is the gathered message labels with ``segment_mode``'s sort
-    (two int64 keys and the permutation)."""
+    tensors and the largest transient of its superstep. Without one the
+    seeds estimate them; ``sort`` drops the plan and its transient is the
+    gathered message labels with ``segment_mode``'s sort (two int64 keys
+    and the permutation); ``blocked`` adds the stream pair and a tile of
+    at least M slots (every bin is padded to the largest) to the bucketed
+    seeds."""
     if int(num_devices) != 1:
         raise ValueError("the port's superstep footprint is single-device")
     if plan is not None:
@@ -187,10 +199,7 @@ def superstep_footprint(op: str, family: str, num_vertices: int, num_messages: i
             weighted = _plan_weighted(plan)
     weighted = bool(weighted)
     if family not in FAMILY_DEGRADE:
-        raise ValueError(
-            f"superstep family {family!r} has no memory model in the port "
-            "(sort and bucketed only; blocked waits for ROADMAP item A5)"
-        )
+        raise ValueError(f"unknown superstep family {family!r}")
     v = int(num_vertices)
     m = max(int(num_messages), 1)
     e = int(num_edges) if num_edges is not None else m // 2
@@ -211,8 +220,28 @@ def superstep_footprint(op: str, family: str, num_vertices: int, num_messages: i
         for key in ("plan_mats", "plan_vertex_ids", "gather_transient", "weight_mats"):
             if key in seeds:
                 inv[key] = seeds[key]
+        if family == "blocked":
+            inv["stream"] = 2 * _I32 * m
+            inv["tile"] = int(_I32 * m * _PAD)
         return MemEstimate(op=op, family=family, devices=1, weighted=weighted,
                            inventory=inv, exact=False)
+    if family == "blocked":
+        rows = int(plan.padded_row_slots)
+        inv["labels"] = 2 * _I32 * v  # in and out: the tile reads the labels as they are
+        inv["stream"] = 2 * _I32 * int(plan.num_messages)
+        inv["tile"] = _I32 * int(plan.tile_alloc)
+        inv["reduce_rows"] = _I32 * rows
+        inv["row_vertex"] = _I32 * sum(int(r.shape[0]) for r in plan.row_idx)
+        if weighted:
+            inv["weight_mats"] = _I32 * rows
+        # the streamed values and the int64 copy of the scatter indices
+        # the index kernel makes while the tile fills, then a class's rows
+        inv["gather_transient"] = max(
+            [(_I32 + 8) * int(plan.num_messages)]
+            + [_bucket_transient(int(r.shape[0]), int(r.shape[1]), weighted)
+               for r in plan.row_idx])
+        return MemEstimate(op=op, family=family, devices=1, weighted=weighted,
+                           inventory=inv, exact=True)
     padded = _bucketed_padded_slots(plan)
     ids = sum(int(x.shape[0]) for x in plan.vertex_ids)
     hub_msgs = 0 if plan.hist_send is None else int(plan.hist_send.shape[0])
@@ -222,7 +251,8 @@ def superstep_footprint(op: str, family: str, num_vertices: int, num_messages: i
     if weighted:
         inv["weight_mats"] = _I32 * padded
     transient = max((_bucket_transient(int(s.shape[0]), int(s.shape[1]), weighted)
-                     for s in plan.send_idx), default=0)
+                     for s in (plan.send_idx if plan.send_idx is not None else plan.msg_idx)),
+                    default=0)
     if n_hub:
         # the [n_hub, V] histogram, with the slot ids and ones (unweighted)
         # or the sorted int64 keys, their order and the run sums (weighted)

@@ -15,7 +15,9 @@ cross-cutting rules:
   ``run_id`` / ``trace_id`` / ``span_id`` / ``span_path`` carries all four;
 - a ``tenant`` key matches the tenant-id grammar;
 - the ``cost``, ``mem`` and ``*_sketch`` sub-records carry every key of
-  their shape.
+  their shape;
+- a ``plan_build`` record carries its family's shape fields (a blocked
+  plan's ``bins``, ``width_classes`` and ``tile_slots``).
 
 :data:`PORT_PHASES` lists the records only the port emits (its separate
 ``features`` phase, ``feature_mode``, the IVF index's ``ivf_index`` and
@@ -66,6 +68,9 @@ register("outliers_recursive_lpa", "seconds")
 register("outliers_lof", "seconds", "k", "devices", "features")
 register("outlier_summary", "method")
 register("ivf_fallback", "guard", "detail")
+# impl_selected: one per family resolution (superstep family sort /
+# bucketed / blocked, or the LOF kNN family); plan_build: one per plan
+# built or reused, its family's shape fields beside it (PLAN_FAMILY_KEYS)
 register("impl_selected", "op", "impl", "n", "reason")
 register("plan_build", "op", "family", "seconds", "padded_slots_per_edge")
 # achieved-vs-model throughput of a window of supersteps, with the cost
@@ -165,6 +170,12 @@ MEM_KEYS = frozenset((
     "unit",
 ))
 SKETCH_KEYS = frozenset(("bounds", "counts", "sum", "count"))
+# The fields a plan_build record of each family carries beyond the
+# registered keys (ops/blocking.plan_build_stats builds both families').
+PLAN_FAMILY_KEYS = {
+    "bucketed": ("bins", "width_classes"),
+    "blocked": ("bins", "width_classes", "tile_slots"),
+}
 
 
 def _sub_record(phase: str, key: str, sub, keys: frozenset, owner: str) -> list:
@@ -196,6 +207,10 @@ def validate_record(rec) -> list:
         missing = sorted(k for k in required if k not in rec)
         if missing:
             problems.append(f"{phase}: missing required keys {missing}")
+    if phase == "plan_build":
+        missing = [k for k in PLAN_FAMILY_KEYS.get(rec.get("family"), ()) if k not in rec]
+        if missing:
+            problems.append(f"plan_build: a {rec['family']} plan's record lacks {missing}")
     present = [k for k in _TRACE_KEYS if k in rec]
     if present and len(present) != len(_TRACE_KEYS):
         absent = sorted(set(_TRACE_KEYS) - set(present))

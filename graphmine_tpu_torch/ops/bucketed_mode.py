@@ -18,7 +18,10 @@ that sums each run on its own, hubs by a histogram whose sums come from a
 sort of the hub messages, each run summed on its own in message order.
 
 The plan's matrices are gathered on the graph's device from the resident
-sender array; only row starts and degrees are computed on the host.
+sender array; only row starts and degrees are computed on the host. A plan
+built without the senders carries message indices instead (``msg_idx``)
+and serves the generic :func:`bucketed_mode` over any ``[M]`` message
+array.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from graphmine_tpu_torch.device import resolve_device
 from graphmine_tpu_torch.graph.container import Graph, _build_with_csr
 from graphmine_tpu_torch.ops.segment import run_totals
 
@@ -55,6 +59,18 @@ def _extend_widths(max_deg: int) -> np.ndarray:
     return np.asarray(ws, dtype=np.int64)
 
 
+def _class_rows(deg: np.ndarray, widths: np.ndarray, eligible: np.ndarray) -> list:
+    """``[(width class, its vertices ascending)]`` over the ``eligible``
+    vertices (each with ``deg >= 1``), classes ascending: one stable sort
+    instead of a scan of every vertex per class."""
+    verts = np.nonzero(eligible)[0]
+    classes = np.searchsorted(widths, deg[verts])
+    order = np.argsort(classes, kind="stable")
+    uniq, first = np.unique(classes[order], return_index=True)
+    return [(int(c), verts[order[a:b]])
+            for c, a, b in zip(uniq, first, list(first[1:]) + [len(order)])]
+
+
 def _gather_rows(values: torch.Tensor, starts: torch.Tensor, degs: torch.Tensor,
                  w: int, fill) -> torch.Tensor:
     """``[n, w]`` matrix of each row's CSR entries of ``values`` (its
@@ -78,6 +94,9 @@ class BucketedModePlan:
     all ``None`` when no hub qualifies. Weighted plans: ``weight_mat[b]``
     float32 ``[n_b, w_b]`` slot-aligned with ``send_idx[b]`` (padding 0)
     and ``hist_weight`` the hub messages' weights; ``None`` otherwise.
+    A plan built without senders has ``send_idx=None`` and no hubs, and
+    carries ``msg_idx[b]``: int32 ``[n_b, w_b]`` message positions, padded
+    with ``M``.
     """
 
     vertex_ids: tuple
@@ -89,18 +108,30 @@ class BucketedModePlan:
     hist_row_offset: torch.Tensor | None = None
     weight_mat: tuple | None = None
     hist_weight: torch.Tensor | None = None
+    msg_idx: tuple | None = None
 
     @classmethod
-    def from_ptr(cls, ptr: np.ndarray, num_vertices: int, send: torch.Tensor,
-                 weights: torch.Tensor | None = None) -> "BucketedModePlan":
+    def from_graph(cls, graph: Graph, with_send: bool = False) -> "BucketedModePlan":
+        """The plan of ``graph`` on its device: fused (``send_idx``) with
+        ``with_send``, else message indices (``msg_idx``); weighted when
+        the graph is."""
+        return cls.from_ptr(graph.msg_ptr.cpu().numpy(), graph.num_vertices,
+                            graph.msg_send if with_send else None, weights=graph.msg_weight,
+                            device=graph.device)
+
+    @classmethod
+    def from_ptr(cls, ptr: np.ndarray, num_vertices: int, send: torch.Tensor | None,
+                 weights: torch.Tensor | None = None, device=None) -> "BucketedModePlan":
         """Plan from the host row pointers and the device sender array, with
-        the weight payload when ``weights`` (``[M]``, CSR order) is given."""
+        the weight payload when ``weights`` (``[M]``, CSR order) is given.
+        ``send=None`` builds the message-index plan on ``device`` (the
+        senders' device otherwise)."""
         ptr = np.asarray(ptr).astype(np.int64)
         deg = ptr[1:] - ptr[:-1]
         m = int(ptr[-1])
-        dev = send.device
+        dev = send.device if send is not None else resolve_device(device)
         hist_mask = np.zeros(len(deg), dtype=bool)
-        if num_vertices > 0:
+        if num_vertices > 0 and send is not None:
             allowed = max(_HIST_BUDGET // num_vertices, 0)
             cand = np.nonzero(deg > _HIST_MIN_DEG)[0]
             if len(cand) > allowed:
@@ -108,14 +139,15 @@ class BucketedModePlan:
             hist_mask[cand] = True
 
         widths = _extend_widths(int(deg[~hist_mask].max(initial=1)))
-        classes = np.searchsorted(widths, np.maximum(deg, 1))
-        bucketed = (deg > 0) & ~hist_mask
         vertex_ids, send_idx, weight_mat = [], [], []
-        for c in np.unique(classes[bucketed]):
-            rows = np.nonzero((classes == c) & bucketed)[0]
+        positions = None if send is not None else torch.arange(m, dtype=torch.int32, device=dev)
+        for c, rows in _class_rows(deg, widths, (deg > 0) & ~hist_mask):
             starts = torch.from_numpy(ptr[rows]).to(dev)
             degs = torch.from_numpy(deg[rows]).to(dev)
-            send_idx.append(_gather_rows(send, starts, degs, int(widths[c]), num_vertices))
+            if send is None:
+                send_idx.append(_gather_rows(positions, starts, degs, int(widths[c]), m))
+            else:
+                send_idx.append(_gather_rows(send, starts, degs, int(widths[c]), num_vertices))
             if weights is not None:
                 weight_mat.append(_gather_rows(weights, starts, degs, int(widths[c]), 0.0))
             vertex_ids.append(torch.from_numpy(rows.astype(np.int32)).to(dev))
@@ -134,7 +166,9 @@ class BucketedModePlan:
                 (rows * num_vertices).astype(np.int32)
             ).to(dev)
         return cls(
-            vertex_ids=tuple(vertex_ids), send_idx=tuple(send_idx),
+            vertex_ids=tuple(vertex_ids),
+            send_idx=tuple(send_idx) if send is not None else None,
+            msg_idx=None if send is not None else tuple(send_idx),
             num_vertices=num_vertices, num_messages=m,
             hist_vertex_ids=hist_vertex_ids, hist_send=hist_send,
             hist_row_offset=hist_row_offset,
@@ -287,6 +321,35 @@ def _hub_weight_hist(flat: torch.Tensor, weights: torch.Tensor, size: int) -> to
     return hist
 
 
+def bucketed_mode(plan: BucketedModePlan, messages: torch.Tensor, fallback: torch.Tensor,
+                  weights: str | None = "plan") -> torch.Tensor:
+    """Per-vertex mode of ``messages`` (int32 ``[M]`` in message-CSR order)
+    under a message-index plan; vertices without messages keep
+    ``fallback`` (int32 ``[V]``). ``weights="plan"`` takes the weighted
+    mode when the plan carries weights, ``None`` the plain mode."""
+    if weights not in ("plan", None):
+        raise ValueError("weights must be 'plan' or None")
+    if plan.msg_idx is None:
+        raise ValueError(
+            "this plan is fused (send_idx only) — use lpa_superstep_bucketed, "
+            "or build with from_graph/from_ptr for generic message reduction"
+        )
+    if messages.shape[0] != plan.num_messages or fallback.shape[0] != plan.num_vertices:
+        raise ValueError(
+            f"plan built for M={plan.num_messages}, V={plan.num_vertices} but got "
+            f"M={messages.shape[0]}, V={fallback.shape[0]} — plan/graph mismatch"
+        )
+    msgs_pad = torch.cat([messages.to(torch.int32), messages.new_full((1,), _SENTINEL,
+                                                                      dtype=torch.int32)])
+    out = fallback.to(torch.int32).clone()
+    wmats = (plan.weight_mat if weights == "plan" and plan.weight_mat is not None
+             else (None,) * len(plan.vertex_ids))
+    for ids, idx, wmat in zip(plan.vertex_ids, plan.msg_idx, wmats):
+        mat = msgs_pad[idx]
+        out[ids] = _bucket_mode(mat) if wmat is None else _bucket_wmode(mat, wmat)
+    return out
+
+
 def lpa_superstep_bucketed(labels: torch.Tensor, graph: Graph,
                            plan: BucketedModePlan) -> torch.Tensor:
     """One LPA superstep via the bucketed plan — labels identical to
@@ -305,6 +368,8 @@ def lpa_superstep_bucketed(labels: torch.Tensor, graph: Graph,
             "plan/graph mismatch"
         )
     labels = labels.to(torch.int32)
+    if plan.send_idx is None:
+        return bucketed_mode(plan, labels[graph.msg_send], labels)
     lbl_pad = torch.cat([labels, labels.new_full((1,), _SENTINEL)])
     out = labels.clone()
     wmats = plan.weight_mat or (None,) * len(plan.vertex_ids)

@@ -9,27 +9,33 @@ changes nothing (counted) or after ``V + 2`` supersteps. Every step is a
 minimum, which is exact in any order, so the scatter-min on CUDA (atomics)
 gives the same bits as the CPU and as the JAX package at every superstep.
 
-Plans: ``plan="auto"`` picks the sort-based superstep below 2^16 messages
-and the degree-bucketed one from there (the JAX package's
-``BUCKETED_MIN_MESSAGES``). The JAX package's third family, the blocked
-superstep (V >= 2^21 and M >= 2^22), is not ported yet (ROADMAP.md), so
-"auto" resolves to sort or bucketed only, and its records say so. With a
-sink, the fixpoint's supersteps are timed against the cost model in a
-``superstep_timing`` record, as the JAX package's CC does.
+Plans: ``plan="auto"`` resolves the family through
+:func:`~graphmine_tpu_torch.ops.blocking.select_superstep_family`, the
+policy LPA and PageRank share (sort below 2^16 messages, bucketed from
+there, blocked past the card's crossover), and reuses LPA's per-graph plan
+cache. A :class:`~graphmine_tpu_torch.ops.bucketed_mode.BucketedModePlan`
+or :class:`~graphmine_tpu_torch.ops.blocking.BlockedPlan` may be passed
+directly. With a sink, the auto resolution emits ``impl_selected`` and
+``plan_build``, and the fixpoint's supersteps are timed against the cost
+model in a ``superstep_timing`` record, as the JAX package's CC does.
 """
 
 from __future__ import annotations
-
-import time
 
 import torch
 
 from graphmine_tpu_torch.graph.container import Graph
 from graphmine_tpu_torch.obs.costmodel import emit_superstep_timing, superstep_cost, timed_fixpoint
-from graphmine_tpu_torch.ops.bucketed_mode import BucketedModePlan, plan_build_stats
+from graphmine_tpu_torch.ops.blocking import (  # noqa: F401 — BUCKETED_MIN_MESSAGES re-exported
+    BUCKETED_MIN_MESSAGES,
+    BlockedPlan,
+    cc_superstep_blocked,
+    emit_plan_records,
+    select_superstep_family,
+)
+from graphmine_tpu_torch.ops.bucketed_mode import BucketedModePlan
 
 _SENTINEL = (1 << 31) - 1
-BUCKETED_MIN_MESSAGES = 1 << 16
 
 
 def _scatter_min(values: torch.Tensor, index: torch.Tensor, size: int) -> torch.Tensor:
@@ -52,6 +58,9 @@ def cc_superstep_bucketed(labels: torch.Tensor, plan: BucketedModePlan) -> torch
     each bucket's ``[n_b, w_b]`` sender rows (padding reads the sentinel,
     which never wins), a scatter-min over the hubs' message spans, then
     the pointer jump. Equal to :func:`cc_superstep` every superstep."""
+    if plan.send_idx is None:
+        raise ValueError("cc_superstep_bucketed needs a fused plan (send_idx); build it with "
+                         "build_graph_and_plan or BucketedModePlan.from_graph(with_send=True)")
     labels = labels.to(torch.int32)
     lbl_pad = torch.cat([labels, labels.new_full((1,), _SENTINEL)])
     new = labels.clone()
@@ -66,38 +75,6 @@ def cc_superstep_bucketed(labels: torch.Tensor, plan: BucketedModePlan) -> torch
     return torch.minimum(new, new[new.to(torch.int64)])
 
 
-def select_cc_plan(num_messages: int) -> tuple[str, str]:
-    """``(family, reason)`` of ``plan="auto"``: ``"sort"`` or
-    ``"bucketed"``."""
-    blocked = "; the blocked family is not ported, so auto picks sort or bucketed"
-    if num_messages >= BUCKETED_MIN_MESSAGES:
-        return "bucketed", (f"M={num_messages} >= {BUCKETED_MIN_MESSAGES}: degree-bucketed "
-                            f"dense rows{blocked}")
-    return "sort", f"M={num_messages} < {BUCKETED_MIN_MESSAGES}: sort-based superstep{blocked}"
-
-
-def _auto_plan(graph: Graph, sink) -> BucketedModePlan | None:
-    """Resolve ``plan="auto"``, build the bucketed plan when it is picked,
-    and emit the ``impl_selected`` and ``plan_build`` records."""
-    family, reason = select_cc_plan(graph.num_messages)
-    plan = None
-    if family == "bucketed":
-        t0 = time.perf_counter()
-        plan = BucketedModePlan.from_ptr(graph.msg_ptr.cpu().numpy(), graph.num_vertices,
-                                         graph.msg_send)
-        seconds = time.perf_counter() - t0
-    if sink is not None:
-        cost = superstep_cost("cc_superstep", family, graph.num_vertices, graph.num_messages,
-                              graph.num_edges, plan=plan).record()
-        sink.emit("impl_selected", op="cc_superstep", impl=family, n=graph.num_messages,
-                  reason=reason, families=["sort", "bucketed"],
-                  thresholds={"bucketed_min_messages": BUCKETED_MIN_MESSAGES}, cost=cost)
-        if plan is not None:
-            sink.emit("plan_build", op="cc_superstep", seconds=round(seconds, 6),
-                      cached=False, cost=cost, **plan_build_stats(plan, graph.num_edges))
-    return plan
-
-
 def connected_components(graph: Graph, max_iter: int = 0, return_iterations: bool = False,
                          plan="auto", sink=None):
     """Weakly connected component labels, int32 ``[V]`` (each the smallest
@@ -106,15 +83,24 @@ def connected_components(graph: Graph, max_iter: int = 0, return_iterations: boo
 
     ``return_iterations`` also returns the supersteps run, the last,
     unchanged one included. ``plan``: ``"auto"`` (see the module note), a
-    fused :class:`BucketedModePlan` of this graph, or ``None`` for the
-    sort-based superstep. ``sink`` gets the ``impl_selected`` and
-    ``plan_build`` records of an auto resolution and the fixpoint's
-    ``superstep_timing`` record.
+    :class:`BucketedModePlan` or :class:`BlockedPlan` of this graph, or
+    ``None`` for the sort-based superstep. ``sink`` gets the
+    ``impl_selected`` and ``plan_build`` records of an auto resolution and
+    the fixpoint's ``superstep_timing`` record.
     """
     if isinstance(plan, str):
         if plan != "auto":
-            raise ValueError(f"unknown plan {plan!r}; use 'auto', a BucketedModePlan or None")
-        plan = _auto_plan(graph, sink)
+            raise ValueError(f"unknown plan {plan!r}; use 'auto', a BucketedModePlan, a "
+                             "BlockedPlan or None")
+        from graphmine_tpu_torch.ops.lpa import _cached_auto_plan
+
+        family, reason = select_superstep_family(graph.num_vertices, graph.num_messages,
+                                                 weighted=graph.msg_weight is not None)
+        plan, seconds, cached = None, 0.0, False
+        if family != "sort":
+            plan, seconds, cached = _cached_auto_plan(graph, family)
+        emit_plan_records(sink, "cc_superstep", plan, reason, seconds, cached,
+                          graph.num_edges, graph.num_messages, num_vertices=graph.num_vertices)
     elif plan is not None and (plan.num_vertices != graph.num_vertices
                                or plan.num_messages != graph.num_messages):
         raise ValueError(
@@ -138,7 +124,12 @@ def _fixpoint(graph: Graph, max_iter: int, plan) -> tuple:
     labels = torch.arange(graph.num_vertices, dtype=torch.int32, device=graph.device)
     iters, changed = 0, 1
     while changed > 0 and iters < limit:
-        new = cc_superstep(labels, graph) if plan is None else cc_superstep_bucketed(labels, plan)
+        if plan is None:
+            new = cc_superstep(labels, graph)
+        elif isinstance(plan, BlockedPlan):
+            new = cc_superstep_blocked(labels, plan)
+        else:
+            new = cc_superstep_bucketed(labels, plan)
         changed = int((new != labels).sum())
         labels = new
         iters += 1

@@ -1,7 +1,8 @@
 """Community census (PyTorch).
 
 Counterpart of ``graphmine_tpu/ops/census.py``: vertex and intra-community
-edge counts per label, as bincounts on the graph's device.
+edge counts per label, as bincounts on the graph's device, and the
+intra-community edge mask.
 """
 
 from __future__ import annotations
@@ -17,11 +18,17 @@ def community_sizes(labels: torch.Tensor) -> torch.Tensor:
     return torch.bincount(labels, minlength=labels.shape[0])
 
 
+def intra_community_edge_mask(labels: torch.Tensor, graph: Graph) -> torch.Tensor:
+    """Boolean ``[E]``: the edge's endpoints share a community (the induced
+    subgraph of every community at once)."""
+    return labels[graph.src] == labels[graph.dst]
+
+
 def community_edge_counts(labels: torch.Tensor, graph: Graph) -> torch.Tensor:
     """Intra-community edge count per label value, shape ``[V]``."""
-    ls, ld = labels[graph.src], labels[graph.dst]
     counts = torch.zeros(labels.shape[0], dtype=torch.int64, device=labels.device)
-    return counts.index_add_(0, ls, (ls == ld).to(torch.int64))
+    return counts.index_add_(0, labels[graph.src],
+                             intra_community_edge_mask(labels, graph).to(torch.int64))
 
 
 def census_table(labels: torch.Tensor, graph: Graph):

@@ -9,10 +9,13 @@ repeats itself bit for bit on each device). Damping ``alpha``, uniform or
 personalized teleport, dangling mass redistributed through the teleport
 vector, ranks summing to 1.
 
-The JAX package's blocked inflow (its bin-then-reduce layout, picked by
-``plan="auto"`` only from V >= 2^21 and M >= 2^22) is not ported:
-``"auto"`` keeps the segment path at every size here, and a plan object
-raises :class:`~graphmine_tpu_torch.pipeline.planner.PlanError`.
+A :class:`~graphmine_tpu_torch.ops.blocking.BlockedPlan` of a directed,
+unweighted graph routes the inflow through the destination-binned layout
+(:func:`~graphmine_tpu_torch.ops.blocking.blocked_inflow`; its row sums
+reassociate, so ranks agree with the segment path to float tolerance).
+``plan="auto"`` takes it only where the shared superstep policy picks the
+blocked family, past the card's crossover; everything else keeps the
+segment path bit for bit.
 
 The stopping rule is the JAX package's, ``delta > tol`` on the L1 change,
 read on the host once per iteration (one synchronise each).
@@ -24,20 +27,13 @@ import numpy as np
 import torch
 
 from graphmine_tpu_torch.graph.container import Graph
+from graphmine_tpu_torch.ops.blocking import (
+    BlockedPlan,
+    blocked_inflow,
+    emit_plan_records,
+    select_superstep_family,
+)
 from graphmine_tpu_torch.ops.segment import SegmentSums, segment_sum
-
-
-def _check_plan(plan) -> None:
-    """``"auto"`` and ``None`` take the segment path; a blocked plan is
-    refused for what it is, anything else as the JAX package refuses it."""
-    if isinstance(plan, str) and plan == "auto" or plan is None:
-        return
-    if not isinstance(plan, str) and hasattr(plan, "num_vertices") and hasattr(
-            plan, "num_messages"):
-        from graphmine_tpu_torch.pipeline.planner import _not_ported
-
-        raise _not_ported("blocked", "PageRank plan")
-    raise ValueError(f"plan must be 'auto', None, or a BlockedPlan; got {plan!r}")
 
 
 def _f32(x, device) -> torch.Tensor:
@@ -53,13 +49,46 @@ def pagerank(graph: Graph, alpha: float = 0.85, max_iter: int = 100, tol: float 
     per-edge weights ``[E]`` aligned with ``graph.src``: each vertex splits
     its rank across out-edges in proportion to weight (vertices whose
     out-weight is 0 are dangling). Stops when the L1 delta is no longer
-    above ``tol``, or after ``max_iter`` iterations. ``plan``: ``"auto"``
-    or ``None`` (the segment path); ``sink``: optional metrics sink for a
+    above ``tol``, or after ``max_iter`` iterations. ``plan``: ``"auto"``,
+    ``None`` (the segment path) or a ``BlockedPlan`` of this graph, which
+    needs a directed graph (``symmetric=False``: a symmetric CSR carries
+    both directions and would double the inflow) and ``weights=None`` (the
+    weights are edge-aligned, the plan CSR-aligned). ``sink``: optional
+    metrics sink for the auto resolution's ``impl_selected`` and
+    ``plan_build`` records (when it takes the blocked family) and a
     ``superstep_timing`` record of the run.
     """
-    _check_plan(plan)
+    resolved = None
+    if isinstance(plan, str) and plan == "auto":
+        if weights is None and not graph.symmetric:
+            from graphmine_tpu_torch.ops.lpa import _cached_auto_plan
+
+            family, reason = select_superstep_family(graph.num_vertices, graph.num_messages)
+            if family == "blocked":
+                resolved, seconds, cached = _cached_auto_plan(graph, "blocked")
+                emit_plan_records(sink, "pagerank_inflow", resolved, reason, seconds, cached,
+                                  graph.num_edges, graph.num_messages,
+                                  num_vertices=graph.num_vertices)
+    elif isinstance(plan, BlockedPlan):
+        if plan.num_vertices != graph.num_vertices or plan.num_messages != graph.num_messages:
+            raise ValueError(
+                f"plan built for V={plan.num_vertices}, M={plan.num_messages} but graph has "
+                f"V={graph.num_vertices}, M={graph.num_messages} — plan/graph mismatch")
+        if graph.symmetric:
+            raise ValueError(
+                "blocked PageRank needs a directed message CSR (build_graph(..., "
+                "symmetric=False)); this graph's CSR carries both directions and would "
+                "double the inflow")
+        if weights is not None:
+            raise ValueError(
+                "blocked PageRank does not carry the edge-aligned weights argument (the "
+                "plan's layout is CSR-aligned); pass plan=None for weighted ranks — weights "
+                "are never silently dropped")
+        resolved = plan
+    elif plan is not None:
+        raise ValueError(f"plan must be 'auto', None, or a BlockedPlan; got {plan!r}")
     if sink is None:
-        return _pagerank(graph, alpha, max_iter, tol, reset, weights)[0]
+        return _pagerank(graph, alpha, max_iter, tol, reset, weights, resolved)[0]
     from graphmine_tpu_torch.obs.costmodel import (
         emit_superstep_timing,
         superstep_cost,
@@ -67,10 +96,11 @@ def pagerank(graph: Graph, alpha: float = 0.85, max_iter: int = 100, tol: float 
     )
 
     (pr, iters), secs, cold = timed_fixpoint(
-        lambda: _pagerank(graph, alpha, max_iter, tol, reset, weights))
+        lambda: _pagerank(graph, alpha, max_iter, tol, reset, weights, resolved))
     iters = max(int(iters), 1)
-    cost = superstep_cost("pagerank_inflow", "sort", graph.num_vertices, graph.num_messages,
-                          graph.num_edges, weighted=weights is not None)
+    cost = superstep_cost("pagerank_inflow", "sort" if resolved is None else "auto",
+                          graph.num_vertices, graph.num_messages, graph.num_edges,
+                          plan=resolved, weighted=weights is not None)
     emit_superstep_timing(sink, "pagerank_inflow", cost, iters, iters, secs, graph.num_edges,
                           variant="fused", cold_compile=cold)
     return pr
@@ -82,12 +112,13 @@ def _as_tensor(x, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
 
 
-def _pagerank(graph: Graph, alpha, max_iter: int, tol, reset, weights):
-    """``(ranks, iterations)``."""
+def _pagerank(graph: Graph, alpha, max_iter: int, tol, reset, weights, plan=None):
+    """``(ranks, iterations)``; the inflow on ``plan``'s blocked layout
+    when one is given."""
     dev, v = graph.device, graph.num_vertices
     src = graph.src.to(torch.int64)
     by_src = SegmentSums(src, v)
-    inflow = SegmentSums(graph.dst, v)
+    inflow = SegmentSums(graph.dst, v) if plan is None else None
     if weights is None:
         out_w = by_src.sum(torch.ones(src.shape[0], dtype=torch.float32, device=dev))
         edge_frac = None
@@ -110,7 +141,9 @@ def _pagerank(graph: Graph, alpha, max_iter: int, tol, reset, weights):
     it = 0
     delta = 1.0
     while delta > tol and it < max_iter:
-        if edge_frac is None:
+        if plan is not None:
+            flow = blocked_inflow(plan, pr * inv_out)
+        elif edge_frac is None:
             flow = inflow.sum((pr * inv_out)[src])
         else:
             flow = inflow.sum(pr[src] * edge_frac)

@@ -7,11 +7,14 @@ device, with the same phases, records and run harness:
 
 - every phase runs under :func:`~graphmine_tpu_torch.pipeline.resilience.run_phase`
   (transient errors retried, memory errors walked down a degradation
-  ladder: the bucketed LPA superstep to ``single_sort``, the LOF kNN to
+  ladder: the blocked LPA superstep to ``single_bucketed`` and then
+  ``single_sort``, the bucketed one to ``single_sort``, the LOF kNN to
   the opposite family, IVF to the exact ``knn_topk`` kernel or back);
 - the planner checks the LPA operating point against the card's memory
-  before anything is allocated, and pre-degrades a family its model
-  already knows cannot fit;
+  before anything is allocated, resolves its superstep family (the
+  bucketed plan, or the blocked one past the card's crossover or when
+  ``GRAPHMINE_SUPERSTEP_FAMILY`` asks for it), built in the graph's CSR
+  pass, and pre-degrades a family its model already knows cannot fit;
 - LPA writes label checkpoints (every ``checkpoint_every`` supersteps and
   always the last) that ``resume`` continues from, bounds each superstep
   with the watchdog, checks the labels with the divergence tripwires and
@@ -23,8 +26,8 @@ device, with the same phases, records and run harness:
 
 ``community_method="louvain"`` or ``"leiden"`` runs that algorithm in
 LPA's place, as the JAX driver does: no LPA plan, no checkpoints, and the
-census takes its Q. The multi-device schedules and the blocked superstep
-family wait for later slices (ROADMAP.md queue 1).
+census takes its Q. The multi-device schedules wait for a later slice
+(ROADMAP.md queue 1, item A7).
 """
 
 from __future__ import annotations
@@ -135,7 +138,8 @@ def run_pipeline(config: PipelineConfig) -> PipelineResult:
 def _run_pipeline(config: PipelineConfig, m: MetricsSink,
                   device: torch.device) -> PipelineResult:
     from graphmine_tpu_torch.graph.container import build_graph
-    from graphmine_tpu_torch.ops.bucketed_mode import build_graph_and_plan, plan_build_stats
+    from graphmine_tpu_torch.ops.blocking import build_graph_and_blocked_plan, plan_build_stats
+    from graphmine_tpu_torch.ops.bucketed_mode import build_graph_and_plan
     from graphmine_tpu_torch.ops.census import census_table
     from graphmine_tpu_torch.ops.lpa import num_communities
     from graphmine_tpu_torch.ops.modularity import modularity
@@ -165,7 +169,7 @@ def _run_pipeline(config: PipelineConfig, m: MetricsSink,
     if config.community_method == "lpa" and config.backend != "graphframes":
         run_plan, sstep_plan = _plan_lpa(config, table, m, device)
 
-    # ---- build: message CSR + degree-bucketed plan, one pass -----------
+    # ---- build: message CSR + the family's plan, one pass ---------------
     def _build():
         resilience.fault_point("build_graph")
         if sstep_plan is None or sstep_plan.family == "sort":
@@ -173,18 +177,20 @@ def _run_pipeline(config: PipelineConfig, m: MetricsSink,
                             device=device)
             _sync(device)
             return g, [None]
+        build = (build_graph_and_blocked_plan if sstep_plan.family == "blocked"
+                 else build_graph_and_plan)
         t0 = time.perf_counter()
-        g, plan = build_graph_and_plan(table.src, table.dst, num_vertices=v,
-                                       edge_weights=table.weights, device=device)
+        g, plan = build(table.src, table.dst, num_vertices=v, edge_weights=table.weights,
+                          device=device)
         _sync(device)
         m.emit("plan_build", op="lpa_superstep", seconds=round(time.perf_counter() - t0, 6),
                cached=False,
-               cost=superstep_cost("lpa_superstep", "bucketed", v, g.num_messages, e,
+               cost=superstep_cost("lpa_superstep", sstep_plan.family, v, g.num_messages, e,
                                    plan=plan).record(),
                max_degree=int(g.degrees().max()) if g.num_vertices else 0,
                **plan_build_stats(plan, e))
         # a holder, so the LPA loop can release the plan when the ladder
-        # leaves the bucketed superstep
+        # leaves its superstep
         return g, [plan]
 
     with m.span("build_graph"), m.timed("build_graph"):
@@ -384,9 +390,16 @@ def _emit_superstep_telemetry(m: MetricsSink, new: torch.Tensor, old: torch.Tens
 def _run_lpa(config: PipelineConfig, table: EdgeTable, graph: Graph, m: MetricsSink,
              plan_holder: list, run_plan, sstep_plan, device: torch.device) -> torch.Tensor:
     """LPA one superstep at a time under the run harness: resume,
-    checkpoints, watchdog, tripwires, the bucketed → ``single_sort`` rung
-    and the per-superstep records."""
-    from graphmine_tpu_torch.ops.bucketed_mode import lpa_superstep_bucketed
+    checkpoints, watchdog, tripwires, the blocked → ``single_bucketed`` →
+    ``single_sort`` rungs and the per-superstep records."""
+    from graphmine_tpu_torch.ops.blocking import (
+        BlockedPlan,
+        build_family_plan,
+        lpa_superstep_blocked,
+        plan_build_stats,
+        timed_plan_build,
+    )
+    from graphmine_tpu_torch.ops.bucketed_mode import BucketedModePlan, lpa_superstep_bucketed
     from graphmine_tpu_torch.ops.lpa import lpa_superstep
 
     v, e, msgs = graph.num_vertices, graph.num_edges, graph.num_messages
@@ -455,12 +468,24 @@ def _run_lpa(config: PipelineConfig, table: EdgeTable, graph: Graph, m: MetricsS
             current["mem"] = memmodel.superstep_footprint(
                 "lpa_superstep", "sort", v, msgs, num_edges=e, weighted=is_weighted)
             return lambda lbl: lpa_superstep(lbl, graph)
+        if variant == "single_bucketed":
+            # the blocked → bucketed rung: the blocked plan went on entry;
+            # build the bucketed one (same labels, no tile or stream) and
+            # record its build like every other plan's
+            plan, secs = timed_plan_build(lambda: build_family_plan(graph, "bucketed"))
+            plan_holder[0] = plan
+            m.emit("plan_build", op="lpa_superstep", seconds=round(secs, 6), cached=False,
+                   cost=superstep_cost("lpa_superstep", "bucketed", v, msgs, e,
+                                       plan=plan).record(),
+                   **plan_build_stats(plan, e))
         plan = plan_holder[0]
         if plan is None:
-            raise ValueError("the bucketed LPA superstep needs the plan built with the graph")
+            raise ValueError("the fused LPA superstep needs the plan built with the graph")
         current["cost"] = superstep_cost("lpa_superstep", "auto", v, msgs, e, plan=plan)
         current["mem"] = memmodel.superstep_footprint("lpa_superstep", "auto", v, msgs,
                                                       num_edges=e, plan=plan)
+        if isinstance(plan, BlockedPlan):
+            return lambda lbl: lpa_superstep_blocked(lbl, graph, plan)
         return lambda lbl: lpa_superstep_bucketed(lbl, graph, plan)
 
     def save_ck(iteration: int, host_labels=None) -> None:
@@ -500,13 +525,15 @@ def _run_lpa(config: PipelineConfig, table: EdgeTable, graph: Graph, m: MetricsS
         def run():
             current["variant"] = variant
             # a rung's entry: release what the failed operating point held
-            # (its cached superstep and, off the bucketed superstep, the
-            # plan's matrices), then return the freed blocks to the card
+            # (its cached superstep and a plan this rung does not run),
+            # then return the freed blocks to the card
             stale = [key for key in superstep_cache if key != variant]
             for key in stale:
                 del superstep_cache[key]
                 warmed.discard(key)
-            if variant != "single" and plan_holder[0] is not None:
+            keeps_plan = variant == "single" or (
+                variant == "single_bucketed" and isinstance(plan_holder[0], BucketedModePlan))
+            if plan_holder[0] is not None and not keeps_plan:
                 plan_holder[0] = None
                 stale.append("plan")
             if stale:

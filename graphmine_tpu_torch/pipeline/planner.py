@@ -4,8 +4,10 @@ Counterpart of the single-device part of
 ``graphmine_tpu/pipeline/planner.py``: :func:`plan_run` checks the LPA
 operating point against the card's memory before anything is allocated
 (a config that cannot fit raises :class:`PlanError` with the numbers),
-:func:`plan_superstep` resolves the superstep family (``bucketed`` or
-``sort``) with its degradation rung, :func:`plan_lof` the LOF kNN family
+:func:`plan_superstep` resolves the superstep family (``blocked``,
+``bucketed`` or ``sort``, through the ops layer's
+:func:`~graphmine_tpu_torch.ops.blocking.select_superstep_family`) with
+its degradation rung, :func:`plan_lof` the LOF kNN family
 (``ivf`` or ``exact``) with the opposite family as its rung, and
 :func:`degradation_ladder` lists the memory rungs the driver walks.
 
@@ -16,8 +18,8 @@ the port's own buffers. The budget is the card's own memory
 device memory to budget, plans against a nominal 16 GiB.
 
 The JAX package's multi-device schedules (``replicated``, ``ring``), its
-``blocked`` and ``sharded_2d`` superstep families and the elastic device
-rungs are not ported: asking for one raises :class:`PlanError` naming the
+``sharded_2d`` superstep family and the elastic device rungs are not
+ported: asking for one raises :class:`PlanError` naming the
 ROADMAP item that ports it, never a silent substitute. One device has no
 elastic rung, so a device-loss error raises.
 """
@@ -28,7 +30,10 @@ import os
 from dataclasses import dataclass
 
 from graphmine_tpu_torch.obs import memmodel
-from graphmine_tpu_torch.ops.cc import BUCKETED_MIN_MESSAGES
+from graphmine_tpu_torch.ops.blocking import (  # noqa: F401 — the planner's policy surface
+    crossover_thresholds,
+    select_superstep_family,
+)
 
 # Off CUDA there is no device memory: a nominal budget, the JAX package's
 # default, keeps plans on the CPU comparable with its plans.
@@ -38,14 +43,8 @@ _DEFAULT_HBM = 16 * (1 << 30)
 _HBM_HEADROOM = 0.9
 _INT32_MAX = (1 << 31) - 1
 
-# Where the JAX package's auto policy takes its blocked family (V >= 2^21
-# and M >= 2^22, sized to TPU VMEM); the port says so in its reason.
-_JAX_BLOCKED_MIN_VERTICES = 1 << 21
-_JAX_BLOCKED_MIN_MESSAGES = 1 << 22
-
 # What is not ported, and the ROADMAP queue-1 item that ports it.
 _NOT_PORTED = {
-    "blocked": "A5 (blocked superstep family)",
     "sharded_2d": "A7 (multi-device)",
     "replicated": "A7 (multi-device)",
     "ring": "A7 (multi-device)",
@@ -110,66 +109,31 @@ def estimate_bytes_per_device(schedule: str, num_vertices: int, num_edges: int,
 
 
 def degradation_ladder(schedule: str, num_devices: int, family: str = "bucketed") -> list[str]:
-    """The LPA operating points after resource exhaustion: the bucketed
-    superstep steps down to ``single_sort`` (the padded plan matrices and
-    their transients go), and sort is the floor."""
+    """The LPA operating points after resource exhaustion: the blocked
+    superstep steps down to ``single_bucketed`` (the tile and the stream
+    arrays go, the bucketed plan is built) and then ``single_sort``, the
+    bucketed one to ``single_sort`` (the padded plan matrices and their
+    transients go), and sort is the floor."""
     if schedule != "single" or num_devices != 1:
         raise _not_ported(schedule if schedule in _NOT_PORTED else "replicated", "schedule")
     if family in _NOT_PORTED:
         raise _not_ported(family, "superstep family")
-    return [] if family == "sort" else ["single_sort"]
+    return {"blocked": ["single_bucketed", "single_sort"], "sort": []}.get(
+        family, ["single_sort"])
 
 
 @dataclass(frozen=True)
 class SuperstepPlan:
-    """Resolved superstep family: ``family`` (``"bucketed"`` / ``"sort"``)
-    and ``degrade_to``, the family a resource failure steps down to."""
+    """Resolved superstep family: ``family`` (``"blocked"`` /
+    ``"bucketed"`` / ``"sort"``) and ``degrade_to``, the family a resource
+    failure steps down to."""
 
     family: str
     degrade_to: str
     reason: str
 
 
-_SUPERSTEP_DEGRADE = {"bucketed": "sort", "sort": "sort"}
-
-
-def crossover_thresholds() -> dict:
-    """The active family-crossover constants, for the records."""
-    return {"bucketed_min_messages": BUCKETED_MIN_MESSAGES}
-
-
-def select_superstep_family(num_vertices: int, num_messages: int, requested: str = "auto",
-                            weighted: bool = False, num_devices: int = 1) -> tuple[str, str]:
-    """``(family, reason)``: ``requested``, else
-    ``GRAPHMINE_SUPERSTEP_FAMILY``, else ``bucketed`` from
-    ``BUCKETED_MIN_MESSAGES`` (2^16, the JAX package's crossover, which
-    CC's auto plan shares) and ``sort`` below. A family that is not ported raises
-    :class:`PlanError`; weights never change the choice."""
-    del weighted
-    if int(num_devices) != 1:
-        raise _not_ported("sharded_2d", "multi-device superstep")
-    for source, fam in (("requested", requested),
-                        ("GRAPHMINE_SUPERSTEP_FAMILY",
-                         os.environ.get("GRAPHMINE_SUPERSTEP_FAMILY") or "auto")):
-        if fam == "auto":
-            continue
-        if fam in _NOT_PORTED:
-            raise _not_ported(fam, "superstep family")
-        if fam not in ("bucketed", "sort"):
-            raise ValueError(f"unknown superstep family {fam!r}; expected bucketed, "
-                             "sort or auto")
-        why = (f"requested {fam!r}" if source == "requested"
-               else f"GRAPHMINE_SUPERSTEP_FAMILY={fam} (env override)")
-        return fam, why
-    note = ""
-    if num_vertices >= _JAX_BLOCKED_MIN_VERTICES and num_messages >= _JAX_BLOCKED_MIN_MESSAGES:
-        note = ("; the JAX package's blocked family starts here, and it is not "
-                "ported (ROADMAP item A5)")
-    if num_messages >= BUCKETED_MIN_MESSAGES:
-        return "bucketed", (f"M={num_messages} >= {BUCKETED_MIN_MESSAGES}: degree-bucketed "
-                            f"dense rows amortize the host plan build{note}")
-    return "sort", (f"M={num_messages} < {BUCKETED_MIN_MESSAGES}: sort-based "
-                    "segment_mode superstep (plan build would dominate)")
+_SUPERSTEP_DEGRADE = {"blocked": "bucketed", "bucketed": "sort", "sort": "sort"}
 
 
 def plan_superstep(num_vertices: int, num_messages: int, requested: str = "auto",

@@ -22,12 +22,12 @@ import torch
 
 from graphmine_tpu_torch import datasets
 from graphmine_tpu_torch.ops.bucketed_mode import build_graph_and_plan
+from graphmine_tpu_torch.ops.blocking import select_superstep_family
 from graphmine_tpu_torch.ops.cc import (
     BUCKETED_MIN_MESSAGES,
     cc_superstep,
     cc_superstep_bucketed,
     connected_components,
-    select_cc_plan,
 )
 from graphmine_tpu_torch.pipeline.metrics import MetricsSink
 
@@ -116,16 +116,41 @@ def test_fixpoint_and_iterations_equal(pair, bucketed):
     np.testing.assert_array_equal(capped.numpy(), np.asarray(jcapped))
 
 
-def test_auto_plan_picks_sort_or_bucketed_and_says_so(pair):
+def test_auto_plan_picks_sort_or_bucketed_and_says_so(pair, monkeypatch):
+    """``"auto"`` resolves through the shared superstep policy: sort or
+    bucketed by the message count, and blocked once the blocked walls
+    (set alike on both packages) are passed; labels and the
+    ``impl_selected`` / ``plan_build`` records equal the JAX package's
+    apart from times, reasons and the cost model's anchors."""
+    from graphmine_tpu.pipeline.metrics import MetricsSink as JSink
+
+    def strip(rec):
+        out = {k: v for k, v in rec.items() if k not in ("t", "seconds", "reason")}
+        out["cost"] = {k: v for k, v in rec["cost"].items()
+                       if k in ("family", "slots", "padded_slots", "bytes_gathered")}
+        if "thresholds" in rec:
+            out["thresholds"] = {k: v for k, v in rec["thresholds"].items()
+                                 if k in ("bucketed_min_messages", "blocked_min_messages",
+                                          "blocked_min_vertices")}
+        return out
+
     _, jgraph, _, graph, _ = pair
-    sink = MetricsSink()
-    labels = connected_components(graph, sink=sink)
-    np.testing.assert_array_equal(labels.numpy(), np.asarray(jconnected_components(jgraph)))
-    (sel,) = sink.of_phase("impl_selected")
-    want = "bucketed" if graph.num_messages >= BUCKETED_MIN_MESSAGES else "sort"
-    assert sel["op"] == "cc_superstep" and sel["impl"] == want
-    assert sel["families"] == ["sort", "bucketed"] and "blocked" in sel["reason"]
-    assert len(sink.of_phase("plan_build")) == (want == "bucketed")
+    monkeypatch.delenv("GRAPHMINE_SUPERSTEP_FAMILY", raising=False)
+    for walls in ("4194304", "1"):
+        monkeypatch.setenv("GRAPHMINE_BLOCKED_MIN_MESSAGES", walls)
+        monkeypatch.setenv("GRAPHMINE_BLOCKED_MIN_VERTICES", walls)
+        sink, jsink = MetricsSink(), JSink()
+        labels = connected_components(graph, sink=sink)
+        np.testing.assert_array_equal(labels.numpy(),
+                                      np.asarray(jconnected_components(jgraph, sink=jsink)))
+        (sel,) = sink.of_phase("impl_selected")
+        want = ("blocked" if walls == "1" else
+                "bucketed" if graph.num_messages >= BUCKETED_MIN_MESSAGES else "sort")
+        assert sel["op"] == "cc_superstep" and sel["impl"] == want
+        for phase in ("impl_selected", "plan_build"):
+            assert [strip(r) for r in sink.of_phase(phase)] == \
+                [strip(r) for r in jsink.of_phase(phase)], phase
+        assert len(sink.of_phase("plan_build")) == (want != "sort")
 
 
 def test_auto_plan_builds_the_bucketed_plan_past_the_crossover():
@@ -133,8 +158,8 @@ def test_auto_plan_builds_the_bucketed_plan_past_the_crossover():
     v = int(max(src.max(), dst.max())) + 1
     graph, plan = build_graph_and_plan(src, dst, num_vertices=v, device="cpu")
     assert graph.num_messages >= BUCKETED_MIN_MESSAGES
-    assert select_cc_plan(graph.num_messages)[0] == "bucketed"
-    assert select_cc_plan(BUCKETED_MIN_MESSAGES - 1)[0] == "sort"
+    assert select_superstep_family(v, graph.num_messages)[0] == "bucketed"
+    assert select_superstep_family(v, BUCKETED_MIN_MESSAGES - 1)[0] == "sort"
     sink = MetricsSink()
     labels, iters = connected_components(graph, return_iterations=True, sink=sink)
     ref, ref_iters = connected_components(graph, return_iterations=True, plan=None)

@@ -718,3 +718,65 @@ def test_same_partition_is_a_grouping_test():
     assert not chip_smoke.same_partition(a, {"x": 7, "y": 8, "z": 3})
     assert not chip_smoke.same_partition(a, {"x": 7, "y": 7, "z": 7})
     assert not chip_smoke.same_partition(a, {"x": 7, "y": 7})
+
+
+def test_parses_blocked_only():
+    assert chip_smoke.parse_args(["--blocked-only"]).blocked_only
+    assert not chip_smoke.parse_args([]).blocked_only
+    with pytest.raises(SystemExit):
+        chip_smoke.parse_args(["--blocked-only", "--frames-only"])
+
+
+def test_blocked_only_exits_nonzero_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the smoke would run")
+    out = subprocess.run([sys.executable, "chip_smoke.py", "--blocked-only"], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and "CUDA is not available" in out.stderr
+
+
+def test_blocked_small_phase_on_the_cpu(tmp_path):
+    """Phase 10a's checks with the CPU in the card's place: plan arrays,
+    every superstep against the bucketed one, PageRank, the pipeline on the
+    blocked family and its ``single_bucketed`` rung under an OOM."""
+    out = chip_smoke.blocked_small(tmp_path, devices=("cpu", "cpu"))
+    for case in ("unweighted", "weighted"):
+        assert out[case]["bins"] > 1
+        assert out[case]["pipeline"] == {**out[case]["pipeline"], "degrade": "single_bucketed",
+                                         "plans": ["blocked", "bucketed"]}
+    assert out["pagerank_max_rel"] == 0.0
+
+
+def test_blocked_rung_and_ladder_lines_on_the_cpu():
+    """10b at a capped scale and 10c at two small scales on the CPU: the
+    lines carry their keys and the families agree."""
+    rung = chip_smoke.blocked_rung("cpu", max_scale=11)
+    assert set(chip_smoke.BLOCKED_KEYS) <= set(rung)
+    assert rung["rung"] == "com-livejournal" and rung["cc"]["iterations"] >= 1
+    assert rung["pagerank"]["l1"] <= 1e-5 and rung["tile_alloc_over_m"] >= 1.0
+    ladder = chip_smoke.blocked_ladder("cpu", scales=(9, 10), sweep_scale=10, tiles=(128, 512))
+    for point in ladder["points"]:
+        assert set(chip_smoke.LADDER_KEYS) <= set(point)
+        assert point["num_messages"] == 2 * int(8.3 * (1 << point["scale"]))
+    assert [s["tile_slots_budget"] for s in ladder["tile_sweep"]] == [128, 512]
+    assert ladder["tile_sweep"][0]["bins"] > ladder["tile_sweep"][1]["bins"]
+
+
+def test_crossover_is_the_smallest_scale_won_from_there_on():
+    pts = lambda *wins: [{"scale": 20 + i, "blocked_ms": 1.0 if w else 2.0, "bucketed_ms": 1.5}
+                         for i, w in enumerate(wins)]  # noqa: E731
+    assert chip_smoke.crossover_scale(pts(True, False, False, False, False)) is None
+    assert chip_smoke.crossover_scale(pts(False, True, False, True, True)) == 23
+    assert chip_smoke.crossover_scale(pts(True, True, True, True, True)) == 20
+    assert chip_smoke.crossover_scale(pts(False, False, False, False, True)) == 24
+
+
+def test_card_rmat_draws_the_recipe_on_the_device():
+    graph, ptr = chip_smoke.rmat_graph(8, 8.3, seed=3, device="cpu")
+    assert graph.num_vertices == 256 and graph.num_edges == int(8.3 * 256)
+    assert graph.num_messages == 2 * graph.num_edges and ptr[-1] == graph.num_messages
+    again, _ = chip_smoke.rmat_graph(8, 8.3, seed=3, device="cpu")
+    assert torch.equal(graph.src, again.src) and torch.equal(graph.dst, again.dst)
+    deg = np.diff(ptr)
+    assert deg.max() > 8 * deg.mean()  # R-MAT's skew: hubs far above the mean

@@ -201,3 +201,25 @@ def test_compat_runner_takes_a_device_flag_without_jax(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ran"
+
+
+def test_blocked_family_exported_under_the_jax_names_without_jax():
+    # the blocked slice's names at the package level and under ops, each
+    # the port's own object, in a process where JAX cannot be imported
+    code = _BLOCKED + (
+        "import graphmine_tpu_torch as p, graphmine_tpu_torch.ops as o\n"
+        "names = ['BlockedPlan', 'blocked_inflow', 'build_graph_and_blocked_plan',\n"
+        "         'cc_superstep_blocked', 'lpa_superstep_blocked', 'select_superstep_family']\n"
+        "for mod in (p, o):\n"
+        "    assert set(names) <= set(mod.__all__), set(names) - set(mod.__all__)\n"
+        "    objs = [getattr(mod, n) for n in names]\n"
+        "    assert {x.__module__ for x in objs} == {'graphmine_tpu_torch.ops.blocking'}\n"
+        "from graphmine_tpu_torch.datasets import LADDER, LadderRung, load, snap_path\n"
+        "from graphmine_tpu_torch.ops.bucketed_mode import bucketed_mode\n"
+        "from graphmine_tpu_torch.ops.census import intra_community_edge_mask\n"
+        "print(len(names))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "6"

@@ -134,3 +134,96 @@ def test_recursive_outliers_bit_equal(name):
     for key in ("sub_labels", "outlier_vertices", "sub_sizes", "sub_parents"):
         np.testing.assert_array_equal(getattr(got, key), getattr(ref, key), err_msg=key)
     assert got.thresholds == ref.thresholds
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["unweighted", "weighted"])
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_generic_bucketed_mode_bit_equal(name, weighted):
+    """``bucketed_mode`` under a message-index plan (``from_graph``
+    without senders) equals the JAX package's, with the plan's weights or
+    forced plain, and serves the LPA superstep."""
+    from graphmine_tpu.ops.bucketed_mode import BucketedModePlan as JPlan
+    from graphmine_tpu.ops.bucketed_mode import bucketed_mode as jbucketed_mode
+
+    from graphmine_tpu_torch.ops.bucketed_mode import BucketedModePlan, bucketed_mode
+
+    src, dst, v = GRAPHS[name]
+    w = np.random.default_rng(2).integers(1, 8, len(src)).astype(np.float32) / 4 \
+        if weighted else None
+    jg = jbuild_graph(src, dst, num_vertices=v, edge_weights=w)
+    tg = build_graph(src, dst, num_vertices=v, edge_weights=w, device=CPU)
+    jp, tp = JPlan.from_graph(jg), BucketedModePlan.from_graph(tg)
+    assert tp.send_idx is None and tp.hist_vertex_ids is None
+    assert len(tp.msg_idx) == len(jp.msg_idx)
+    for a, b in zip(tp.msg_idx, jp.msg_idx):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    rng = np.random.default_rng(5)
+    msgs = rng.integers(0, 9, tg.num_messages).astype(np.int32)
+    fallback = rng.integers(0, v, v).astype(np.int32)
+    jmode = jax.jit(jbucketed_mode, static_argnames=("weights",))
+    for mode in ("plan", None):
+        got = bucketed_mode(tp, torch.tensor(msgs), torch.tensor(fallback), weights=mode)
+        want = jmode(jp, jnp.asarray(msgs), jnp.asarray(fallback), weights=mode)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    lbl = torch.arange(v, dtype=torch.int32)
+    np.testing.assert_array_equal(lpa_superstep_bucketed(lbl, tg, tp).numpy(),
+                                  lpa.lpa_superstep(lbl, tg).numpy())
+    with pytest.raises(ValueError, match="fused"):
+        bucketed_mode(build_graph_and_plan(src, dst, num_vertices=v, device=CPU)[1],
+                      torch.tensor(msgs), torch.tensor(fallback))
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_intra_community_edge_mask_bit_equal(name):
+    src, dst, v = GRAPHS[name]
+    jg = jbuild_graph(src, dst, num_vertices=v)
+    labels = np.asarray(jlpa.label_propagation(jg, max_iter=3, plan=None))
+    got = census.intra_community_edge_mask(torch.tensor(labels), build_graph(
+        src, dst, num_vertices=v, device=CPU))
+    want = jcensus.intra_community_edge_mask(jnp.asarray(labels), jg)
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_auto_plan_with_a_sink_matches_the_jax_records(name):
+    """``label_propagation``'s default ``plan="auto"`` takes the JAX
+    package's family (sort below 2^16 messages, bucketed from there),
+    gives its labels and history, and emits its ``impl_selected`` and
+    ``plan_build`` records (apart from times, reasons and the cost
+    model's anchors) and a ``superstep_timing`` record; custom
+    ``init_labels`` stay on the sort superstep."""
+    from graphmine_tpu.pipeline.metrics import MetricsSink as JSink
+
+    from graphmine_tpu_torch.pipeline.metrics import MetricsSink
+
+    def strip(rec):
+        out = {k: v for k, v in rec.items() if k not in ("t", "seconds", "reason",
+                                                          "thresholds", "cost")}
+        out["cost"] = {k: rec["cost"][k] for k in ("family", "slots", "padded_slots")}
+        return out
+
+    src, dst, v = GRAPHS[name]
+    jg = jbuild_graph(src, dst, num_vertices=v)
+    tg = build_graph(src, dst, num_vertices=v, device=CPU)
+    sink, jsink = MetricsSink(), JSink()
+    got, hist = lpa.label_propagation(tg, max_iter=5, return_history=True, sink=sink)
+    want, jhist = jlpa.label_propagation(jg, max_iter=5, return_history=True, sink=jsink)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(hist.numpy(), np.asarray(jhist))
+    for phase in ("impl_selected", "plan_build"):
+        assert [strip(r) for r in sink.of_phase(phase)] == \
+            [strip(r) for r in jsink.of_phase(phase)], phase
+    (timing,) = sink.of_phase("superstep_timing")
+    assert timing["window"] == 5 and timing["family"] == sink.of_phase(
+        "impl_selected")[0]["impl"]
+    # a second call reuses the cached plan; init_labels keep the sort path
+    sink = MetricsSink()
+    lpa.label_propagation(tg, max_iter=1, sink=sink)
+    assert all(r["cached"] for r in sink.of_phase("plan_build"))
+    sink = MetricsSink()
+    init = torch.arange(v, dtype=torch.int32)
+    np.testing.assert_array_equal(
+        lpa.label_propagation(tg, max_iter=2, init_labels=init, sink=sink).numpy(),
+        np.asarray(jlpa.label_propagation(jg, max_iter=2, init_labels=jnp.asarray(init.numpy()))))
+    assert not sink.of_phase("impl_selected")

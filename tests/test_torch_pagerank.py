@@ -79,14 +79,20 @@ def test_plan_auto_and_none_take_the_segment_path():
 
 
 def test_a_blocked_plan_is_refused_naming_a5():
-    from graphmine_tpu.ops.blocking import build_graph_and_blocked_plan
+    """A ``BlockedPlan`` of a directed graph routes the inflow through the
+    blocked layout: ranks within the module's tolerance of the JAX
+    package's blocked PageRank and of the segment path."""
+    from graphmine_tpu.ops.blocking import BlockedPlan as JBlockedPlan
 
-    rng = np.random.default_rng(5)
-    src, dst = rng.integers(0, 200, 1200), rng.integers(0, 200, 1200)
-    _, plan = build_graph_and_blocked_plan(src, dst, num_vertices=200, symmetric=False)
-    g = build_graph(src, dst, num_vertices=200, symmetric=False, device="cpu")
-    with pytest.raises(PlanError, match=r"A5 \(blocked superstep family\)"):
-        tpr.pagerank(g, plan=plan)
+    from graphmine_tpu_torch.ops.blocking import BlockedPlan
+
+    jg, g, _ = _graphs(5, 200, 1200, dangling=10)
+    plan, jplan = BlockedPlan.from_graph(g, tile_slots=128), JBlockedPlan.from_graph(
+        jg, tile_slots=128)
+    got = tpr.pagerank(g, tol=0.0, max_iter=20, plan=plan)
+    _close(jpr.pagerank(jg, tol=0.0, max_iter=20, plan=jplan), got)
+    _close(tpr.pagerank(g, tol=0.0, max_iter=20, plan=None), got)
+    assert not isinstance(got, PlanError)
 
 
 @pytest.mark.parametrize("plan", ["blocked", 3, object()], ids=["str", "int", "object"])

@@ -55,23 +55,38 @@ def test_plan_superstep_decides_as_the_jax_planner(requested, monkeypatch):
 
 
 def test_unported_families_and_schedules_raise_plan_errors(monkeypatch):
-    for fam, item in (("blocked", "A5"), ("sharded_2d", "A7")):
-        with pytest.raises(planner.PlanError, match=item):
-            planner.plan_superstep(1 << 22, 1 << 23, requested=fam)
-        monkeypatch.setenv("GRAPHMINE_SUPERSTEP_FAMILY", fam)
-        with pytest.raises(planner.PlanError, match=item):
-            planner.plan_superstep(4096, 1 << 20)
-        monkeypatch.delenv("GRAPHMINE_SUPERSTEP_FAMILY")
-        with pytest.raises(planner.PlanError, match=item):
-            planner.degradation_ladder("single", 1, family=fam)
+    """``sharded_2d`` and the multi-device schedules raise naming A7; the
+    blocked family resolves, requested or by the environment, with the
+    JAX planner's rung and ladder."""
+    monkeypatch.delenv("GRAPHMINE_SUPERSTEP_FAMILY", raising=False)
+    with pytest.raises(planner.PlanError, match="A7"):
+        planner.plan_superstep(1 << 22, 1 << 23, requested="sharded_2d")
+    monkeypatch.setenv("GRAPHMINE_SUPERSTEP_FAMILY", "sharded_2d")
+    with pytest.raises(planner.PlanError, match="A7"):
+        planner.plan_superstep(4096, 1 << 20)
+    monkeypatch.delenv("GRAPHMINE_SUPERSTEP_FAMILY")
+    with pytest.raises(planner.PlanError, match="A7"):
+        planner.degradation_ladder("single", 1, family="sharded_2d")
+    got = planner.plan_superstep(1 << 22, 1 << 23, requested="blocked")
+    want = jplanner.plan_superstep(1 << 22, 1 << 23, requested="blocked")
+    assert (got.family, got.degrade_to) == (want.family, want.degrade_to) == (
+        "blocked", "bucketed")
+    monkeypatch.setenv("GRAPHMINE_SUPERSTEP_FAMILY", "blocked")
+    assert planner.plan_superstep(4096, 1 << 20).family == \
+        jplanner.plan_superstep(4096, 1 << 20).family == "blocked"
+    monkeypatch.delenv("GRAPHMINE_SUPERSTEP_FAMILY")
+    assert planner.degradation_ladder("single", 1, family="blocked") == \
+        jplanner.degradation_ladder("single", 1, family="blocked")
     for sched in ("replicated", "ring"):
         with pytest.raises(planner.PlanError, match="A7"):
             planner.plan_run(1000, 5000, 1, requested=sched)
     with pytest.raises(planner.PlanError, match="A7"):
         planner.plan_run(1000, 5000, 4)
-    # above the JAX crossover "auto" stays on a ported family and says why
-    fam, why = planner.select_superstep_family(1 << 22, 1 << 23)
-    assert fam == "bucketed" and "not ported" in why
+    # past the port's blocked walls "auto" takes the blocked family
+    thr = planner.crossover_thresholds()
+    fam, why = planner.select_superstep_family(thr["blocked_min_vertices"],
+                                               thr["blocked_min_messages"])
+    assert fam == "blocked" and "10c" in why
 
 
 def test_ladders():
@@ -154,7 +169,7 @@ def test_no_anchor_is_a_tpu_number(monkeypatch):
     monkeypatch.delenv("GRAPHMINE_ROOFLINE_FILE", raising=False)
     anchors = costmodel.rooflines()
     assert set(anchors) == {"gather_slots_per_sec", "lof_exact_pairs_per_sec",
-                            "lof_ivf_points_per_sec"}
+                            "lof_ivf_points_per_sec", "binned_slots_per_sec"}
     for name, a in anchors.items():
         assert "H100" in a["src"] and not re.search(r"TPU|v5e|v5 lite|BENCH_r", a["src"]), name
     monkeypatch.setenv("GRAPHMINE_ROOFLINE_GATHER_SLOTS_PER_SEC", "1e9")
@@ -167,10 +182,16 @@ def test_cost_records_and_window_timer():
     from graphmine_tpu_torch.pipeline.metrics import MetricsSink
     from graphmine_tpu_torch.obs.schema import COST_KEYS, validate_records
 
+    from graphmine_tpu.obs.costmodel import superstep_cost as jcost
+
     cost = costmodel.superstep_cost("lpa_superstep", "bucketed", 1000, 10_000, 5_000)
     assert set(cost.record()) == COST_KEYS and cost.padded_slots == 11_000
-    with pytest.raises(ValueError, match="A5"):
-        costmodel.superstep_cost("lpa_superstep", "blocked", 1000, 10_000, 5_000)
+    # the blocked family's pre-build cost counts what the JAX model counts
+    blocked = costmodel.superstep_cost("lpa_superstep", "blocked", 1000, 10_000, 5_000)
+    want = jcost("lpa_superstep", "blocked", 1000, 10_000, 5_000)
+    for key in ("padded_slots", "bytes_gathered", "bytes_scattered", "padding_overhead"):
+        assert getattr(blocked, key) == getattr(want, key), key
+    assert set(blocked.roofline) == {"gather_slots_per_sec", "binned_slots_per_sec"}
     m = MetricsSink()
     wt = costmodel.WindowTimer()
     assert wt.flush(m, "lpa_superstep", cost, 1, 5_000) is None
