@@ -8,6 +8,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py --community-only # phases 1-3, then phase 8
     python3 chip_smoke.py --frames-only    # phases 1-3, then phase 9
     python3 chip_smoke.py --blocked-only   # phases 1-3, then phase 10
+    python3 chip_smoke.py --mesh-only      # phases 1-3, then phase 11
 
 In order, and failing on the first phase that fails:
 
@@ -85,7 +86,7 @@ In order, and failing on the first phase that fails:
    (65536, 8, 256) and (65536, 16, 128), times each instance, the plain
    version and one library call (``cdist`` + ``topk``) with CUDA events
    (their ``kernels`` line, with the operations bound, and the unfused
-   floors on a line of their own are printed after phase 9); then holds
+   floors on a line of their own are printed after phase 11); then holds
    the IVF kNN of phase
    5's features and of clustered clouds with planted outliers (262,144 x 8
    at k = 128, and the JAX package's gate cloud, 20,000 x 8 at k = 32)
@@ -192,10 +193,10 @@ In order, and failing on the first phase that fails:
    same script on ``planted_anomaly_graph(1 << 16, 1_000_000, seed=9)``
    written CommonCrawl-shaped with 64 null-domain rows, through the shim
    on the card; its LPA partition equals the ``GraphFrame`` API's on the
-   same file, name by name; prints the ``compat`` line. The ``kernels``
-   line of phase 6 is printed here, after phase 9, its entries carrying
-   phase 9's launches of their instance (``frames_launches``);
-10. (after the ``kernels`` line) the blocked superstep family: 10a
+   same file, name by name; prints the ``compat`` line; the ``kernels``
+   entries of phase 6 carry phase 9's launches of their instance
+   (``frames_launches``);
+10. the blocked superstep family: 10a
    (:func:`blocked_small`) on phase 4's graph, unweighted and in quarter
    weights, ~60 bins: the plan built on the card equal to the CPU's array
    for array, every LPA and CC superstep card == CPU == the bucketed
@@ -219,7 +220,33 @@ In order, and failing on the first phase that fails:
    22 the bin budget swept over 2^16, 2^18 and 2^20; prints the
    ``blocked_ladder`` line (with the crossover scale, None when blocked
    never wins from a scale on) and the phase's seconds;
-11. prints the smoke's total seconds, the card line again and the last
+11. the multi-device pipeline on a virtual mesh (``GRAPHMINE_VIRTUAL_DEVICES``:
+   the shards share the card, so every exchange is a copy inside it):
+   11a (:func:`mesh_small`) on phase 4's graph at D = 1, 2 and 4, card
+   against CPU: the partition arrays equal, sharded and ring LPA
+   (unweighted and in quarter weights), CC with its superstep count and
+   the sharded recursive-LPA flags equal to the single-device ops,
+   sharded and ring PageRank within L1 1e-5 and max relative 1e-4, the
+   sharded kNN's distances within rtol 1e-5 of ``knn_topk`` with 0 index
+   mismatches on a tie-free cloud, the sharded LOF within phase 4's
+   tolerance; a D = 4 checkpoint resumed at D = 2 and a device loss at
+   superstep 3 (4 -> 2, one ``mesh_degrade`` record) give the labels of
+   an uninterrupted run; prints the ``mesh_small`` line. 11b
+   (:func:`mesh_full`): phase 5's parquet through ``run_pipeline`` at 4
+   shards, ``schedule="replicated"`` then ``"ring"`` (phase 5 is the
+   D = 1 run): labels equal phase 5's, the sharded LOF's AUROC within
+   0.005 of phase 5's; each schedule's superstep at D = 1 and 4 (median
+   of 5 after a warm-up, partition seconds, peak bytes beside the
+   model's) and the ring kNN at D = 1 beside ``knn_topk``; prints the
+   ``mesh`` line. 11c (:func:`mesh_scale_out`): the same run with
+   ``GRAPHMINE_HBM_BYTES`` between the planner's replicated and
+   single-device estimates: the ``scale_out`` record, ``host-8-sampled``
+   features, the sharded recursive outliers, and a store whose labels and
+   CC equal phase 5's, the launch counts set to 0 just before and read
+   just after; prints the ``mesh_scale_out`` line and the phase's
+   seconds, then the ``kernels`` line of phase 6, its entries carrying
+   phase 11c's launches (``mesh_launches``);
+12. prints the smoke's total seconds, the card line again and the last
    line, ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only`` skips the pipelines: after phase 3 it holds and times
@@ -304,6 +331,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                       help="phases 1-3, then phase 9 (the GraphFrames entry point)")
     mode.add_argument("--blocked-only", action="store_true",
                       help="phases 1-3, then phase 10 (the blocked superstep family)")
+    mode.add_argument("--mesh-only", action="store_true",
+                      help="phases 1-3, then phase 11 (the multi-device pipeline on a "
+                           "virtual mesh)")
     return ap.parse_args(argv)
 
 
@@ -746,7 +776,8 @@ def main(argv=None) -> int:
         try:
             (run_community_only if args.community_only
              else run_frames_only if args.frames_only
-             else run_blocked_only if args.blocked_only else run_main_path)(work)
+             else run_blocked_only if args.blocked_only
+             else run_mesh_only if args.mesh_only else run_main_path)(work)
         finally:
             shutil.rmtree(work, ignore_errors=True)
 
@@ -3776,6 +3807,429 @@ def run_community_only(work: Path) -> None:
     community_full(edges_pq)
 
 
+# ---- 11. the multi-device pipeline on a virtual mesh ---------------------
+
+MESH_SHARDS = (1, 2, 4)
+MESH_DEVICES = 4          # the virtual mesh of 11b and 11c: 4 shards on the card
+MESH_KNN_K = 16           # 11a's sharded kNN and LOF
+MESH_REPS = 5
+MESH_PR_ITERS = 30
+MESH_MAX_AUROC_DELTA = 0.005
+
+
+def _virtual_devices(n: int):
+    """``GRAPHMINE_VIRTUAL_DEVICES=n`` for the block (the only setting that
+    makes a mesh repeat a device)."""
+    return mock.patch.dict(os.environ, {"GRAPHMINE_VIRTUAL_DEVICES": str(n)})
+
+
+def mesh_ops_small(device, shards=MESH_SHARDS, v: int = 4096, e: int = 60_000) -> dict:
+    """11a's operator results on ``device``: phase 4's graph partitioned
+    onto a virtual mesh of each shard count in ``shards`` (its partition
+    arrays, sharded and ring LPA unweighted and in quarter weights, CC with
+    its superstep count, sharded and ring PageRank on the directed graph),
+    and on a tie-free normal cloud the sharded kNN and LOF, each beside the
+    single-device op on the same device, and the recursive-LPA flags of
+    the sharded pass beside the masked one."""
+    import torch
+
+    from graphmine_tpu_torch import datasets
+    from graphmine_tpu_torch.device import visible_devices
+    from graphmine_tpu_torch.graph.container import build_graph
+    from graphmine_tpu_torch.ops.cc import connected_components
+    from graphmine_tpu_torch.ops.degrees import out_degrees
+    from graphmine_tpu_torch.ops.knn import knn
+    from graphmine_tpu_torch.ops.lof import lof_scores
+    from graphmine_tpu_torch.ops.lpa import label_propagation
+    from graphmine_tpu_torch.ops.outliers import (
+        recursive_lpa_outliers,
+        recursive_lpa_outliers_sharded,
+    )
+    from graphmine_tpu_torch.ops.pagerank import pagerank
+    from graphmine_tpu_torch.parallel import knn as pknn
+    from graphmine_tpu_torch.parallel import ring, sharded
+    from graphmine_tpu_torch.parallel.mesh import make_mesh
+
+    src, dst, _, _ = datasets.planted_anomaly_graph(v, e, seed=SEED_MAIN)
+    w = (np.random.default_rng(7).integers(1, 16, len(src)) / 4).astype(np.float32)
+    g = build_graph(src, dst, num_vertices=v, device=device)
+    gw = build_graph(src, dst, num_vertices=v, edge_weights=w, device=device)
+    gd = build_graph(src, dst, num_vertices=v, symmetric=False, device=device)
+    pts = torch.from_numpy(np.random.default_rng(3).normal(size=(v, 8)).astype(np.float32))
+    pts = pts.to(device)
+    single = {
+        "lpa": label_propagation(g, max_iter=5).cpu().numpy(),
+        "lpa_weighted": label_propagation(gw, max_iter=5).cpu().numpy(),
+        "pagerank": pagerank(gd, max_iter=MESH_PR_ITERS).cpu().numpy(),
+        "lof": lof_scores(pts, k=MESH_KNN_K, impl="exact").cpu().numpy(),
+    }
+    cc, cc_iters = connected_components(g, return_iterations=True)
+    single["cc"], single["cc_iterations"] = cc.cpu().numpy(), int(cc_iters)
+    d2, idx = knn(pts, MESH_KNN_K)
+    single["knn_d2"], single["knn_idx"] = d2.cpu().numpy(), idx.cpu().numpy()
+    single["flags"] = recursive_lpa_outliers(
+        g, torch.from_numpy(single["lpa"]).to(device)).outlier_vertices
+    out = {"single": single, "mesh": {}}
+    with _virtual_devices(max(shards)):
+        for d in shards:
+            mesh = make_mesh(d, devices=visible_devices(device)[:d])
+            part = sharded.partition_graph(g, mesh=mesh, build_bucket_plan=True)
+            part_w = sharded.partition_graph(gw, mesh=mesh, build_bucket_plan=True)
+            sg = sharded.shard_graph_arrays(part, mesh)
+            sgw = sharded.shard_graph_arrays(part_w, mesh)
+            sort_w = sharded.shard_graph_arrays(sharded.partition_graph(gw, mesh=mesh), mesh)
+            sgd = sharded.shard_graph_arrays(sharded.partition_graph(gd, mesh=mesh), mesh)
+            od = out_degrees(gd)
+            cc_d, tele = sharded.sharded_connected_components(sg, mesh, telemetry=True)
+            sd2, sidx = pknn.sharded_knn(pts, mesh, MESH_KNN_K)
+            r = {
+                "partition": {f: np.asarray(getattr(part, f)) for f in
+                              ("msg_recv_local", "msg_send", "degrees")}
+                | {f"bucket_send_{i}": b for i, b in enumerate(part.bucket_send)}
+                | {f"weight_{i}": b for i, b in enumerate(part_w.bucket_weight)},
+                "lpa": sharded.sharded_label_propagation(sg, mesh, max_iter=5).cpu().numpy(),
+                "lpa_weighted": sharded.sharded_label_propagation(
+                    sgw, mesh, max_iter=5).cpu().numpy(),
+                "ring_lpa": ring.ring_label_propagation(sg, mesh, max_iter=5).cpu().numpy(),
+                "ring_lpa_weighted": ring.ring_label_propagation(
+                    sort_w, mesh, max_iter=5).cpu().numpy(),
+                "cc": cc_d.cpu().numpy(), "cc_iterations": tele.iterations,
+                "ring_cc": ring.ring_connected_components(sg, mesh).cpu().numpy(),
+                "pagerank": sharded.sharded_pagerank(
+                    sgd, mesh, od, max_iter=MESH_PR_ITERS).cpu().numpy(),
+                "ring_pagerank": ring.ring_pagerank(
+                    sgd, mesh, od, max_iter=MESH_PR_ITERS).cpu().numpy(),
+                "knn_d2": sd2.cpu().numpy(), "knn_idx": sidx.cpu().numpy(),
+                "lof": pknn.sharded_lof(pts, mesh, k=MESH_KNN_K, impl="exact").cpu().numpy(),
+                "flags": recursive_lpa_outliers_sharded(
+                    g, single["lpa"], mesh).outlier_vertices,
+            }
+            out["mesh"][d] = r
+    return out
+
+
+def _ranks_close(got, want, what: str) -> dict:
+    """PageRank within L1 1e-5 and max relative 1e-4."""
+    l1 = float(np.abs(got - want).sum())
+    rel = float((np.abs(got - want) / np.abs(want)).max())
+    require(l1 <= 1e-5 and rel <= 1e-4, f"{what}: PageRank L1 {l1:.3g}, max relative {rel:.3g}")
+    return {"l1": l1, "max_rel": rel}
+
+
+def check_mesh_ops(card: dict, cpu: dict) -> dict:
+    """11a's gates on :func:`mesh_ops_small` results of the card and of
+    the CPU: partitions equal; every LPA, CC and recursive-LPA result
+    equal to the single-device op and to the CPU; PageRank within L1 1e-5
+    and max relative 1e-4 of the single-device op; kNN distances within
+    rtol 1e-5 of the single-device kNN (on the card ``knn_topk``) with 0
+    index mismatches; LOF within phase 4's tolerance."""
+    out = {}
+    for d, r in card["mesh"].items():
+        c = cpu["mesh"][d]
+        for f, a in r["partition"].items():
+            require(np.array_equal(a, c["partition"][f]), f"D={d}: partition {f} card != CPU")
+        for key, ref in (("lpa", "lpa"), ("ring_lpa", "lpa"), ("lpa_weighted", "lpa_weighted"),
+                         ("ring_lpa_weighted", "lpa_weighted"), ("cc", "cc"), ("ring_cc", "cc"),
+                         ("flags", "flags")):
+            require(np.array_equal(r[key], card["single"][ref]),
+                    f"D={d}: {key} != the single-device op on the card")
+            require(np.array_equal(r[key], c[key]), f"D={d}: {key} card != CPU")
+        require(r["cc_iterations"] == c["cc_iterations"] == card["single"]["cc_iterations"],
+                f"D={d}: CC superstep counts {r['cc_iterations']}, {c['cc_iterations']}, "
+                f"{card['single']['cc_iterations']}")
+        rank = {k: _ranks_close(r[k], card["single"]["pagerank"], f"D={d} {k}")
+                for k in ("pagerank", "ring_pagerank")}
+        np.testing.assert_allclose(r["knn_d2"], card["single"]["knn_d2"], rtol=1e-5, atol=0)
+        mismatch = int((r["knn_idx"] != card["single"]["knn_idx"]).sum())
+        require(mismatch == 0, f"D={d}: {mismatch} kNN index mismatches on a tie-free cloud")
+        _lof_close(r["lof"], card["single"]["lof"], f"D={d} sharded LOF")
+        out[d] = {"pagerank": rank, "cc_iterations": r["cc_iterations"],
+                  "knn_max_abs_err": float(np.abs(r["knn_d2"] - card["single"]["knn_d2"]).max()),
+                  "communities": int(len(np.unique(r["lpa"])))}
+    return out
+
+
+def mesh_pipelines_small(work: Path, device) -> dict:
+    """11a's pipeline cases on phase 4's parquet on ``device`` (outliers
+    off): an uninterrupted run at D = 4; a checkpoint saved at D = 4 after
+    3 supersteps and resumed at D = 2; a device loss injected at superstep
+    3 of a D = 4 run, walking 4 -> 2 with one ``mesh_degrade`` record.
+    Returns the labels and the records the gates read."""
+    from graphmine_tpu_torch.pipeline import PipelineConfig, run_pipeline
+    from graphmine_tpu_torch.testing import faults
+
+    def cfg(**kw):
+        return PipelineConfig(**{"data_path": str(work / "small.parquet"),
+                                 "outlier_method": "none", "max_iter": 5,
+                                 "device": str(device), **kw})
+
+    with _virtual_devices(MESH_DEVICES):
+        full = run_pipeline(cfg(num_devices=4))
+        ck = work / f"mesh_ck_{str(device).replace(':', '_')}"
+        shutil.rmtree(ck, ignore_errors=True)
+        run_pipeline(cfg(num_devices=4, max_iter=3, checkpoint_dir=str(ck)))
+        resumed = run_pipeline(cfg(num_devices=2, checkpoint_dir=str(ck), resume=True))
+        inj = faults.FaultInjector()
+        inj.add("lpa_superstep", faults.device_loss, at=3)
+        with inj.installed():
+            lost = run_pipeline(cfg(num_devices=4))
+    return {
+        "labels": full.labels, "resumed": resumed.labels, "lost": lost.labels,
+        "resume_iteration": resumed.metrics.of_phase("resume")[0]["iteration"],
+        "checkpoint_format": [r["format"] for r in full.metrics.of_phase("checkpoint_save")]
+        + ["sharded" if (ck / "lpa_sharded").is_dir() else "none"],
+        "mesh_degrade": records(lost.metrics, "mesh_degrade"),
+        "virtual": [r.get("virtual") for r in full.metrics.of_phase("partition")],
+    }
+
+
+def check_mesh_pipelines(card: dict, cpu: dict) -> dict:
+    """The pipeline cases' gates: every label vector equal to the
+    uninterrupted card run's and to the CPU's; the resume starts at
+    superstep 3 from the sharded checkpoint; one ``mesh_degrade`` record
+    from 4 to 2 devices, marked virtual."""
+    for key in ("labels", "resumed", "lost"):
+        require(np.array_equal(card[key], card["labels"]), f"11a pipeline {key} != uninterrupted")
+        require(np.array_equal(card[key], cpu[key]), f"11a pipeline {key} card != CPU")
+    require(card["resume_iteration"] == 3, f"resumed at {card['resume_iteration']}")
+    require(card["checkpoint_format"][-1] == "sharded", "no sharded checkpoint at D = 4")
+    md = card["mesh_degrade"]
+    require(len(md) == 1 and (md[0]["from_devices"], md[0]["to_devices"]) == (4, 2)
+            and md[0]["virtual"] is True, f"mesh_degrade records {md}")
+    require(all(card["virtual"]), "a virtual mesh's partition record lacks virtual: true")
+    return {"mesh_degrade": md[0], "resume_iteration": card["resume_iteration"]}
+
+
+def mesh_small(work: Path, devices=("cuda", "cpu"), size=(4096, 60_000)) -> dict:
+    """11a: card against CPU at 4,096 vertices, D in (1, 2, 4); ``size`` is
+    the operators' planted graph (vertices, edges), the pipelines read
+    phase 4's parquet."""
+    t0 = time.perf_counter()
+    ops = {dev: mesh_ops_small(dev, v=size[0], e=size[1]) for dev in devices}
+    pipes = {dev: mesh_pipelines_small(work, dev) for dev in devices}
+    out = {"ops": check_mesh_ops(ops[devices[0]], ops[devices[1]]),
+           "pipelines": check_mesh_pipelines(pipes[devices[0]], pipes[devices[1]]),
+           "seconds": time.perf_counter() - t0}
+    log(f"11a: card == CPU on D = {MESH_SHARDS} in {out['seconds']:.1f} s")
+    return out
+
+
+def superstep_point(graph, labels, schedule: str, d: int, device="cuda") -> dict:
+    """One operating point of 11b: the partition's seconds, then the median
+    of ``MESH_REPS`` supersteps after a warm-up (each superstep's labels
+    equal to the first's), and on the card the peak bytes beside the
+    model's (``sharded_superstep_footprint`` per shard, times the shards
+    that share the card) and the bytes resident before the timed
+    supersteps. ``labels`` are returned under ``"labels"``."""
+    import torch
+
+    from graphmine_tpu_torch.device import visible_devices
+    from graphmine_tpu_torch.obs.memmodel import sharded_superstep_footprint
+    from graphmine_tpu_torch.parallel import ring, sharded
+    from graphmine_tpu_torch.parallel.mesh import make_mesh
+
+    cuda = torch.device(device).type == "cuda"
+    mesh = make_mesh(d, devices=visible_devices(device)[:d])
+    _sync(device)
+    t0 = time.perf_counter()
+    sg = sharded.shard_graph_arrays(
+        sharded.partition_graph(graph, mesh=mesh, build_bucket_plan=schedule == "replicated"),
+        mesh, lpa_only=schedule == "replicated")
+    _sync(device)
+    part_s = time.perf_counter() - t0
+    run = ring.ring_label_propagation if schedule == "ring" else sharded.sharded_label_propagation
+    first = run(sg, mesh, max_iter=1, init_labels=labels)
+    _sync(device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    resident = int(torch.cuda.memory_allocated()) if cuda else None
+    ms, last = timed_ms(lambda: run(sg, mesh, max_iter=1, init_labels=labels), device,
+                        reps=MESH_REPS)
+    require(torch.equal(first, last), f"{schedule} D={d}: supersteps disagree")
+    est = sharded_superstep_footprint("lpa_superstep", sg, schedule=schedule)
+    return {"schedule": schedule, "devices": d, "virtual": d > 1, "ms": ms,
+            "partition_seconds": part_s, "family": est.family,
+            "peak_bytes": int(torch.cuda.max_memory_allocated()) if cuda else None,
+            # the graph, the partition and the labels, resident before the
+            # timed supersteps: peak minus resident is what the model counts
+            "resident_bytes": resident,
+            "predicted_bytes_per_shard": est.total_bytes,
+            "predicted_bytes": est.total_bytes * d, "labels": first}
+
+
+def ring_knn_point(feats, k: int = LOF_K) -> dict:
+    """The ring kNN at D = 1 (one hop: a plain PyTorch cross kNN) beside
+    ``knn_topk`` at the same shape, on the card; distances within rtol
+    1e-5, indices equal (the fast instance's ties and the plain version's
+    ties both go to the smaller index)."""
+    import torch
+
+    from graphmine_tpu_torch.device import visible_devices
+    from graphmine_tpu_torch.kernels.knn_cuda import knn_topk
+    from graphmine_tpu_torch.parallel.knn import sharded_knn
+    from graphmine_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(1, devices=visible_devices("cuda")[:1])
+    ring_ms, (rd, ri) = one_ms(lambda: sharded_knn(feats, mesh, k), "cuda")
+    kernel_ms, (kd, ki) = one_ms(lambda: knn_topk(feats, k), "cuda")
+    torch.testing.assert_close(rd, kd, rtol=1e-5, atol=0)
+    mismatch = int((ri != ki).sum())
+    n, f = feats.shape
+    return {"shape": [int(n), int(f), k], "ring_ms": ring_ms, "knn_topk_ms": kernel_ms,
+            "index_mismatches": mismatch}
+
+
+def mesh_full(work: Path, parquet: Path, is_anomaly, phase5: dict | None = None) -> dict:
+    """11b: phase 5's parquet through ``run_pipeline`` on a virtual mesh of
+    4 shards, ``schedule="replicated"`` then ``"ring"``; the D = 1 run is
+    phase 5's (run here when ``phase5`` is None). Gates: LPA labels equal
+    phase 5's, LOF (the sharded scorer, IVF at this size) AUROC within
+    0.005. Then each schedule's superstep at D = 1 and 4, and the ring kNN
+    at D = 1 beside ``knn_topk``. Returns the line and phase 5's
+    reference."""
+    from graphmine_tpu_torch.ops.lof import auroc
+    from graphmine_tpu_torch.pipeline import PipelineConfig
+
+    base = dict(data_path=str(parquet), batch_rows=BATCH_ROWS, max_iter=5,
+                outlier_method="both", lof_k=LOF_K, device="cuda")
+    if phase5 is None:
+        store = work / "store"
+        res, wall, _, peak = drive(PipelineConfig(**base, snapshot_out=str(store)), "11b D=1")
+        orig = generator_ids(res.edge_table.names)
+        phase5 = {"labels": res.labels, "wall": wall, "store_arrays": store_arrays(store),
+                  "auroc": auroc(res.lof, is_anomaly[orig]), "features": res.features}
+        del res
+    out = {"d1": {"wall_seconds": phase5.get("wall"), "lof_auroc": phase5["auroc"]}}
+    with _virtual_devices(MESH_DEVICES):
+        for sched in ("replicated", "ring"):
+            res, wall, launches, peak = drive(
+                PipelineConfig(**base, num_devices=MESH_DEVICES, schedule=sched), f"11b {sched}")
+            require(np.array_equal(res.labels, phase5["labels"]),
+                    f"11b {sched}: labels != phase 5's")
+            lof_auroc = auroc(res.lof, is_anomaly[generator_ids(res.edge_table.names)])
+            require(abs(lof_auroc - phase5["auroc"]) <= MESH_MAX_AUROC_DELTA,
+                    f"11b {sched}: AUROC {lof_auroc} vs phase 5's {phase5['auroc']}")
+            m = res.metrics
+            sel = [r for r in m.of_phase("impl_selected") if r["op"] == "lof_knn"][0]
+            require((sel["impl"], sel["devices"]) == ("ivf", MESH_DEVICES),
+                    f"11b {sched}: LOF ran {sel['impl']} on {sel['devices']} devices")
+            out[sched] = {
+                "wall_seconds": wall, "phase_seconds": m.phase_seconds(),
+                "communities": res.num_communities, "lof_auroc": lof_auroc,
+                "plan": {k: m.of_phase("plan")[0].get(k) for k in
+                         ("schedule", "bytes_per_device", "hbm_budget", "virtual")},
+                "partition": records(m, "partition"),
+                "superstep_timing": [{k: r[k] for k in ("iteration", "window", "seconds",
+                                                        "achieved_fraction", "virtual")}
+                                     for r in m.of_phase("superstep_timing")],
+                "lpa_iter_seconds": [r["seconds"] for r in m.of_phase("lpa_iter")],
+                "peak_device_bytes": peak, "launches": launches,
+            }
+            graph = res.graph
+            del res
+        labels = torch_labels(phase5["labels"])
+        points = []
+        for sched in ("replicated", "ring"):
+            for d in (1, MESH_DEVICES):
+                p = superstep_point(graph, labels, sched, d)
+                points.append(p)
+        ref = points[0].pop("labels")
+        for p in points[1:]:
+            require(bool((p.pop("labels") == ref).all()), "11b supersteps disagree across points")
+    out["supersteps"] = points
+    out["ring_knn"] = ring_knn_point(phase5["features"])
+    log(f"11b: {[(p['schedule'], p['devices'], round(p['ms'], 2)) for p in points]}")
+    return out, phase5
+
+
+def store_arrays(store: Path) -> dict:
+    """The edges, LPA and CC labels of a store's newest snapshot (read at
+    once: the serving phases publish later versions into phase 5's)."""
+    from graphmine_tpu_torch.serve.snapshot import SnapshotStore
+
+    snap = SnapshotStore(str(store)).load()
+    return {k: snap.arrays[k] for k in ("src", "labels", "cc_labels")}
+
+
+def torch_labels(labels):
+    import torch
+
+    return torch.from_numpy(np.asarray(labels, np.int32)).cuda()
+
+
+def mesh_scale_out(work: Path, parquet: Path, phase5: dict) -> dict:
+    """11c: the same run with ``GRAPHMINE_HBM_BYTES`` between the planner's
+    replicated per-device estimate and its single-device one (both read
+    from ``plan_run``): the ``scale_out`` record, the ``host-8-sampled``
+    features, the sharded recursive outliers, and a published snapshot
+    whose LPA and CC labels equal phase 5's store. The launch counts are
+    set to 0 just before the run and read just after (the publish's
+    canary launches ``knn_topk``)."""
+    from graphmine_tpu_torch.pipeline import PipelineConfig, planner
+    from graphmine_tpu_torch.serve.snapshot import SnapshotStore
+
+    ref = phase5["store_arrays"]
+    v, e = len(ref["labels"]), len(ref["src"])
+    est = planner.plan_run(v, e, MESH_DEVICES, hbm=1 << 50).estimates
+    hbm = int((est["replicated"] + est["single"]) / 2 / 0.9)
+    store = work / "store_scale_out"
+    with _virtual_devices(MESH_DEVICES), mock.patch.dict(os.environ,
+                                                         {"GRAPHMINE_HBM_BYTES": str(hbm)}):
+        res, wall, launches, peak = drive(PipelineConfig(
+            data_path=str(parquet), batch_rows=BATCH_ROWS, max_iter=5, outlier_method="both",
+            lof_k=LOF_K, device="cuda", num_devices=MESH_DEVICES, snapshot_out=str(store)),
+            "11c scale-out")
+    m = res.metrics
+    require(bool(m.of_phase("scale_out")) and res.scale_out, "11c: no scale_out record")
+    require(res.feature_mode == "host-8-sampled", f"11c features {res.feature_mode}")
+    rec = m.of_phase("outliers_recursive_lpa")[0]
+    require(rec.get("devices") == MESH_DEVICES, "11c: the recursive outliers did not shard")
+    require(launches["knn_topk"] >= 1, "11c: the publish's canary never launched knn_topk")
+    snap = SnapshotStore(str(store)).load()
+    for name in ("labels", "cc_labels"):
+        require(np.array_equal(snap.arrays[name], ref[name]),
+                f"11c: the scale-out store's {name} != phase 5's")
+    return {"hbm_budget": hbm, "estimates": est, "wall_seconds": wall,
+            "phase_seconds": m.phase_seconds(), "feature_mode": res.feature_mode,
+            "partition": records(m, "partition"), "cc_summary": records(m, "cc_summary"),
+            "peak_device_bytes": peak, "launches": launches,
+            "flagged_vertices": int(res.outliers.outlier_vertices.sum())}
+
+
+def run_mesh(work: Path, parquet: Path, is_anomaly, phase5: dict | None = None) -> dict:
+    """Phase 11: 11a, 11b, 11c; prints the ``mesh_small``, ``mesh`` and
+    ``mesh_scale_out`` lines and the phase's seconds; returns 11c's launch
+    counts (the phase's path)."""
+    t0 = time.perf_counter()
+    print(json.dumps({"mesh_small": mesh_small(work)}), flush=True)
+    full, phase5 = mesh_full(work, parquet, is_anomaly, phase5)
+    print(json.dumps({"mesh": full}, default=str), flush=True)
+    scale = mesh_scale_out(work, parquet, phase5)
+    print(json.dumps({"mesh_scale_out": scale}, default=str), flush=True)
+    print(json.dumps({"mesh_phase_seconds": time.perf_counter() - t0}), flush=True)
+    return scale["launches"]
+
+
+def run_mesh_only(work: Path) -> None:
+    """``--mesh-only``: phase 11, with phase 4's and phase 5's inputs
+    written here (11b then runs phase 5's pipeline itself, as its D = 1
+    run)."""
+    from graphmine_tpu_torch import datasets
+
+    small_inputs(work)
+    src, dst, is_anomaly, _ = datasets.planted_anomaly_graph(V_MAIN, E_MAIN, seed=SEED_MAIN)
+    edges_pq = work / "edges.parquet"
+    write_parquet(edges_pq, src, dst, V_MAIN)
+    del src, dst
+    run_mesh(work, edges_pq, is_anomaly)
+
+
+def with_mesh_launches(entries: list, mesh_launches: dict) -> list:
+    """The ``kernels`` entries, each with phase 11's launch count of its
+    instance on its path, 11c (``mesh_launches``)."""
+    return [{**e, "mesh_launches": mesh_launches[f"knn_topk_{e['instance']}"]} for e in entries]
+
+
 def run_main_path(work: Path) -> None:
     """Phases 4-7: small pipelines on the card against the CPU, the run
     harness on them, the main path, the main path under the harness,
@@ -3817,7 +4271,8 @@ def run_main_path(work: Path) -> None:
     feats_main = res.features
     orig_main = generator_ids(res.edge_table.names)
     phase5 = {"labels": res.labels, "flags": res.outliers.outlier_vertices,
-              "features": feats_main}
+              "features": feats_main, "auroc": summary["lof_auroc"], "wall": wall,
+              "store_arrays": store_arrays(store)}
     del res
 
     # ---- 5c. the main path under the run harness -------------------------
@@ -3872,11 +4327,15 @@ def run_main_path(work: Path) -> None:
     print(json.dumps({"community_small": community_small(work)}), flush=True)
     community_full(edges_pq)
 
-    # ---- 9. the GraphFrames entry point; then the kernels line ----------
-    print_kernels(with_frames_launches(entries, run_frames(work, edges_pq)))
+    # ---- 9. the GraphFrames entry point ---------------------------------
+    entries = with_frames_launches(entries, run_frames(work, edges_pq))
 
     # ---- 10. the blocked superstep family --------------------------------
     run_blocked(work)
+
+    # ---- 11. the multi-device pipeline on a virtual mesh; then the kernels
+    mesh_launches = run_mesh(work, edges_pq, is_anomaly, phase5)
+    print_kernels(with_mesh_launches(entries, mesh_launches))
 
 
 if __name__ == "__main__":

@@ -12,6 +12,9 @@ hand-written CUDA kernel (``csrc/knn_topk.cu``) on CUDA tensors.
 The graph operations (the blocked superstep family among them), the
 ``GraphFrame`` front end and the relational ``Table`` are exported here under the JAX package's names, lazily (PEP
 562): ``graphmine_tpu_torch.louvain`` imports its module on first access.
+The multi-device layer (the mesh, the replicated and ring supersteps, the
+sharded kNN/LOF) is :mod:`graphmine_tpu_torch.parallel`, as in the JAX
+package.
 """
 
 from graphmine_tpu_torch.device import resolve_device
@@ -74,6 +77,11 @@ _EXPORTS = {
     "cc_superstep_blocked": ("graphmine_tpu_torch.ops.blocking", "cc_superstep_blocked"),
     "lpa_superstep_blocked": ("graphmine_tpu_torch.ops.blocking", "lpa_superstep_blocked"),
     "select_superstep_family": ("graphmine_tpu_torch.ops.blocking", "select_superstep_family"),
+    "recursive_lpa_outliers_sharded": ("graphmine_tpu_torch.ops.outliers",
+                                       "recursive_lpa_outliers_sharded"),
+    "sharded_superstep_cost": ("graphmine_tpu_torch.obs.costmodel", "sharded_superstep_cost"),
+    "sharded_superstep_footprint": ("graphmine_tpu_torch.obs.memmodel",
+                                    "sharded_superstep_footprint"),
 }
 
 __all__ = ["resolve_device", *sorted(_EXPORTS)]

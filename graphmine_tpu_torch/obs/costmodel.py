@@ -10,8 +10,10 @@ Counterpart of the single-device part of ``graphmine_tpu/obs/costmodel.py``:
    (``GRAPHMINE_ROOFLINE_FILE``) or one env var per anchor
    (``GRAPHMINE_ROOFLINE_<NAME>``). No anchor of the JAX package is
    carried over: its seeds were measured on a TPU. Each anchor here comes
-   from a card run recorded in ``PERF.md`` (one H100 80GB HBM3 at 700 W);
-   the multi-device exchange has no anchor until that family is ported.
+   from a card run recorded in ``PERF.md`` (one H100 80GB HBM3 at 700 W).
+   The multi-device exchange rate (:data:`EXCHANGE_SEED`) is a seed that
+   was not measured: one card has no interconnect to time, and a virtual
+   mesh's exchange is a copy inside the card.
 3. **Predicted time** and the ``cost`` sub-record
    (:meth:`CostEstimate.record`, the shape ``obs.schema.COST_KEYS``
    checks) that rides ``plan_build`` / ``impl_selected`` /
@@ -70,6 +72,26 @@ _SEED_PROVENANCE = {
         "slots in 6.207 ms (H100 80GB HBM3, 700 W)"
     ),
 }
+
+# The label exchange of a sharded superstep, bytes/s per card: NVLink 4's
+# 450 GB/s a direction, from its specification. Not measured (see the
+# module note); GRAPHMINE_ROOFLINE_EXCHANGE_BYTES_PER_SEC overrides it.
+EXCHANGE_SEED = 4.5e11
+_EXCHANGE_PROVENANCE = (
+    "seed, not measured: NVLink 4's 450 GB/s a direction from its specification "
+    "(one H100 has no interconnect to time; a virtual mesh's exchange is a copy "
+    "inside the card)"
+)
+
+
+def exchange_anchor() -> dict:
+    """The exchange rate ``{"v": bytes/s, "src": provenance}``: the env
+    override, else the unmeasured seed."""
+    env = os.environ.get("GRAPHMINE_ROOFLINE_EXCHANGE_BYTES_PER_SEC")
+    if env:
+        return {"v": float(env), "src": "env"}
+    return {"v": EXCHANGE_SEED, "src": _EXCHANGE_PROVENANCE}
+
 
 # Width-ladder padding (<= 10% a row) for estimates made before a plan
 # exists to count exactly.
@@ -238,36 +260,131 @@ def superstep_cost(op: str, family: str, num_vertices: int, num_messages: int,
     )
 
 
+# ---- sharded supersteps ------------------------------------------------------
+
+
+def _stack_shape(a) -> tuple:
+    """``(D, ...)`` of a partition array, host-stacked or placed."""
+    if isinstance(a, tuple):
+        return (len(a), *a[0].shape)
+    return tuple(a.shape)
+
+
+def _sharded_family(sg) -> str:
+    """The family a built ``ShardedGraph`` runs: ``bucketed`` with a plan,
+    else ``sort``. One owner for the cost, footprint and
+    ``shard_exchange`` consumers."""
+    return "bucketed" if sg.bucket_send else "sort"
+
+
+def allgather_exchange_bytes(sg) -> int:
+    """Modeled exchange bytes per shard a superstep: every shard receives
+    the other ``D - 1`` chunks of the padded label vector (``4*Vc*(D-1)``),
+    whether as one all-gather (replicated) or D - 1 ring hops."""
+    return _I32 * int(sg.chunk_size) * max(int(sg.num_shards) - 1, 0)
+
+
+def neighbor_exchange_bytes(sg) -> int:
+    """The 2-D family's per-shard wire bytes; the port has no 2-D
+    partition (ROADMAP item A7b), so 0."""
+    return _I32 * max(int(sg.num_shards) - 1, 0) * int(getattr(sg, "x2d_boundary", 0))
+
+
+def neighbor_frontier_bytes(sg) -> int:
+    """The 2-D family's unpadded boundary bytes per shard; 0 without a
+    2-D partition."""
+    d = max(int(sg.num_shards), 1)
+    return _I32 * -(-int(getattr(sg, "x2d_boundary_total", 0)) // d)
+
+
+def sharded_superstep_cost(op: str, sg, num_edges: int, num_messages: int | None = None,
+                           weighted: bool | None = None,
+                           anchors: dict | None = None) -> CostEstimate:
+    """Cost of one sharded superstep of a built partition (shapes only):
+    per shard, the bucketed plan's padded slots or the sort body's padded
+    messages at the gather rate, plus the label exchange
+    (:func:`allgather_exchange_bytes`) at the unmeasured exchange seed."""
+    a = anchors if anchors is not None else rooflines()
+    exch = exchange_anchor()
+    d = int(sg.num_shards)
+    gather = a["gather_slots_per_sec"]["v"]
+    if weighted is None:  # explicit False models weight-blind ops (CC)
+        weighted = sg.msg_weight is not None or bool(sg.bucket_weight)
+    wf = 2 if weighted else 1
+    family = _sharded_family(sg)
+    if family == "bucketed":
+        mp = None
+        padded = sum(_stack_shape(b)[1] * _stack_shape(b)[2] for b in sg.bucket_send)
+    else:
+        mp = _stack_shape(sg.msg_send)[1]
+        padded = mp
+    bytes_g, bytes_s = _I32 * padded * wf, _I32 * int(sg.chunk_size)
+    compute = (padded * wf) / gather
+    m_total = int(num_messages) if num_messages is not None else \
+        (mp if mp is not None else padded) * d
+    m_chip = max(m_total // max(d, 1), 1)
+    exchange_bytes = allgather_exchange_bytes(sg)
+    exchange = exchange_bytes / exch["v"]
+    predicted = compute + exchange
+    return CostEstimate(
+        op=op, family=family, devices=d, slots=m_chip, padded_slots=padded,
+        bytes_gathered=int(bytes_g), bytes_scattered=int(bytes_s),
+        padding_overhead=padded / m_chip, exchange_bytes=int(exchange_bytes),
+        compute_seconds=compute, exchange_seconds=exchange, predicted_seconds=predicted,
+        predicted_per_chip=num_edges / (predicted * d) if predicted > 0 else 0.0,
+        unit="edges/s/chip",
+        roofline={"gather_slots_per_sec": a["gather_slots_per_sec"],
+                  "exchange_bytes_per_sec": exch},
+    )
+
+
+def emit_shard_exchange(sink, op: str, sg, **kv) -> dict | None:
+    """Emit one ``shard_exchange`` record: the modeled per-shard exchange
+    bytes of the family that ran beside the one-all-gather model
+    (``4*Vc*(D-1)``; the same for the families the port runs, so
+    ``frontier_frac`` is 1.0). ``kv`` may add ``virtual=True``. No-op
+    without a sink."""
+    if sink is None:
+        return None
+    d = int(sg.num_shards)
+    ladder = allgather_exchange_bytes(sg)
+    return sink.emit(
+        "shard_exchange", op=op, family=_sharded_family(sg), devices=d, peers=max(d - 1, 0),
+        exchange_bytes=int(ladder), frontier_bytes=int(ladder), ladder_bytes=int(ladder),
+        frontier_frac=1.0, boundary_slots=0, padded_boundary=0, **kv,
+    )
+
+
 # ---- LOF impls -------------------------------------------------------------
 
 
 def lof_cost(impl: str, n: int, k: int, features: int = 8, devices: int = 1,
              anchors: dict | None = None) -> CostEstimate:
-    """Cost of one LOF scoring pass over an ``[n, features]`` cloud on one
-    card: ``exact`` as n² pairs at the kernel's pair rate, ``ivf`` as n
-    points at the index's end-to-end rate (its candidate count depends on
-    the data)."""
+    """Cost of one LOF scoring pass over an ``[n, features]`` cloud:
+    ``exact`` as n² pairs at the kernel's pair rate (a ring over D shards
+    splits the rows, so 1/D each), ``ivf`` as n points at the index's
+    end-to-end rate over D shards (its candidate count depends on the
+    data)."""
     a = anchors if anchors is not None else rooflines()
     n = int(n)
+    d = max(int(devices), 1)
     if impl not in ("exact", "ivf"):
         raise ValueError(f"unknown LOF impl family {impl!r}")
-    if int(devices) != 1:
-        raise ValueError("the port's LOF cost model is single-device")
     if impl == "exact":
-        pairs = n * n
+        pairs = n * n // d
         compute = pairs / a["lof_exact_pairs_per_sec"]["v"]
         slots = pairs
         key = "lof_exact_pairs_per_sec"
     else:
-        compute = n / a["lof_ivf_points_per_sec"]["v"]
-        slots = n * max(k, 1)
+        compute = n / (a["lof_ivf_points_per_sec"]["v"] * d)
+        slots = n * max(k, 1) // d
         key = "lof_ivf_points_per_sec"
     return CostEstimate(
-        op="lof_knn", family=impl, devices=1, slots=slots, padded_slots=slots,
+        op="lof_knn", family=impl, devices=d, slots=slots, padded_slots=slots,
         bytes_gathered=_I32 * features * slots, bytes_scattered=_I32 * n,
         padding_overhead=1.0, exchange_bytes=0,
         compute_seconds=compute, exchange_seconds=0.0, predicted_seconds=compute,
-        predicted_per_chip=n / compute if compute > 0 else 0.0,
+        predicted_per_chip=n / (compute * d) if compute > 0 else 0.0,
         unit="points/s/chip", roofline={key: a[key]},
     )
 
@@ -278,12 +395,13 @@ def lof_cost(impl: str, n: int, k: int, features: int = 8, devices: int = 1,
 def emit_superstep_timing(sink, op: str, cost: CostEstimate | None, iteration: int,
                           window: int, seconds: float, num_edges: int,
                           variant: str | None = None,
-                          cold_compile: bool = False) -> dict | None:
+                          cold_compile: bool = False, **kv) -> dict | None:
     """Emit one ``superstep_timing`` record: the achieved rate of a window
     of ``window`` supersteps ending at ``iteration`` against ``cost``'s
     model (no-op without a sink or a cost). ``achieved_fraction`` is the
     predicted over the achieved time per superstep. The timing comes from
-    the caller's existing synchronise: no extra device sync."""
+    the caller's existing synchronise: no extra device sync. ``kv`` adds
+    keys (a virtual mesh's ``virtual=True``)."""
     if sink is None or cost is None:
         return None
     window = max(int(window), 1)
@@ -298,7 +416,7 @@ def emit_superstep_timing(sink, op: str, cost: CostEstimate | None, iteration: i
         edges_per_sec_per_chip=round(achieved),
         predicted_edges_per_sec_per_chip=round(cost.predicted_per_chip),
         achieved_fraction=_sig(fraction), devices=cost.devices,
-        cold_compile=bool(cold_compile), cost=cost.record(),
+        cold_compile=bool(cold_compile), cost=cost.record(), **kv,
     )
 
 
@@ -318,12 +436,12 @@ class WindowTimer:
         self.seconds = 0.0
         self.steps = 0
 
-    def flush(self, sink, op, cost, iteration, num_edges, variant=None) -> dict | None:
+    def flush(self, sink, op, cost, iteration, num_edges, variant=None, **kv) -> dict | None:
         """Emit the window accumulated so far (if any) and reset."""
         if not self.steps:
             return None
         rec = emit_superstep_timing(sink, op, cost, iteration, self.steps, self.seconds,
-                                    num_edges, variant=variant)
+                                    num_edges, variant=variant, **kv)
         self.reset()
         return rec
 

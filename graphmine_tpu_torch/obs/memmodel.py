@@ -59,6 +59,15 @@ _PAD = 1.10  # the width ladder pads each row by at most ~10%
 BYTES_PER_EDGE = 8.0 + 16.0 + 2 * _I32 * 2 * _PAD
 BYTES_PER_EDGE_WEIGHTED = 8.0 + _I32 * 2 * _PAD
 SINGLE_BYTES_PER_VERTEX = 20.0
+# The multi-device schedules (parallel/sharded.py, parallel/ring.py): the
+# O(E) terms above divide by D. Replicated, per vertex on every shard: the
+# full label vector in, its sentinel-padded copy, the all-gathered vector
+# out and the driver's [V] state. Ring, per vertex over D: the own chunk,
+# the new one, the chunk in hand, the copy in transit, the pointer jump's
+# gathered chunk and the driver's share of its [V] state.
+REPLICATED_BYTES_PER_VERTEX = 16.0
+RING_BYTES_PER_VERTEX = 24.0
+_SCHEDULES = ("single", "replicated", "ring")
 
 # The IVF search's chunk height (ops/ann.py _CHUNK_B) and its batched
 # distance block (_SEARCH_ELEMS entries), mirrored so this module needs no
@@ -112,33 +121,47 @@ class MemEstimate:
 
 def schedule_bytes_per_device(schedule: str, num_vertices: int, num_edges: int,
                               num_devices: int = 1, weighted: bool = False) -> int:
-    """Modeled peak bytes of the LPA operating point for ``schedule``; the
-    port runs ``"single"`` only."""
-    if schedule != "single":
-        raise ValueError(f"schedule {schedule!r} is multi-device; the port runs 'single'")
+    """Modeled peak bytes per device of the LPA operating point for
+    ``schedule`` (``single``, ``replicated`` or ``ring``)."""
+    v, e, d = float(num_vertices), float(num_edges), float(max(num_devices, 1))
     edge = BYTES_PER_EDGE + (BYTES_PER_EDGE_WEIGHTED if weighted else 0.0)
-    return int(edge * num_edges + SINGLE_BYTES_PER_VERTEX * num_vertices)
+    if schedule == "single":
+        return int(edge * e + SINGLE_BYTES_PER_VERTEX * v)
+    if schedule == "replicated":
+        return int(edge * e / d + REPLICATED_BYTES_PER_VERTEX * v)
+    if schedule == "ring":
+        return int(edge * e / d + RING_BYTES_PER_VERTEX * v / d)
+    raise ValueError(f"unknown schedule {schedule!r}")
 
 
 def schedule_inventory(schedule: str, num_vertices: int, num_edges: int,
                        num_devices: int = 1, weighted: bool = False) -> dict:
-    """The seeds decomposed into named components; their sum is
-    :func:`schedule_bytes_per_device` up to per-term rounding."""
-    if schedule != "single":
-        raise ValueError(f"schedule {schedule!r} is multi-device; the port runs 'single'")
+    """The seeds decomposed into named components per device; their sum
+    is :func:`schedule_bytes_per_device` up to per-term rounding."""
+    if schedule not in _SCHEDULES:
+        raise ValueError(f"unknown schedule {schedule!r}")
     v, e = float(num_vertices), float(num_edges)
-    mats = _I32 * 2 * _PAD * e
+    div = 1.0 if schedule == "single" else float(max(num_devices, 1))
+    mats = _I32 * 2 * _PAD * e / div
     inv = {
-        "edge_endpoints": 8.0 * e,
-        "message_csr": 16.0 * e + 4.0 * v,
+        "edge_endpoints": 8.0 * e / div,
+        "message_csr": 16.0 * e / div,
         "plan_mats": mats,
-        "plan_vertex_ids": 4.0 * v,
         "gather_transient": mats,
-        "labels": 12.0 * v,
     }
     if weighted:
-        inv["msg_weights"] = 8.0 * e
+        inv["msg_weights"] = 8.0 * e / div
         inv["weight_mats"] = mats
+    if schedule == "single":
+        inv["message_csr"] += 4.0 * v
+        inv["plan_vertex_ids"] = 4.0 * v
+        inv["labels"] = 12.0 * v
+    elif schedule == "replicated":
+        inv["labels_replicated"] = 12.0 * v
+        inv["exchange_buffer"] = 4.0 * v
+    else:
+        inv["labels_sharded"] = 8.0 * v / div
+        inv["ring_chunks"] = 16.0 * v / div
     return {k: int(b) for k, b in inv.items()}
 
 
@@ -147,7 +170,8 @@ def schedule_footprint(schedule: str, num_vertices: int, num_edges: int,
                        op: str = "run_plan") -> MemEstimate:
     """The whole-run model as a :class:`MemEstimate` (the ``plan``
     record's ``mem``)."""
-    return MemEstimate(op=op, family=schedule, devices=1, weighted=bool(weighted),
+    return MemEstimate(op=op, family=schedule, devices=max(int(num_devices), 1),
+                       weighted=bool(weighted),
                        inventory=schedule_inventory(schedule, num_vertices, num_edges,
                                                     num_devices, weighted),
                        exact=False)
@@ -263,6 +287,68 @@ def superstep_footprint(op: str, family: str, num_vertices: int, num_messages: i
                        inventory=inv, exact=True)
 
 
+# ---- one sharded superstep ----------------------------------------------------
+
+
+def _per_chip_bytes(arr) -> int:
+    """Bytes of one shard of a stacked ``[D, ...]`` partition array (host
+    or placed)."""
+    shape = (len(arr), *arr[0].shape) if isinstance(arr, tuple) else tuple(arr.shape)
+    n = 1
+    for x in shape[1:]:
+        n *= int(x)
+    return _I32 * n
+
+
+def sharded_superstep_footprint(op: str, sg, weighted: bool | None = None,
+                                schedule: str = "replicated") -> MemEstimate:
+    """Per-shard footprint of one sharded superstep, read off a built
+    partition's shapes: the shard's arrays (an ``lpa_only`` placement has
+    no sort-body arrays), its superstep's largest transient (a bucketed
+    class's gathered rows and mode scratch, or the sort body's gathered
+    labels with the segment mode's keys), and the labels of ``schedule``:
+    ``replicated`` holds the full vector in, its padded copy and the
+    gathered vector out; ``ring`` its chunk, the new one, the chunk in
+    hand and the one in transit. A virtual mesh puts every shard on one
+    device: that device holds ``devices`` times this."""
+    d, vc, v = int(sg.num_shards), int(sg.chunk_size), int(sg.padded_vertices)
+    if weighted is None:
+        weighted = sg.msg_weight is not None or bool(sg.bucket_weight)
+    weighted = bool(weighted)
+    inv: dict = {}
+    if sg.degrees is not None:
+        inv["degrees"] = _per_chip_bytes(sg.degrees)
+    msgs = sum(_per_chip_bytes(a) for a in (sg.msg_recv_local, sg.msg_send) if a is not None)
+    if msgs:
+        inv["shard_messages"] = msgs
+    if sg.msg_weight is not None:
+        inv["msg_weights"] = _per_chip_bytes(sg.msg_weight)
+    if sg.bucket_send:
+        family = "bucketed"
+        inv["plan_mats"] = sum(_per_chip_bytes(b) for b in sg.bucket_send)
+        inv["plan_vertex_ids"] = sum(_per_chip_bytes(t) for t in sg.bucket_target)
+        if sg.bucket_weight:
+            inv["weight_mats"] = sum(_per_chip_bytes(w) for w in sg.bucket_weight)
+        shapes = [((len(b), *b[0].shape) if isinstance(b, tuple) else b.shape)
+                  for b in sg.bucket_send]
+        inv["gather_transient"] = max(
+            (_bucket_transient(int(sh[1]), int(sh[2]), weighted) for sh in shapes), default=0)
+    else:
+        family = "sort"
+        mp = _per_chip_bytes(sg.msg_send) // _I32
+        inv["gather_transient"] = _I32 * mp * (2 if weighted else 1) + 3 * 8 * mp
+    if schedule == "ring":
+        inv["labels_sharded"] = 2 * _I32 * vc
+        inv["ring_chunks"] = 2 * _I32 * vc
+        if family == "sort":
+            inv["ring_gathered"] = _I32 * (_per_chip_bytes(sg.msg_send) // _I32)
+    else:
+        inv["labels_replicated"] = 2 * _I32 * v
+        inv["exchange_buffer"] = _I32 * v
+    return MemEstimate(op=op, family=family, devices=d, weighted=weighted, inventory=inv,
+                       exact=True)
+
+
 # ---- LOF ---------------------------------------------------------------------
 
 
@@ -289,12 +375,25 @@ def lof_footprint(impl: str, n: int, k: int, features: int = 8,
     """Workspace of one LOF scoring pass over ``[n, features]`` on the
     card: ``exact`` (``knn_topk``) or ``ivf`` (``ops/ann.py`` under the
     balanced-cluster model: each query's ``n_probe`` clusters are one
-    sublist each, every sublist's query list is padded by half a chunk)."""
-    n, k, f = int(n), max(int(k), 1), int(features)
+    sublist each, every sublist's query list is padded by half a chunk).
+    On ``devices`` > 1, ``exact`` is the ring-sharded kNN per shard (its
+    own and the visiting chunk, the running and the merged top-k, a
+    1,024-row distance tile with its int64 keys); ``ivf`` splits its search
+    but gathers the chunk results onto the first device for the merge, so
+    that device's footprint is the one-device one."""
+    n, k, f, d = int(n), max(int(k), 1), int(features), max(int(devices), 1)
     if impl not in ("exact", "ivf"):
         raise ValueError(f"unknown LOF impl family {impl!r}")
-    if int(devices) != 1:
-        raise ValueError("the port's LOF footprint is single-device")
+    if d > 1 and impl == "exact":
+        chunk = -(-n // d)
+        inv = {
+            "features": 2 * _I32 * chunk * f,
+            "knn_outputs": 3 * 2 * _I32 * chunk * k,
+            "distance_tile": (_I32 + 8) * 1024 * chunk,
+            "lof_transient": (8 + 4 * _I32) * n * k,
+        }
+        return MemEstimate(op="lof_knn", family=impl, devices=d, weighted=False,
+                           inventory=inv, exact=False)
     inv: dict = {
         "features": _I32 * n * f,
         "knn_outputs": 2 * _I32 * n * k,
@@ -315,7 +414,7 @@ def lof_footprint(impl: str, n: int, k: int, features: int = 8,
         # one batched [G, B, Lmax] block: distances, cross terms and the
         # int64 selection keys
         inv["search_block"] = (_I32 + _I32 + 8) * IVF_SEARCH_ELEMS
-    return MemEstimate(op="lof_knn", family=impl, devices=1, weighted=False,
+    return MemEstimate(op="lof_knn", family=impl, devices=d, weighted=False,
                        inventory=inv, exact=False)
 
 

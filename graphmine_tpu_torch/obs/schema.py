@@ -53,8 +53,12 @@ register("load", "seconds")
 register("counts", "rows_raw", "edges", "vertices")
 register("quarantine")
 register("plan", "schedule", "bytes_per_device", "hbm_budget", "reason")
+register("scale_out", "message")
 register("warning", "message")
 register("build_graph", "seconds")
+register("partition", "seconds", "shards", "schedule")
+register("shard_exchange", "op", "family", "devices", "peers", "exchange_bytes",
+         "frontier_bytes", "ladder_bytes", "frontier_frac")
 register("lpa", "seconds")
 register("louvain", "seconds", "gamma")
 register("leiden", "seconds", "gamma")
@@ -136,6 +140,8 @@ register("shard_degraded", "shard", "status", "reason")
 register("retry", "stage", "attempt", "backoff_s", "error")
 register("retries_exhausted", "stage", "attempts", "error")
 register("degrade", "stage", "to", "depth", "error")
+register("mesh_degrade", "from_devices", "to_devices", "schedule", "iteration",
+         "resumed_from", "dead_devices")
 register("tripwire", "kind", "shard", "iteration")
 register("watchdog_timeout", "stage", "timeout_s", "checkpointed")
 register("resume", "iteration")

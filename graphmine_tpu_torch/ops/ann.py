@@ -123,7 +123,7 @@ def _exact_fallback(pts, k: int, guard: str, detail: str, sink):
 
 
 def ivf_knn(points: torch.Tensor, k: int, n_clusters: int | None = None, n_probe: int = 16,
-            seed: int = 0, kmeans_iters: int = 5, sink=None, centers=None):
+            seed: int = 0, kmeans_iters: int = 5, sink=None, centers=None, search_exec=None):
     """Approximate k nearest neighbours (IVF-flat) of ``points`` ``[N, F]``
     on their device: ``(d2 float32 [N, k], idx int32 [N, k])`` ascending,
     self excluded, like :func:`~graphmine_tpu_torch.ops.knn.knn`.
@@ -137,6 +137,14 @@ def ivf_knn(points: torch.Tensor, k: int, n_clusters: int | None = None, n_probe
     ``sink``, an index that runs emits an ``ivf_index`` record of its sizes
     and of the host seconds of k-means with the probe and of the host
     tables.
+
+    ``search_exec`` replaces the executor of the cluster-batched search,
+    the dominant distance work: ``(pts, m_gid, m_valid, q_gid, row_sub,
+    k) -> (d2, gid)`` with :func:`_search_chunks`' arguments (tensors on
+    the points' device) and results of ``[R', 4096, k]``, ``R' >= R``
+    chunk rows, extra rows appended at the end (never read). The
+    mesh-sharded LOF splits this stage over a mesh
+    (:func:`graphmine_tpu_torch.parallel.knn.mesh_ivf_search_exec`).
     """
     pts = points.to(torch.float32).contiguous()
     dev = pts.device
@@ -260,14 +268,22 @@ def ivf_knn(points: torch.Tensor, k: int, n_clusters: int | None = None, n_probe
                   train_probe_seconds=t1 - t0, tables_seconds=time.perf_counter() - t1)
 
     to_dev = lambda a: torch.from_numpy(a).to(dev)
-    d2_all, gid_all = _search_chunks(pts, to_dev(m_gid), to_dev(m_valid), to_dev(q_gid),
-                                     to_dev(row_sub), k)
-    # per-pair rows, plus one all-inf junk row that pads the queries with
-    # fewer than p_max pairs (never selected)
+    exec_fn = search_exec if search_exec is not None else _search_chunks
+    d2_all, gid_all = exec_fn(pts, to_dev(m_gid), to_dev(m_valid), to_dev(q_gid),
+                              to_dev(row_sub), k)
+    if (d2_all.shape[0] < r_rows or tuple(d2_all.shape[1:]) != (chunk_b, k)
+            or gid_all.shape != d2_all.shape):
+        # a short result would clamp real pairs onto the junk row
+        raise ValueError(
+            f"search_exec returned shapes {tuple(d2_all.shape)}/{tuple(gid_all.shape)}; "
+            f"expected [R'>= {r_rows}, {chunk_b}, {k}] with extra rows appended at the end")
+    # per-pair rows (an executor's padded rows cut off), plus one all-inf
+    # junk row that pads the queries with fewer than p_max pairs (never
+    # selected)
     junk = r_rows * chunk_b
-    d2_flat = torch.cat([d2_all.reshape(-1, k),
+    d2_flat = torch.cat([d2_all.reshape(-1, k)[:junk].to(dev),
                          torch.full((1, k), float("inf"), dtype=torch.float32, device=dev)])
-    gid_flat = torch.cat([gid_all.reshape(-1, k),
+    gid_flat = torch.cat([gid_all.reshape(-1, k)[:junk].to(dev),
                           torch.full((1, k), -1, dtype=torch.int32, device=dev)])
     del d2_all, gid_all
     take = np.full((n, p_max), junk, np.int64)

@@ -112,9 +112,9 @@ def select_superstep_family(num_vertices: int, num_messages: int, requested: str
     walls of :func:`crossover_thresholds` decide: ``blocked`` from both
     its vertex and its message wall, ``bucketed`` from 2^16 messages,
     ``sort`` below. Weights never change the choice. ``sharded_2d`` and
-    more than one device raise
-    :class:`~graphmine_tpu_torch.pipeline.planner.PlanError` naming
-    ROADMAP item A7."""
+    more than one device (the sharded families of the serving repair)
+    raise :class:`~graphmine_tpu_torch.pipeline.planner.PlanError` naming
+    ROADMAP item A7b."""
     del weighted
     from graphmine_tpu_torch.pipeline.planner import _not_ported
 

@@ -105,11 +105,11 @@ def betweenness_centrality(graph: Graph, sources=None, normalized: bool = True,
     count as distinct shortest paths. ``directed`` defaults to ``not
     graph.symmetric``; undirected scores are halved, ``normalized``
     applies NetworkX's ``1/((V-1)(V-2))`` (×2 undirected). ``mesh`` (the
-    JAX package's source-sharded run) is not ported."""
+    JAX package's source-sharded run) waits for ROADMAP item A7b."""
     if mesh is not None:
         raise NotImplementedError(
-            "betweenness_centrality over a mesh is not ported to the single-device "
-            "PyTorch package; it waits for ROADMAP queue 1 item A7 (multi-device)"
+            "betweenness_centrality over a mesh (the source-sharded run) is not "
+            "ported; it waits for ROADMAP queue 1 item A7b (multi-device)"
         )
     v, dev = graph.num_vertices, graph.device
     if directed is None:

@@ -78,48 +78,64 @@ def smallest_k(d2: torch.Tensor, k: int):
 
 
 def _tiled_knn(points: torch.Tensor, k: int, row_tile: int = 1024):
-    """The plain version: row tiles of the distance matrix, each reduced to
-    its k smallest entries (:func:`smallest_k`)."""
-    pts = points.to(torch.float32)
-    n = pts.shape[0]
-    sq = _sq_norms(pts)
-    out_d = torch.empty((n, k), dtype=torch.float32, device=pts.device)
-    out_i = torch.empty((n, k), dtype=torch.int32, device=pts.device)
-    for r0 in range(0, n, row_tile):
-        r1 = min(r0 + row_tile, n)
-        d2 = _sq_dists(pts[r0:r1], sq[r0:r1], pts, sq)
-        rows = torch.arange(r1 - r0, device=pts.device)
-        d2[rows, rows + r0] = float("inf")  # self excluded
-        out_d[r0:r1], idx = smallest_k(d2, k)
-        out_i[r0:r1] = idx.to(torch.int32)
-    return out_d, out_i
+    """The plain version of the kernel: row tiles of the self-distance
+    matrix, self excluded, each reduced to its k smallest entries
+    (:func:`smallest_k`)."""
+    return _knn_core(points, points, k, row_tile, exclude_self=True)
 
 
-def cross_knn(queries: torch.Tensor, refs: torch.Tensor, k: int,
-              ref_mask: torch.Tensor | None = None, row_tile: int = 1024):
-    """k nearest *reference* points of each query (no self-exclusion), the
-    plain PyTorch counterpart of the JAX package's ``cross_knn`` on any
-    device. ``ref_mask`` (bool ``[M]``) marks the valid reference slots:
-    an invalid slot takes distance +inf, so it never beats a valid one
-    (the streaming LOF window keeps a fixed shape while it fills). Returns
-    ``(d2 float32 [N, k], idx int32 [N, k])``, ascending, ties to the
-    smaller reference index. Distances are the feature-by-feature float32
-    sums of the module note, whatever the TF32 setting."""
-    m = refs.shape[0]
-    if k > m:
-        raise ValueError(f"k={k} must be <= number of references {m}")
+def _knn_core(queries: torch.Tensor, refs: torch.Tensor, k: int, row_tile: int, *,
+              exclude_self: bool = False, ref_mask=None, query_ids=None, ref_ids=None):
+    """Row tiles of the query-reference distances reduced to each row's k
+    smallest (the JAX package's ``ops/knn.py::_tiled_knn``).
+    ``exclude_self`` masks the diagonal (the queries are the references);
+    ``ref_mask`` (bool ``[M]``) hides invalid reference slots;
+    ``query_ids`` / ``ref_ids`` (int ``[N]`` / ``[M]``, given together)
+    exclude pairs whose ids match, the ring-sharded kNN's self exclusion.
+    A masked pair takes distance +inf."""
     q_all = queries.to(torch.float32)
     refs = refs.to(torch.float32)
     n = q_all.shape[0]
     r_sq = _sq_norms(refs)
     invalid = None if ref_mask is None else ~ref_mask.to(device=refs.device, dtype=torch.bool)
+    if query_ids is not None:
+        query_ids = query_ids.to(refs.device)
+        ref_ids = ref_ids.to(refs.device)
     out_d = torch.empty((n, k), dtype=torch.float32, device=refs.device)
     out_i = torch.empty((n, k), dtype=torch.int32, device=refs.device)
     for r0 in range(0, n, row_tile):
         q = q_all[r0:r0 + row_tile]
         d2 = _sq_dists(q, _sq_norms(q), refs, r_sq)
+        if exclude_self:
+            rows = torch.arange(q.shape[0], device=refs.device)
+            d2[rows, rows + r0] = float("inf")
+        if query_ids is not None:
+            d2 = d2.masked_fill(query_ids[r0:r0 + row_tile, None] == ref_ids[None, :],
+                                float("inf"))
         if invalid is not None:
             d2 = d2.masked_fill(invalid[None, :], float("inf"))
         out_d[r0:r0 + row_tile], idx = smallest_k(d2, k)
         out_i[r0:r0 + row_tile] = idx.to(torch.int32)
     return out_d, out_i
+
+
+def cross_knn(queries: torch.Tensor, refs: torch.Tensor, k: int,
+              ref_mask: torch.Tensor | None = None, row_tile: int = 1024, *,
+              exclude_self: bool = False, query_ids=None, ref_ids=None):
+    """k nearest *reference* points of each query, the plain PyTorch
+    counterpart of the JAX package's ``cross_knn`` on any device.
+    ``ref_mask`` (bool ``[M]``) marks the valid reference slots: an invalid
+    slot takes distance +inf, so it never beats a valid one (the streaming
+    LOF window keeps a fixed shape while it fills). ``exclude_self``,
+    ``query_ids`` and ``ref_ids`` mask pairs as :func:`_knn_core` says (the
+    ring-sharded kNN passes global row ids). Returns ``(d2 float32 [N, k],
+    idx int32 [N, k])``, ascending, ties to the smaller reference index.
+    Distances are the feature-by-feature float32 sums of the module note,
+    whatever the TF32 setting."""
+    m = refs.shape[0]
+    if k > m:
+        raise ValueError(f"k={k} must be <= number of references {m}")
+    if (query_ids is None) != (ref_ids is None):
+        raise ValueError("pass query_ids and ref_ids together")
+    return _knn_core(queries, refs, k, row_tile, exclude_self=exclude_self,
+                     ref_mask=ref_mask, query_ids=query_ids, ref_ids=ref_ids)

@@ -1,11 +1,12 @@
 """Outlier detection, parity path: recursive LPA + bottom-decile threshold.
 
-Counterpart of ``graphmine_tpu/ops/outliers.py`` (single device). One
-masked global LPA computes every community's recursive LPA at once:
-cross-community messages are retargeted to a drop sentinel, so labels
-flow only inside each community's induced subgraph. Sub-communities in
-the bottom size decile of their parent community are flagged; parents
-with fewer than 10 sub-communities flag nothing.
+Counterpart of ``graphmine_tpu/ops/outliers.py``. One masked global LPA
+computes every community's recursive LPA at once: cross-community
+messages are retargeted to a drop sentinel, so labels flow only inside
+each community's induced subgraph. Sub-communities in the bottom size
+decile of their parent community are flagged; parents with fewer than 10
+sub-communities flag nothing. :func:`recursive_lpa_outliers_sharded` is
+the same pass over a mesh, for a graph that stays on the host.
 """
 
 from __future__ import annotations
@@ -52,6 +53,48 @@ def recursive_lpa_outliers(graph: Graph, communities: torch.Tensor,
     the (small) sub-community size table on the host."""
     sub = masked_label_propagation(graph, communities, max_iter=max_iter)
     return _decile_report(sub.cpu().numpy(), communities.cpu().numpy(), decile)
+
+
+def recursive_lpa_outliers_sharded(graph: Graph, communities, mesh, max_iter: int = 5,
+                                   decile: float = 0.1,
+                                   schedule: str = "replicated") -> OutlierReport:
+    """The recursive-LPA outlier pass for a graph that does not fit one
+    device. Masked LPA equals plain LPA over the graph filtered to its
+    intra-community edges (the segment mode is order-independent, and a
+    vertex with no surviving message keeps its label), so that subgraph is
+    built on the host from the graph's edge arrays, partitioned over
+    ``mesh`` and run through ``schedule`` (``"replicated"`` or ``"ring"``,
+    the planner's schedule of the main run). Unweighted, as the masked
+    pass is. The flags equal :func:`recursive_lpa_outliers`'."""
+    from graphmine_tpu_torch.graph.container import build_graph
+    from graphmine_tpu_torch.parallel.sharded import (
+        partition_graph,
+        shard_graph_arrays,
+        sharded_label_propagation,
+    )
+
+    if schedule not in ("replicated", "ring"):
+        raise ValueError(
+            f"unknown schedule {schedule!r}; expected 'replicated' or 'ring' (the "
+            "planner's distributed schedules; a 'single' plan uses recursive_lpa_outliers)"
+        )
+
+    def host(t):
+        return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+    comm = host(communities)
+    src, dst = host(graph.src), host(graph.dst)
+    keep = comm[src] == comm[dst]
+    intra = build_graph(src[keep], dst[keep], num_vertices=graph.num_vertices,
+                        symmetric=graph.symmetric, device="cpu")
+    sg = shard_graph_arrays(partition_graph(intra, mesh=mesh), mesh)
+    if schedule == "ring":
+        from graphmine_tpu_torch.parallel.ring import ring_label_propagation
+
+        sub = ring_label_propagation(sg, mesh, max_iter=max_iter)
+    else:
+        sub = sharded_label_propagation(sg, mesh, max_iter=max_iter)
+    return _decile_report(sub.cpu().numpy(), comm, decile)
 
 
 def _decile_report(sub: np.ndarray, comm: np.ndarray, decile: float) -> OutlierReport:

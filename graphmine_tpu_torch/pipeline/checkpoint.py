@@ -7,10 +7,15 @@ Counterpart of ``graphmine_tpu/pipeline/checkpoint.py`` on one device:
   rotated generations and rollback to the older one on corruption. The
   npz is the JAX package's format, byte for byte in its fields, so each
   package resumes from the other's checkpoint;
-- :func:`load_newest`: the resume entry point. The JAX package's sharded
-  manifest format (multi-device runs) is not read here: a sharded
-  generation in the directory is reported in a ``warning`` record and
-  passed over;
+- :func:`save_sharded` / :func:`load_sharded`: the multi-device format,
+  per-shard ``.npy`` files and a JSON manifest (fingerprint, mesh shape,
+  iteration, each shard's sha256, a checksum of its own), with the same
+  two generations and rollback; the loader returns the whole label
+  vector, so a checkpoint written on D shards resumes on D' (re-shard on
+  restore). The manifest has the JAX package's fields, so either package
+  loads the other's;
+- :func:`load_newest`: the resume entry point, the newer of the two
+  formats (one corrupt beyond its rollback does not veto the other);
 - the graph fingerprint, file and manifest hashes, fsync helpers and the
   rollback state machine that the snapshot store
   (:mod:`graphmine_tpu_torch.serve.snapshot`) shares.
@@ -258,25 +263,222 @@ def load_labels(checkpoint_dir: str, tag: str = "lpa", fingerprint: str | None =
     )
 
 
-def _foreign_generations(checkpoint_dir: str, tag: str) -> list:
-    """Generations of the JAX package's multi-device formats (the sharded
-    manifest and the legacy orbax directory) present in the directory."""
-    names = (f"{tag}_sharded", f"{tag}_sharded.prev", f"{tag}_orbax")
-    return [os.path.join(checkpoint_dir, n) for n in names
-            if os.path.exists(os.path.join(checkpoint_dir, n))]
+# ---- shard-aware manifest checkpoints ----------------------------------------
+
+MANIFEST_NAME = "manifest.json"
+_MANIFEST_VERSION = 1
+
+
+def sharded_dir(checkpoint_dir: str, tag: str = "lpa") -> str:
+    """Current-generation directory of a sharded manifest checkpoint."""
+    return os.path.join(checkpoint_dir, f"{tag}_sharded")
+
+
+def shard_file(gen_dir: str, shard: int) -> str:
+    return os.path.join(gen_dir, f"shard_{shard:05d}.npy")
+
+
+def _sharded_prev_dir(gen_dir: str) -> str:
+    return gen_dir + ".prev"
+
+
+def save_sharded(checkpoint_dir: str, labels, iteration: int, tag: str = "lpa",
+                 fingerprint: str | None = None, num_shards: int | None = None,
+                 sink=None) -> str:
+    """Durably save (labels, iteration) as a manifest of ``num_shards``
+    per-shard files (default 1; the driver passes its mesh size): every
+    shard and the manifest land in a tmp generation directory, each file
+    fsync'd, the manifest last; the current generation rotates to
+    ``*.prev`` and one directory rename publishes the new one, so a kill
+    at any point leaves the old or the new generation whole. Stale tmp
+    generations of killed saves are swept first. ``sink`` gets a
+    ``checkpoint_save`` record. Returns the generation directory."""
+    import glob
+    import shutil
+
+    t0 = time.perf_counter()
+    labels_np = _host_array(labels)
+    num_shards = 1 if num_shards is None else int(num_shards)
+    if num_shards < 1:
+        raise ValueError("num_shards must be >= 1")
+    os.makedirs(checkpoint_dir, exist_ok=True)
+    gen = sharded_dir(checkpoint_dir, tag)
+    tmp = f"{gen}.tmp.{os.getpid()}"
+    for stale in glob.glob(gen + ".tmp.*"):
+        shutil.rmtree(stale, ignore_errors=True)
+    os.makedirs(tmp)
+    # even chunks, the last takes the remainder; the manifest records them
+    v = len(labels_np)
+    chunk = -(-v // num_shards) if v else 0
+    sizes, shas = [], []
+    for s in range(num_shards):
+        part = labels_np[s * chunk: (s + 1) * chunk]
+        path = shard_file(tmp, s)
+        np.save(path, part)
+        _fsync_file(path)
+        sizes.append(int(len(part)))
+        shas.append(_file_sha256(path))
+    body = {
+        "version": _MANIFEST_VERSION, "tag": tag, "iteration": int(iteration),
+        "fingerprint": fingerprint or "", "num_shards": int(num_shards),
+        "mesh_shape": [int(num_shards)], "num_vertices": int(v),
+        "dtype": str(labels_np.dtype), "shard_sizes": sizes, "shard_sha256": shas,
+    }
+    body["checksum"] = _manifest_checksum(body)
+    man_tmp = os.path.join(tmp, MANIFEST_NAME + ".tmp")
+    with open(man_tmp, "w") as f:
+        json.dump(body, f, indent=1)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(man_tmp, os.path.join(tmp, MANIFEST_NAME))
+    _fsync_dir(tmp)
+    prev = _sharded_prev_dir(gen)
+    if os.path.exists(gen):
+        if os.path.exists(prev):
+            shutil.rmtree(prev)
+        os.replace(gen, prev)
+    os.replace(tmp, gen)
+    _fsync_dir(checkpoint_dir)
+    if sink is not None:
+        sink.emit("checkpoint_save", path=gen, iteration=int(iteration), format="sharded",
+                  shards=int(num_shards), bytes=_tree_bytes(gen),
+                  seconds=round(time.perf_counter() - t0, 6))
+    return gen
+
+
+def _read_sharded_verified(gen_dir: str, fingerprint: str | None):
+    """Load one sharded generation, verifying the manifest checksum, every
+    shard's sha256 and size and the assembled length, then the graph
+    fingerprint."""
+    man_path = os.path.join(gen_dir, MANIFEST_NAME)
+    try:
+        with open(man_path) as f:
+            body = json.load(f)
+    except json.JSONDecodeError as e:
+        raise CheckpointCorruptionError(f"manifest at {man_path} is not valid JSON ({e})") from e
+    want = body.get("checksum", "")
+    got = _manifest_checksum(body)
+    if want != got:
+        raise CheckpointCorruptionError(
+            f"manifest at {man_path} failed its checksum ({got[:12]}... != recorded "
+            f"{want[:12]}...)")
+    saved_fp = body.get("fingerprint", "")
+    if fingerprint and saved_fp and fingerprint != saved_fp:
+        raise FingerprintMismatch(
+            f"sharded checkpoint at {gen_dir} was written for a different graph or "
+            f"vertex-id assignment (fingerprint {saved_fp[:12]}... != {fingerprint[:12]}...); "
+            "delete the checkpoint or reload the data the way the original run did")
+    parts = []
+    for s in range(body["num_shards"]):
+        path = shard_file(gen_dir, s)
+        sha = _file_sha256(path)
+        if sha != body["shard_sha256"][s]:
+            raise CheckpointCorruptionError(
+                f"shard {s} at {path} failed its sha256 ({sha[:12]}... != manifest "
+                f"{body['shard_sha256'][s][:12]}...)")
+        part = np.load(path)
+        if len(part) != body["shard_sizes"][s]:
+            raise CheckpointCorruptionError(
+                f"shard {s} at {path} holds {len(part)} rows, manifest says "
+                f"{body['shard_sizes'][s]}")
+        parts.append(part)
+    labels = np.concatenate(parts) if parts else np.empty(0, np.dtype(body["dtype"]))
+    if len(labels) != body["num_vertices"]:
+        raise CheckpointCorruptionError(
+            f"sharded checkpoint at {gen_dir} assembles to {len(labels)} vertices, "
+            f"manifest says {body['num_vertices']}")
+    return labels.astype(np.dtype(body["dtype"]), copy=False), int(body["iteration"])
+
+
+def _read_sharded_confirmed(gen_dir: str, fingerprint: str | None):
+    """:func:`_read_sharded_verified` with one confirming re-read before a
+    corruption verdict."""
+    try:
+        return _read_sharded_verified(gen_dir, fingerprint)
+    except FingerprintMismatch:
+        raise
+    except _CORRUPTION_ERRORS as first:
+        try:
+            return _read_sharded_verified(gen_dir, fingerprint)
+        except FingerprintMismatch:
+            raise
+        except _CORRUPTION_ERRORS:
+            raise first
+
+
+def load_sharded(checkpoint_dir: str, tag: str = "lpa", fingerprint: str | None = None,
+                 sink=None):
+    """``(labels int32 array [V], iteration)`` of the sharded generation,
+    or None when none exists, whatever shard count wrote it. A corrupt
+    current generation rolls back to ``*.prev`` (the condemned directory
+    kept at ``*.corrupt``, ``checkpoint_rollback`` records on ``sink``); a
+    wrong ``fingerprint`` raises :class:`FingerprintMismatch` without
+    rollback. The JAX package's removed orbax format raises
+    :class:`CheckpointCorruptionError`, as there."""
+    gen = sharded_dir(checkpoint_dir, tag)
+    if not os.path.exists(gen) and not os.path.exists(_sharded_prev_dir(gen)):
+        legacy = os.path.join(checkpoint_dir, f"{tag}_orbax")
+        if os.path.isdir(legacy):
+            raise CheckpointCorruptionError(
+                f"checkpoint at {legacy} uses the removed orbax format; only the "
+                "sharded-manifest and npz formats are read")
+        return None
+    return _load_with_rollback(
+        gen, _sharded_prev_dir(gen), lambda p: _read_sharded_confirmed(p, fingerprint),
+        sink, "sharded checkpoint", f"delete {gen!r} (and its .prev) to restart from scratch",
+    )
+
+
+def _peek_sharded_iteration(checkpoint_dir: str, tag: str):
+    """The current sharded generation's iteration from its manifest alone
+    (no shard hashing); None when unreadable or absent."""
+    try:
+        with open(os.path.join(sharded_dir(checkpoint_dir, tag), MANIFEST_NAME)) as f:
+            return int(json.load(f)["iteration"])
+    except Exception:
+        return None
+
+
+def _peek_npz_iteration(checkpoint_dir: str, tag: str):
+    """The current npz generation's iteration from one member; None when
+    unreadable or absent."""
+    try:
+        with np.load(os.path.join(checkpoint_dir, f"{tag}_labels.npz")) as z:
+            return int(z["iteration"])
+    except Exception:
+        return None
 
 
 def load_newest(checkpoint_dir: str, tag: str = "lpa", fingerprint: str | None = None,
                 sink=None):
-    """The newest recoverable ``(labels, iteration)`` in ``checkpoint_dir``
-    for a one-device resume, or None. The npz generations load through
-    :func:`load_labels`. A sharded generation (written by a multi-device
-    run of the JAX package) cannot be read here: it is named in a
-    ``warning`` record on ``sink`` and passed over, never raised on."""
-    foreign = _foreign_generations(checkpoint_dir, tag)
-    if foreign and sink is not None:
-        sink.emit("warning", message=(
-            f"checkpoint generations {foreign} are in a multi-device format "
-            "this one-device resume does not read; resuming from the npz "
-            "generations only"))
-    return load_labels(checkpoint_dir, tag=tag, fingerprint=fingerprint, sink=sink)
+    """The newest recoverable ``(labels, iteration)`` across both formats
+    (the sharded manifest of multi-device runs and the npz of one-device
+    runs; a run that walked its elastic rungs down to one device leaves
+    both), or None. Iterations are peeked first and a format provably no
+    newer than one already loaded is skipped. One format corrupt beyond
+    its own rollback does not veto the other: its
+    :class:`CheckpointCorruptionError` is raised only when nothing loads;
+    :class:`FingerprintMismatch` always propagates."""
+    entries = [
+        (_peek_sharded_iteration(checkpoint_dir, tag), load_sharded),
+        (_peek_npz_iteration(checkpoint_dir, tag), load_labels),
+    ]
+    entries.sort(key=lambda t: float("-inf") if t[0] is None else t[0], reverse=True)
+    found, errors = [], []
+    for peek, loader in entries:
+        if found and peek is not None and peek <= found[-1][1]:
+            break
+        try:
+            out = loader(checkpoint_dir, tag=tag, fingerprint=fingerprint, sink=sink)
+        except FingerprintMismatch:
+            raise
+        except CheckpointCorruptionError as e:
+            errors.append(e)
+            continue
+        if out is not None:
+            found.append(out)
+    if found:
+        return max(found, key=lambda t: t[1])
+    if errors:
+        raise errors[0]
+    return None

@@ -1,15 +1,15 @@
 """Pipeline configuration — one dataclass + CLI.
 
-Counterpart of ``graphmine_tpu/pipeline/config.py`` for the fields the
-single-device driver reads, plus ``device``: the same names, defaults,
-validation and flags, the resilience knobs flattened onto the CLI
-(``--max-retries``, ``--superstep-timeout-s``, ``--tripwire-every-k``,
-...). ``community_method`` and ``gamma`` choose LPA, Louvain or Leiden
-(``--community-method``, ``--gamma``). ``backend`` takes the JAX
-package's names: ``"jax"`` (the default) is this package's own engine,
-``"graphframes"`` hands LPA to a pyspark + GraphFrames install
-(``pipeline/backends.py``). The JAX package's ``num_devices`` and
-``schedule`` are not here yet (ROADMAP queue 1, item A7).
+Counterpart of ``graphmine_tpu/pipeline/config.py``, plus ``device``: the
+same names, defaults, validation and flags, the resilience knobs flattened
+onto the CLI (``--max-retries``, ``--superstep-timeout-s``,
+``--tripwire-every-k``, ...). ``community_method`` and ``gamma`` choose
+LPA, Louvain or Leiden (``--community-method``, ``--gamma``). ``backend``
+takes the JAX package's names: ``"jax"`` (the default) is this package's
+own engine, ``"graphframes"`` hands LPA to a pyspark + GraphFrames install
+(``pipeline/backends.py``). ``num_devices`` and ``schedule``
+(``--num-devices``, ``--schedule``) run LPA on a mesh of that many of the
+visible devices (:func:`graphmine_tpu_torch.device.visible_devices`).
 """
 
 from __future__ import annotations
@@ -38,6 +38,14 @@ class PipelineConfig:
     # engine: "jax" (the JAX package's name for the native engine: here
     # the port's own) | "graphframes" (LPA through pyspark + GraphFrames)
     backend: str = "jax"
+    # devices of the mesh; None = every visible one (the distinct CUDA
+    # cards, or the GRAPHMINE_VIRTUAL_DEVICES shards of one device)
+    num_devices: int | None = None
+    # the multi-device LPA schedule: "auto" lets the memory planner pick
+    # (one device: the single-device superstep; else "replicated", the
+    # full label vector on every shard, before "ring", labels sharded);
+    # an explicit one is honoured but still checked at plan time
+    schedule: str = "auto"  # auto | replicated | ring
     max_iter: int = 5
     gamma: float = 1.0
     # outlier detection
@@ -98,6 +106,8 @@ class PipelineConfig:
             raise ValueError(f"unknown community_method {self.community_method!r}")
         if self.backend not in ("jax", "graphframes"):
             raise ValueError(f"unknown backend {self.backend!r}")
+        if self.schedule not in ("auto", "replicated", "ring"):
+            raise ValueError(f"unknown schedule {self.schedule!r}")
         if self.backend == "graphframes" and self.community_method != "lpa":
             raise ValueError(
                 "backend='graphframes' only provides labelPropagation; "
@@ -130,7 +140,7 @@ class PipelineConfig:
 def parse_args(argv=None) -> PipelineConfig:
     parser = argparse.ArgumentParser(
         prog="graphmine_tpu_torch.pipeline",
-        description="Community + outlier detection pipeline on one CUDA device",
+        description="Community + outlier detection pipeline on CUDA devices",
     )
     types = {"int": int, "float": float, "str": str, "str | None": str, "int | None": int,
              "float | None": float}

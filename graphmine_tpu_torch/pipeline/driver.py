@@ -1,9 +1,9 @@
-"""End-to-end single-device pipeline: load → build → LPA → census →
-recursive-LPA outliers → features → kNN/LOF, then, with ``snapshot_out``,
-connected components and the snapshot publish.
+"""End-to-end pipeline: load → build → LPA → census → recursive-LPA
+outliers → features → kNN/LOF, then, with ``snapshot_out``, connected
+components and the snapshot publish.
 
-Counterpart of ``graphmine_tpu/pipeline/driver.py::run_pipeline`` on one
-device, with the same phases, records and run harness:
+Counterpart of ``graphmine_tpu/pipeline/driver.py::run_pipeline``, with the
+same phases, records and run harness:
 
 - every phase runs under :func:`~graphmine_tpu_torch.pipeline.resilience.run_phase`
   (transient errors retried, memory errors walked down a degradation
@@ -26,8 +26,20 @@ device, with the same phases, records and run harness:
 
 ``community_method="louvain"`` or ``"leiden"`` runs that algorithm in
 LPA's place, as the JAX driver does: no LPA plan, no checkpoints, and the
-census takes its Q. The multi-device schedules wait for a later slice
-(ROADMAP.md queue 1, item A7).
+census takes its Q.
+
+On more than one device (``num_devices``, default every visible one) LPA
+runs on a mesh (:mod:`graphmine_tpu_torch.parallel`) with the planner's
+schedule, ``replicated`` or ``ring``: sharded checkpoints, ``replicated``
+degrading to ``ring`` on memory, the elastic rungs (halved meshes routed
+round the lost device, a ``mesh_degrade`` record) on a device loss, and
+LOF through the sharded kNN. When the whole graph would not fit one
+device the run scales out (a ``scale_out`` record): the graph stays on the
+host, the recursive outliers run over the mesh, the features on the host
+(``host-8-sampled``) and the publish's CC over the mesh. A mesh that
+repeats a device (``GRAPHMINE_VIRTUAL_DEVICES``) marks its ``plan``,
+``partition``, ``superstep_timing`` and ``mesh_degrade`` records
+``virtual: true``.
 """
 
 from __future__ import annotations
@@ -41,7 +53,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from graphmine_tpu_torch.device import resolve_device
+from graphmine_tpu_torch.device import resolve_device, visible_devices
 from graphmine_tpu_torch.graph.container import Graph
 from graphmine_tpu_torch.io.edges import EdgeTable, load_edge_list, load_parquet_edges
 from graphmine_tpu_torch.obs import memmodel
@@ -64,8 +76,11 @@ class PipelineResult:
     outliers: object | None = None     # OutlierReport (recursive_lpa)
     lof: np.ndarray | None = None      # LOF score per vertex
     features: torch.Tensor | None = None  # standardized [V, 8] LOF input
-    feature_mode: str | None = None    # "exact" or "sampled" clustering column
+    # "exact" or "sampled" clustering column; "host-8-sampled" in scale-out
+    feature_mode: str | None = None
     metrics: MetricsSink = field(default_factory=MetricsSink)
+    scale_out: bool = False            # the graph stayed on the host
+    mesh_devices: tuple = ()           # the run's mesh (empty on one device)
 
 
 def _sync(device: torch.device) -> None:
@@ -165,17 +180,29 @@ def _run_pipeline(config: PipelineConfig, m: MetricsSink,
     # ---- plan: LPA's operating point against the card's memory ---------
     # (Louvain and Leiden read no LPA plan, so none is built for them)
     v, e = table.num_vertices, table.num_edges
+    mesh_devices = _mesh_devices(config, device)
+    n_dev = len(mesh_devices)
     run_plan = sstep_plan = None
     if config.community_method == "lpa" and config.backend != "graphframes":
-        run_plan, sstep_plan = _plan_lpa(config, table, m, device)
+        run_plan, sstep_plan = _plan_lpa(config, table, m, device, mesh_devices)
+    # Scale-out: a distributed schedule whose whole graph would not also fit
+    # one device keeps the graph on the host; the mesh takes LPA, the
+    # recursive outliers, the LOF kNN and the publish's CC.
+    scale_out = (run_plan is not None and run_plan.schedule != "single"
+                 and run_plan.estimates.get("single", 0) > run_plan.hbm_bytes)
+    if scale_out:
+        m.emit("scale_out", message="full graph exceeds one device: host-resident graph; "
+               "outlier phases run distributed (recursive LPA over the intra-community "
+               "subgraph, sharded kNN/LOF)")
+    graph_device = torch.device("cpu") if scale_out else device
 
     # ---- build: message CSR + the family's plan, one pass ---------------
     def _build():
         resilience.fault_point("build_graph")
         if sstep_plan is None or sstep_plan.family == "sort":
             g = build_graph(table.src, table.dst, num_vertices=v, edge_weights=table.weights,
-                            device=device)
-            _sync(device)
+                            device=graph_device)
+            _sync(graph_device)
             return g, [None]
         build = (build_graph_and_blocked_plan if sstep_plan.family == "blocked"
                  else build_graph_and_plan)
@@ -218,9 +245,10 @@ def _run_pipeline(config: PipelineConfig, m: MetricsSink,
     else:
         with m.span("lpa"), m.timed("lpa", max_iter=config.max_iter):
             labels = _run_lpa(config, table, graph, m, plan_holder, run_plan, sstep_plan,
-                              device)
+                              device, mesh_devices)
         q_algo = None
     del plan_holder
+    labels = labels.to(graph.device)
 
     # ---- census ---------------------------------------------------------
     def _census():
@@ -237,19 +265,42 @@ def _run_pipeline(config: PipelineConfig, m: MetricsSink,
     result = PipelineResult(
         edge_table=table, graph=graph, labels=labels.cpu().numpy(),
         num_communities=n_comm, community_table=(present, sizes, edge_counts),
-        metrics=m,
+        metrics=m, scale_out=scale_out,
+        mesh_devices=tuple(mesh_devices) if n_dev > 1 else (),
     )
 
     # ---- recursive-LPA outliers ----------------------------------------
     if config.outlier_method in ("recursive_lpa", "both"):
-        from graphmine_tpu_torch.ops.outliers import recursive_lpa_outliers
+        from graphmine_tpu_torch.ops.outliers import (
+            recursive_lpa_outliers,
+            recursive_lpa_outliers_sharded,
+        )
+
+        if scale_out:
+            # the one-device masked pass would put the whole graph on one
+            # device, which the planner just ruled out: filter on the host,
+            # run the planner's schedule on the mesh
+            from graphmine_tpu_torch.parallel.mesh import make_mesh
+
+            def scorer():
+                return recursive_lpa_outliers_sharded(
+                    graph, labels, make_mesh(n_dev, devices=mesh_devices),
+                    max_iter=config.sub_max_iter, decile=config.decile,
+                    schedule=run_plan.schedule)
+
+            timing_kv = dict(schedule=run_plan.schedule, devices=n_dev)
+        else:
+            def scorer():
+                return recursive_lpa_outliers(graph, labels, max_iter=config.sub_max_iter,
+                                              decile=config.decile)
+
+            timing_kv = {}
 
         def _outliers():
             resilience.fault_point("outliers_recursive")
-            return recursive_lpa_outliers(graph, labels, max_iter=config.sub_max_iter,
-                                          decile=config.decile)
+            return scorer()
 
-        with m.span("outliers_recursive_lpa"), m.timed("outliers_recursive_lpa"):
+        with m.span("outliers_recursive_lpa"), m.timed("outliers_recursive_lpa", **timing_kv):
             result.outliers = resilience.run_phase("outliers_recursive", _outliers, policy, m)
         m.emit("outlier_summary", method="recursive_lpa",
                flagged_vertices=int(result.outliers.outlier_vertices.sum()),
@@ -257,26 +308,53 @@ def _run_pipeline(config: PipelineConfig, m: MetricsSink,
 
     # ---- features + kNN/LOF: the planner's family, the other as rung ----
     if config.outlier_method in ("lof", "both"):
-        _run_lof(config, graph, labels, result, m, run_plan, device)
+        _run_lof(config, graph, labels, result, m, run_plan, device, mesh_devices, scale_out)
     return result
 
 
+def _mesh_devices(config: PipelineConfig, device: torch.device) -> list:
+    """The run's devices: the first ``num_devices`` (default all) of
+    :func:`~graphmine_tpu_torch.device.visible_devices` of ``device``'s
+    kind; more than are visible raises, as the JAX driver's mesh does."""
+    visible = visible_devices(device)
+    if device.type == "cuda" and device.index is not None and device in visible:
+        # the named card first: the graph and the mesh's first shard share it
+        visible = [device] + [d for d in visible if d != device]
+    n = config.num_devices or len(visible)
+    if n > len(visible):
+        raise ValueError(f"requested {n} devices, only {len(visible)} visible")
+    return visible[:n]
+
+
+def _virtual(devices) -> dict:
+    """``{"virtual": True}`` for a mesh that repeats a device, else ``{}``:
+    the key every plan, partition, superstep_timing and mesh_degrade record
+    of such a mesh carries."""
+    devices = list(devices)
+    return {"virtual": True} if len(set(devices)) < len(devices) else {}
+
+
 def _plan_lpa(config: PipelineConfig, table: EdgeTable, m: MetricsSink,
-              device: torch.device) -> tuple:
+              device: torch.device, mesh_devices: list) -> tuple:
     """``(run_plan, sstep_plan)`` of an LPA run: the operating point
-    checked against the card's memory (the ``plan`` record), the superstep
-    family with its plan-time pre-degrade, and the ``impl_selected``
-    record."""
+    checked against the card's memory (the ``plan`` record), and on one
+    device the superstep family with its plan-time pre-degrade and the
+    ``impl_selected`` record (``sstep_plan`` is None on a mesh)."""
     v, e = table.num_vertices, table.num_edges
     policy = config.resilience
     weighted = table.weights is not None
+    n_dev = len(mesh_devices)
     run_plan = planner.plan_run(
-        v, e, 1, weighted=weighted,
+        v, e, n_dev, weighted=weighted, requested=config.schedule,
         hbm=planner.hbm_bytes_per_device(lambda: planner.device_hbm_bytes(device)),
     )
     m.emit("plan", schedule=run_plan.schedule, bytes_per_device=run_plan.bytes_per_device,
            hbm_budget=run_plan.hbm_bytes, reason=run_plan.reason,
-           mem=memmodel.schedule_footprint("single", v, e, 1, weighted=weighted).record())
+           mem=memmodel.schedule_footprint(run_plan.schedule, v, e, n_dev,
+                                           weighted=weighted).record(),
+           **(_virtual(mesh_devices) if run_plan.schedule != "single" else {}))
+    if run_plan.schedule != "single":
+        return run_plan, None
     sstep_plan = planner.plan_superstep(v, 2 * e, weighted=weighted)
     if sstep_plan.family == "sort" and not os.environ.get("GRAPHMINE_SUPERSTEP_FAMILY"):
         # the plan shares the graph's CSR pass, so the driver keeps the
@@ -311,60 +389,105 @@ def _plan_lpa(config: PipelineConfig, table: EdgeTable, m: MetricsSink,
 
 
 def _run_lof(config: PipelineConfig, graph: Graph, labels: torch.Tensor,
-             result: PipelineResult, m: MetricsSink, run_plan, device: torch.device) -> None:
+             result: PipelineResult, m: MetricsSink, run_plan, device: torch.device,
+             mesh_devices: list, scale_out: bool) -> None:
     """Features, then LOF on the planner's kNN family with the opposite
     family as its degradation rung: an OOM in the IVF index's chunk
     tables steps across to the exact ``knn_topk`` kernel, an OOM in the
-    exact kNN down to the index."""
+    exact kNN down to the index. On a mesh whose chunks hold ``k``
+    candidates LOF runs through the sharded kNN (the IVF search split over
+    the mesh, or the ring); in scale-out the features come from the host
+    graph with the sampled clustering column."""
     from graphmine_tpu_torch.graph.container import simple_undirected_edges
-    from graphmine_tpu_torch.ops.features import standardize, vertex_features
+    from graphmine_tpu_torch.ops.features import (
+        standardize,
+        vertex_features,
+        vertex_features_host,
+    )
     from graphmine_tpu_torch.ops.lof import lof_scores
     from graphmine_tpu_torch.ops.triangles import oriented_wedge_count
+    from graphmine_tpu_torch.parallel.knn import can_shard
 
     v = graph.num_vertices
+    n_dev = len(mesh_devices)
     k = min(config.lof_k, v - 1)
+    use_sharded = n_dev > 1 and can_shard(v, n_dev, k)
     lof_plan = planner.plan_lof(v, k, requested=config.lof_impl)
-    # Wedge-budget guard: the exact clustering column materializes every
-    # oriented wedge on the host; past the budget the sampled estimator
-    # takes over. One dedup serves the probe and the column.
+    if use_sharded and config.lof_impl in ("xla", "pallas"):
+        m.emit("warning", message=f"lof_impl={config.lof_impl!r} forces an exact "
+               "single-device kernel; the multi-device path runs the exact ring-sharded "
+               "kNN/LOF instead (auto/ivf apply to the sharded scorer)")
+    if scale_out and not use_sharded:
+        m.emit("warning", message="lof skipped in scale-out mode: the single-device scorer "
+               "cannot hold a graph this size; add devices so the sharded kNN/LOF can run")
+        return
     with m.span("features"), m.timed("features"):
-        simple_edges = simple_undirected_edges(graph)
-        wedges = oriented_wedge_count(graph, simple_edges=simple_edges)
-        result.feature_mode = "exact" if wedges <= config.wedge_budget else "sampled"
-        m.emit("feature_mode", mode=result.feature_mode, wedges=wedges,
-               wedge_budget=config.wedge_budget)
-        if result.feature_mode == "sampled":
-            m.emit("warning", message=f"exact clustering infeasible: {wedges:,} "
-                   f"oriented wedges exceed wedge_budget={config.wedge_budget:,}; "
-                   "using the wedge-sampled estimator")
-        feats = standardize(vertex_features(
-            graph, labels,
-            include_clustering=True if result.feature_mode == "exact" else "sampled",
-            simple_edges=simple_edges,
-        )).contiguous()
+        if scale_out:
+            # the host twin; the exact wedge pipeline is infeasible exactly
+            # when the graph exceeds one device, so the sampled estimator
+            result.feature_mode = "host-8-sampled"
+            feats = standardize(torch.from_numpy(vertex_features_host(
+                graph, labels, include_clustering="sampled"))).to(device).contiguous()
+        else:
+            # Wedge-budget guard: the exact clustering column materializes
+            # every oriented wedge on the host; past the budget the sampled
+            # estimator takes over. One dedup serves the probe and the column.
+            simple_edges = simple_undirected_edges(graph)
+            wedges = oriented_wedge_count(graph, simple_edges=simple_edges)
+            result.feature_mode = "exact" if wedges <= config.wedge_budget else "sampled"
+            m.emit("feature_mode", mode=result.feature_mode, wedges=wedges,
+                   wedge_budget=config.wedge_budget)
+            if result.feature_mode == "sampled":
+                m.emit("warning", message=f"exact clustering infeasible: {wedges:,} "
+                       f"oriented wedges exceed wedge_budget={config.wedge_budget:,}; "
+                       "using the wedge-sampled estimator")
+            feats = standardize(vertex_features(
+                graph, labels,
+                include_clustering=True if result.feature_mode == "exact" else "sampled",
+                simple_edges=simple_edges,
+            )).contiguous()
         _sync(device)
     result.features = feats
     n_feat = int(feats.shape[1])
-    mem_holder = [memmodel.lof_footprint(lof_plan.impl, v, k, features=n_feat)]
+    lof_devices = n_dev if use_sharded else 1
+    mem_holder = [memmodel.lof_footprint(lof_plan.impl, v, k, features=n_feat,
+                                         devices=lof_devices)]
+    if use_sharded:
+        from graphmine_tpu_torch.parallel.knn import sharded_lof
+        from graphmine_tpu_torch.parallel.mesh import make_mesh
+
+        def _lof(impl):
+            return sharded_lof(feats, make_mesh(n_dev, devices=mesh_devices), k=k, impl=impl,
+                               sink=m)
+
+        first = lof_plan.impl
+        rung_name = f"lof_sharded_{lof_plan.degrade_to}"
+        rung_impl = lof_plan.degrade_to
+    else:
+        def _lof(impl):
+            return lof_scores(feats, k=k, impl=impl, sink=m)
+
+        first = config.lof_impl
+        rung_name = f"lof_{lof_plan.degrade_to}"
+        rung_impl = "xla" if lof_plan.degrade_to == "exact" else "ivf"
 
     def _score():
         resilience.fault_point("outliers_lof")
-        return lof_scores(feats, k=k, impl=config.lof_impl, sink=m)
-
-    rung_impl = "xla" if lof_plan.degrade_to == "exact" else "ivf"
+        return _lof(first)
 
     def _rung():
         # the failed family's tensors are gone (run_phase cleared its
         # frames): return their cached blocks before the rung allocates
-        mem_holder[0] = memmodel.lof_footprint(lof_plan.degrade_to, v, k, features=n_feat)
+        mem_holder[0] = memmodel.lof_footprint(lof_plan.degrade_to, v, k, features=n_feat,
+                                               devices=lof_devices)
         resilience.release_device_memory()
-        return lof_scores(feats, k=k, impl=rung_impl, sink=m)
+        return _lof(rung_impl)
 
-    with m.span("outliers_lof"), m.timed("outliers_lof", k=k, devices=1,
+    with m.span("outliers_lof"), m.timed("outliers_lof", k=k, devices=lof_devices,
                                           features=result.feature_mode):
         scores = resilience.run_phase(
             "outliers_lof", _score, config.resilience, m,
-            ladder=((f"lof_{lof_plan.degrade_to}", _rung),),
+            ladder=((rung_name, _rung),),
             degrade_context=lambda: {"mem": mem_holder[0].record()},
         )
         result.lof = scores.cpu().numpy()
@@ -377,21 +500,37 @@ def _run_lof(config: PipelineConfig, graph: Graph, labels: torch.Tensor,
 
 
 def _emit_superstep_telemetry(m: MetricsSink, new: torch.Tensor, old: torch.Tensor,
-                              variant: str, iteration: int) -> int:
-    """``superstep_telemetry`` record of one superstep on one device (one
-    shard, imbalance 1); returns the labels-changed count."""
-    changed = int((new != old).sum())
+                              chunk: int, ndev: int, variant: str, iteration: int) -> int:
+    """``superstep_telemetry`` record of one superstep: labels changed per
+    shard (``chunk`` is the partition's padded chunk; the shard count is
+    clamped to the chunks that cover real vertices, so the counts sum to
+    the total) and the max/mean imbalance. Returns the changed count."""
+    n = int(new.shape[0])
+    d = max(1, min(int(ndev), -(-n // max(chunk, 1))))
+    diff = (new != old).to(torch.int32)
+    pad = d * chunk - n
+    if pad > 0:
+        diff = torch.cat([diff, diff.new_zeros(pad)])
+    per = diff[: d * chunk].view(d, chunk).sum(dim=1).cpu().numpy()
+    changed = int(per.sum())
+    mean = changed / d
     m.emit("superstep_telemetry", iteration=iteration, labels_changed=changed,
-           frontier=changed, shard_changed=[changed], shard_max=changed,
-           shard_min=changed, imbalance=1.0, devices=1, variant=variant)
+           frontier=changed, shard_changed=per.tolist(), shard_max=int(per.max()),
+           shard_min=int(per.min()),
+           imbalance=round(float(per.max()) / mean if mean > 0 else 1.0, 3),
+           devices=int(ndev), variant=variant)
     return changed
 
 
 def _run_lpa(config: PipelineConfig, table: EdgeTable, graph: Graph, m: MetricsSink,
-             plan_holder: list, run_plan, sstep_plan, device: torch.device) -> torch.Tensor:
+             plan_holder: list, run_plan, sstep_plan, device: torch.device,
+             mesh_devices: list) -> torch.Tensor:
     """LPA one superstep at a time under the run harness: resume,
-    checkpoints, watchdog, tripwires, the blocked → ``single_bucketed`` →
-    ``single_sort`` rungs and the per-superstep records."""
+    checkpoints, watchdog, tripwires, the memory rungs (blocked →
+    ``single_bucketed`` → ``single_sort`` on one device, ``replicated`` →
+    ``ring`` on a mesh), the elastic device rungs of a mesh and the
+    per-superstep records."""
+    from graphmine_tpu_torch.obs.costmodel import sharded_superstep_cost
     from graphmine_tpu_torch.ops.blocking import (
         BlockedPlan,
         build_family_plan,
@@ -401,10 +540,14 @@ def _run_lpa(config: PipelineConfig, table: EdgeTable, graph: Graph, m: MetricsS
     )
     from graphmine_tpu_torch.ops.bucketed_mode import BucketedModePlan, lpa_superstep_bucketed
     from graphmine_tpu_torch.ops.lpa import lpa_superstep
+    from graphmine_tpu_torch.parallel.mesh import make_mesh, surviving_mesh
+    from graphmine_tpu_torch.parallel.sharded import partition_graph, shard_graph_arrays
 
     v, e, msgs = graph.num_vertices, graph.num_edges, graph.num_messages
     is_weighted = graph.msg_weight is not None
     policy = config.resilience
+    n_dev = len(mesh_devices)
+    chips = max(n_dev, 1)
     # superstep durations accumulate here and flush as superstep_timing
     # records at the telemetry cadence (the loop syncs every superstep)
     wtimer = WindowTimer()
@@ -431,19 +574,24 @@ def _run_lpa(config: PipelineConfig, table: EdgeTable, graph: Graph, m: MetricsS
                 )
             labels = _to_device(saved_labels)
             m.emit("resume", iteration=start_iter)
+    if config.schedule == "ring" and run_plan.schedule == "single":
+        m.emit("warning", message="schedule='ring' needs >1 device; running the "
+               "single-device superstep instead")
 
     # Loop state shared by every rung: a retry or a degradation resumes
     # from the last good superstep; supersteps are deterministic, so the
-    # labels equal an uninterrupted run's.
+    # labels equal an uninterrupted run's. `current` is the active
+    # operating point: the elastic rungs shrink ndev, and the sharded
+    # checkpoints split by whatever is current.
     state = {"labels": labels, "it": start_iter}
-    current: dict = {"variant": "single"}
+    current: dict = {"variant": run_plan.schedule, "ndev": n_dev}
     last_watermark: dict = {"rec": None}
 
-    def _mem_watermark(iteration: int, variant: str) -> None:
+    def _mem_watermark(iteration: int, variant: str, ndev: int) -> None:
         rec = memmodel.emit_memory_watermark(
             m, "lpa_superstep", current.get("mem"), memmodel.device_sample(device),
             budget_bytes=run_plan.hbm_bytes, iteration=int(iteration), variant=variant,
-            devices=1)
+            devices=int(ndev))
         if rec is not None:
             last_watermark["rec"] = rec
 
@@ -458,8 +606,50 @@ def _run_lpa(config: PipelineConfig, table: EdgeTable, graph: Graph, m: MetricsS
                 "headroom_frac", "source", "span_path")}
         return ctx
 
-    def make_superstep(variant: str):
-        """The per-superstep callable of one operating point."""
+    # Device indices named by a device-loss error: a rung mesh routes
+    # round them instead of re-enrolling a device that just failed.
+    dead_devices: set = set()
+
+    def _rung_mesh(ndev: int):
+        if dead_devices:
+            try:
+                return surviving_mesh(ndev, exclude=sorted(dead_devices), devices=mesh_devices)
+            except ValueError:
+                pass  # too few survivors: the first-N mesh (the parse may over-match)
+        return make_mesh(ndev, devices=mesh_devices)
+
+    def _note_dead_devices() -> None:
+        """The chip indices of the device-loss error behind this descent
+        (run_phase records it in the degrade event before the rung runs);
+        best effort: an unattributed loss still degrades."""
+        import re
+
+        device_degrades = [r for r in m.of_phase("degrade") if r.get("kind") == "device"]
+        if device_degrades:
+            for tok in re.findall(r"(?:chip|device)\s+#?(\d+)",
+                                  device_degrades[-1].get("error", "")):
+                dead_devices.add(int(tok))
+
+    def make_superstep(variant: str, ndev: int):
+        """The per-superstep callable of one operating point (schedule x
+        device count)."""
+        if variant in ("replicated", "ring"):
+            from graphmine_tpu_torch.parallel.ring import ring_label_propagation
+            from graphmine_tpu_torch.parallel.sharded import sharded_label_propagation
+
+            mesh = _rung_mesh(ndev)
+            with m.timed("partition", shards=ndev, schedule=variant, **_virtual(mesh.devices)):
+                sg = shard_graph_arrays(
+                    partition_graph(graph, mesh=mesh, build_bucket_plan=variant == "replicated"),
+                    mesh, lpa_only=variant == "replicated" and run_plan.lpa_only)
+                _sync(device)
+            current["chunk_size"] = sg.chunk_size
+            current["cost"] = sharded_superstep_cost("lpa_superstep", sg, e, num_messages=msgs)
+            current["mem"] = memmodel.sharded_superstep_footprint("lpa_superstep", sg,
+                                                                  schedule=variant)
+            run = ring_label_propagation if variant == "ring" else sharded_label_propagation
+            return lambda lbl: run(sg, mesh, max_iter=1, init_labels=lbl)
+        current["chunk_size"] = v
         if variant == "single_sort":
             # the degradation rung: the sort-based superstep over the bare
             # message CSR, no padded plan matrices, the same labels
@@ -489,26 +679,36 @@ def _run_lpa(config: PipelineConfig, table: EdgeTable, graph: Graph, m: MetricsS
         return lambda lbl: lpa_superstep_bucketed(lbl, graph, plan)
 
     def save_ck(iteration: int, host_labels=None) -> None:
-        ckpt.save_labels(config.checkpoint_dir,
-                         state["labels"] if host_labels is None else host_labels,
-                         iteration, fingerprint=fingerprint, sink=m)
+        lab = state["labels"] if host_labels is None else host_labels
+        if current["ndev"] > 1:
+            # a mesh writes the sharded manifest (re-shardable on restore:
+            # an elastic descent resumes on fewer devices)
+            ckpt.save_sharded(config.checkpoint_dir, lab, iteration, fingerprint=fingerprint,
+                              num_shards=current["ndev"], sink=m)
+        else:
+            ckpt.save_labels(config.checkpoint_dir, lab, iteration, fingerprint=fingerprint,
+                             sink=m)
 
-    # Built supersteps survive retry re-entry; operating points that ran
-    # >= 1 superstep arm the watchdog (the first one of a point is never
-    # bounded: it carries the point's warm-up).
+    # Built supersteps survive retry re-entry (no re-partition); operating
+    # points that ran >= 1 superstep arm the watchdog (the first one of a
+    # point is never bounded: it carries the point's warm-up); `entered`
+    # points ran their entry preamble (salvage, mesh_degrade) once.
     superstep_cache: dict = {}
     warmed: set = set()
+    entered: set = set()
     trip_k = policy.tripwire_every_k
 
     def check_tripwire(new: torch.Tensor, it: int, variant: str) -> None:
         """Labels outside [0, V) mean corrupted state: roll back to the
-        last checkpoint, then raise the retryable DivergenceError. One
-        host sync, on the existing cadence."""
+        last checkpoint, then raise the retryable DivergenceError naming
+        the shard (the partition's real chunk). One host sync, on the
+        existing cadence."""
         bad = (new < 0) | (new >= v)
         n_bad = int(bad.sum())
         if not n_bad:
             return
-        shard = int(torch.argmax(bad.to(torch.int32))) // max(v, 1)
+        chunk = current.get("chunk_size") or v
+        shard = int(torch.argmax(bad.to(torch.int32))) // max(chunk, 1)
         err = resilience.DivergenceError("label_out_of_range", shard, it + 1)
         m.tripwire(err.kind, err.shard, err.iteration, stage="lpa", bad_vertices=n_bad,
                    variant=variant)
@@ -519,44 +719,78 @@ def _run_lpa(config: PipelineConfig, table: EdgeTable, graph: Graph, m: MetricsS
             m.emit("resume", iteration=restored[1], reason="tripwire")
         raise err
 
-    def make_runner(variant: str):
-        """The remaining-supersteps loop at one operating point."""
+    def make_runner(variant: str | None, ndev: int | None = None):
+        """The remaining-supersteps loop at one operating point. ``ndev``
+        None inherits the mesh size current at entry (a memory rung leans
+        the schedule where the elastic ladder already moved the run); an
+        explicit one is an elastic rung. ``variant`` None inherits the
+        current schedule: a device rung rebuilds the schedule the run was
+        using (replicated OOMs, ring rescues, a device dies: the smaller
+        mesh runs ring)."""
 
         def run():
-            current["variant"] = variant
+            nd = current["ndev"] if ndev is None else ndev
+            var = current["variant"] if variant is None else variant
+            key = (var, nd)
+            if key not in entered:
+                entered.add(key)
+                if nd < current["ndev"]:
+                    # elastic descent: route round the implicated devices and
+                    # salvage the loop state (in memory when the copy to the
+                    # host still works, else the last checkpoint, re-sharded)
+                    _note_dead_devices()
+                    try:
+                        host_labels = _host_copy(state["labels"])
+                        resumed_from = "memory"
+                    except Exception as salvage_err:
+                        restored = _reload_checkpoint() if config.checkpoint_dir else None
+                        if restored is None:
+                            raise RuntimeError(
+                                "device loss with no recoverable state: the in-memory labels "
+                                f"died with the mesh ({salvage_err!r}) and no checkpoint "
+                                "exists; set checkpoint_dir to make device loss survivable"
+                            ) from salvage_err
+                        host_labels, state["it"] = restored
+                        resumed_from = "checkpoint"
+                    state["labels"] = _to_device(host_labels)
+                    m.emit("mesh_degrade", from_devices=current["ndev"], to_devices=nd,
+                           schedule=var, iteration=state["it"], resumed_from=resumed_from,
+                           dead_devices=sorted(dead_devices), **_virtual(mesh_devices))
+            current["ndev"], current["variant"] = nd, var
             # a rung's entry: release what the failed operating point held
             # (its cached superstep and a plan this rung does not run),
             # then return the freed blocks to the card
-            stale = [key for key in superstep_cache if key != variant]
-            for key in stale:
-                del superstep_cache[key]
-                warmed.discard(key)
-            keeps_plan = variant == "single" or (
-                variant == "single_bucketed" and isinstance(plan_holder[0], BucketedModePlan))
+            stale = [k for k in superstep_cache if k != key]
+            for k in stale:
+                del superstep_cache[k]
+                warmed.discard(k)
+            keeps_plan = var == "single" or (
+                var == "single_bucketed" and isinstance(plan_holder[0], BucketedModePlan))
             if plan_holder[0] is not None and not keeps_plan:
                 plan_holder[0] = None
                 stale.append("plan")
             if stale:
                 resilience.release_device_memory()
-            if variant not in superstep_cache:
-                superstep_cache[variant] = make_superstep(variant)
-            one_iter = superstep_cache[variant]
-            m.registry.gauge("graphmine_devices_alive", "devices in the active LPA mesh").set(1)
+            if key not in superstep_cache:
+                superstep_cache[key] = make_superstep(var, nd)
+            one_iter = superstep_cache[key]
+            virt = _virtual(_rung_mesh(nd).devices) if nd > 1 else {}
+            m.registry.gauge("graphmine_devices_alive", "devices in the active LPA mesh").set(nd)
             # a window never mixes two operating points
             wtimer.reset()
-            _mem_watermark(state["it"], variant)
+            _mem_watermark(state["it"], var, nd)
             while state["it"] < config.max_iter:
                 it = state["it"]
 
                 def step_sync():
-                    resilience.fault_point("lpa_superstep", iteration=it + 1, variant=variant,
-                                           state=state, num_shards=1)
+                    resilience.fault_point("lpa_superstep", iteration=it + 1, variant=var,
+                                           state=state, num_shards=nd)
                     new = one_iter(state["labels"])
                     _sync(device)
                     return new
 
                 with m.span("superstep", emit=False, iteration=it + 1):
-                    was_warm = variant in warmed
+                    was_warm = key in warmed
                     t0 = time.perf_counter()
                     # checkpoint-then-abort: on a hung superstep the last
                     # good labels (iteration it) are saved from a host copy
@@ -567,7 +801,7 @@ def _run_lpa(config: PipelineConfig, table: EdgeTable, graph: Graph, m: MetricsS
                                     if config.checkpoint_dir else None),
                     )
                     dt = time.perf_counter() - t0
-                    warmed.add(variant)
+                    warmed.add(key)
                     if was_warm:
                         wtimer.add(dt)
                     # every Nth superstep and always the last
@@ -575,14 +809,15 @@ def _run_lpa(config: PipelineConfig, table: EdgeTable, graph: Graph, m: MetricsS
                         (it + 1) % config.checkpoint_every == 0 or it + 1 == config.max_iter)
                     # a superstep that will be persisted is always checked
                     if trip_k and ((it + 1) % trip_k == 0 or will_save):
-                        check_tripwire(new, it, variant)
+                        check_tripwire(new, it, var)
                     if will_save or it + 1 == config.max_iter or (
                             trip_k and (it + 1) % trip_k == 0):
-                        changed = _emit_superstep_telemetry(m, new, state["labels"], variant,
-                                                            it + 1)
+                        changed = _emit_superstep_telemetry(
+                            m, new, state["labels"], current.get("chunk_size") or v, nd, var,
+                            it + 1)
                         wtimer.flush(m, "lpa_superstep", current.get("cost"), it + 1, e,
-                                     variant=variant)
-                        _mem_watermark(it + 1, variant)
+                                     variant=var, **virt)
+                        _mem_watermark(it + 1, var, nd)
                     else:
                         changed = int((new != state["labels"]).sum())
                     state["labels"] = new
@@ -593,19 +828,33 @@ def _run_lpa(config: PipelineConfig, table: EdgeTable, graph: Graph, m: MetricsS
                               "labels changed in the last superstep").set(changed)
                     reg.counter("graphmine_supersteps_total",
                                 "LPA supersteps completed this run").inc()
-                    m.lpa_iteration(it + 1, changed, e, dt, 1)
+                    m.lpa_iteration(it + 1, changed, e, dt, chips)
                     if will_save:
                         save_ck(it + 1)
             return state["labels"]
 
         return run
 
-    rungs = planner.degradation_ladder(run_plan.schedule, 1, family=sstep_plan.family)
-    primary = "single_sort" if sstep_plan.family == "sort" else "single"
+    family = sstep_plan.family if sstep_plan is not None else "bucketed"
+    rungs = planner.degradation_ladder(run_plan.schedule, n_dev, family=family)
+    # Elastic device rungs (a device loss): halved meshes running the
+    # schedule current at the descent; the one-device floor runs the sort
+    # superstep, only when the whole graph fits one device.
+    device_rungs = []
+    for d2 in planner.elastic_device_ladder(run_plan.schedule, n_dev):
+        if d2 > 1:
+            device_rungs.append((f"elastic@{d2}dev", make_runner(None, d2)))
+        elif run_plan.estimates.get("single", 0) <= run_plan.hbm_bytes:
+            device_rungs.append(("single_sort@1dev", make_runner("single_sort", 1)))
+    if run_plan.schedule != "single":
+        primary = run_plan.schedule
+    else:
+        primary = "single_sort" if family == "sort" else "single"
     with maybe_profile(config.profile_dir, sink=m):
         return resilience.run_phase(
             "lpa", make_runner(primary), policy, m,
             ladder=tuple((r, make_runner(r)) for r in rungs),
+            device_ladder=tuple(device_rungs),
             # supersteps advanced since the last failure: a new incident
             progress=lambda: state["it"],
             degrade_context=_lpa_degrade_context,
@@ -616,8 +865,9 @@ def _publish_snapshot(config: PipelineConfig, result: PipelineResult, m: Metrics
                       device: torch.device) -> None:
     """Publish the run's outputs as one snapshot generation at
     ``config.snapshot_out``: the edges, labels, CC labels (computed here,
-    the pipeline's only CC), census and LOF, and the weights of a weighted
-    run, under ``run_phase`` (transient weather retries). The quality
+    the pipeline's only CC: over the mesh when the graph stayed on the
+    host), census and LOF, and the weights of a weighted run, under
+    ``run_phase`` (transient weather retries). The quality
     pass re-scores the store's canary probe on ``device``
     (``GRAPHMINE_QUALITY=0`` turns it off, ``GRAPHMINE_CANARY_SEED`` seeds
     a new probe) and mirrors its gauges into the sink's registry; its
@@ -630,8 +880,11 @@ def _publish_snapshot(config: PipelineConfig, result: PipelineResult, m: Metrics
 
     def _publish():
         resilience.fault_point("snapshot_publish")
-        # sink=m: impl_selected, plan_build and the superstep_timing record
-        cc_t, iters = connected_components(graph, return_iterations=True, sink=m)
+        if result.scale_out:
+            cc_t, iters = _sharded_cc(graph, result.mesh_devices, m)
+        else:
+            # sink=m: impl_selected, plan_build and the superstep_timing record
+            cc_t, iters = connected_components(graph, return_iterations=True, sink=m)
         cc = cc_t.cpu().numpy().astype(np.int32)
         cc_sizes = np.bincount(cc, minlength=1)
         m.emit("cc_summary", components=int((cc_sizes > 0).sum()),
@@ -669,7 +922,8 @@ def _publish_snapshot(config: PipelineConfig, result: PipelineResult, m: Metrics
                 canary = None
         snap = store.publish(
             arrays, fingerprint=ckpt.graph_fingerprint(table.src, table.dst, table.weights),
-            run_id=m.tracer.run_id if m.tracer is not None else "", mesh_shape=[1],
+            run_id=m.tracer.run_id if m.tracer is not None else "",
+            mesh_shape=[max(len(result.mesh_devices), 1)],
             extra_meta={"canary": canary.meta()} if canary is not None else None, sink=m,
         )
         if quality_on:
@@ -688,6 +942,36 @@ def _publish_snapshot(config: PipelineConfig, result: PipelineResult, m: Metrics
 
     with m.span("snapshot_publish"):
         resilience.run_phase("snapshot_publish", _publish, config.resilience, m)
+
+
+def _sharded_cc(graph: Graph, mesh_devices, m: MetricsSink) -> tuple:
+    """``(cc labels, supersteps)`` of a host graph over the mesh, with the
+    ``partition`` record and the CC window's ``superstep_timing``."""
+    from graphmine_tpu_torch.obs.costmodel import (
+        emit_superstep_timing,
+        sharded_superstep_cost,
+        timed_fixpoint,
+    )
+    from graphmine_tpu_torch.parallel.mesh import make_mesh
+    from graphmine_tpu_torch.parallel.sharded import (
+        partition_graph,
+        shard_graph_arrays,
+        sharded_connected_components,
+    )
+
+    mesh = make_mesh(len(mesh_devices), devices=mesh_devices)
+    virt = _virtual(mesh.devices)
+    with m.timed("partition", shards=mesh.size, schedule="replicated", **virt):
+        sg = shard_graph_arrays(partition_graph(graph, mesh=mesh), mesh)
+    (cc, tele), secs, cold = timed_fixpoint(
+        lambda: sharded_connected_components(sg, mesh, telemetry=True))
+    emit_superstep_timing(
+        m, "cc_superstep",
+        sharded_superstep_cost("cc_superstep", sg, graph.num_edges,
+                               num_messages=graph.num_messages, weighted=False),
+        tele.iterations, tele.iterations, secs, graph.num_edges, variant="sharded",
+        cold_compile=cold, **virt)
+    return cc, tele.iterations
 
 
 def main(argv=None) -> None:

@@ -1,15 +1,19 @@
-"""Pre-allocation memory planner and plan-family selection, one device.
+"""Pre-allocation memory planner and plan-family selection.
 
-Counterpart of the single-device part of
-``graphmine_tpu/pipeline/planner.py``: :func:`plan_run` checks the LPA
-operating point against the card's memory before anything is allocated
-(a config that cannot fit raises :class:`PlanError` with the numbers),
+Counterpart of ``graphmine_tpu/pipeline/planner.py``: :func:`plan_run`
+picks the LPA schedule for (V, E, D) against the card's memory before
+anything is allocated: ``single`` on one device, else ``replicated`` (the
+full label vector on every shard, one all-gather a superstep) before
+``ring`` (labels sharded); a requested schedule is checked, and a config
+that cannot fit raises :class:`PlanError` with the numbers.
 :func:`plan_superstep` resolves the superstep family (``blocked``,
 ``bucketed`` or ``sort``, through the ops layer's
 :func:`~graphmine_tpu_torch.ops.blocking.select_superstep_family`) with
-its degradation rung, :func:`plan_lof` the LOF kNN family
-(``ivf`` or ``exact``) with the opposite family as its rung, and
-:func:`degradation_ladder` lists the memory rungs the driver walks.
+its degradation rung, :func:`plan_lof` the LOF kNN family (``ivf`` or
+``exact``) with the opposite family as its rung,
+:func:`degradation_ladder` lists the memory rungs the driver walks
+(``replicated`` steps to ``ring``) and :func:`elastic_device_ladder` the
+halved meshes a device loss walks.
 
 The byte model is :mod:`graphmine_tpu_torch.obs.memmodel`'s, counted from
 the port's own buffers. The budget is the card's own memory
@@ -17,17 +21,16 @@ the port's own buffers. The budget is the card's own memory
 ``GRAPHMINE_HBM_BYTES`` overrides it; only a run off CUDA, which has no
 device memory to budget, plans against a nominal 16 GiB.
 
-The JAX package's multi-device schedules (``replicated``, ``ring``), its
-``sharded_2d`` superstep family and the elastic device rungs are not
-ported: asking for one raises :class:`PlanError` naming the
-ROADMAP item that ports it, never a silent substitute. One device has no
-elastic rung, so a device-loss error raises.
+The JAX package's ``sharded_2d`` superstep family is not ported: asking
+for it raises :class:`PlanError` naming the ROADMAP item that ports it,
+never a silent substitute. One device has no elastic rung, so a
+device-loss error there raises.
 """
 
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 from graphmine_tpu_torch.obs import memmodel
 from graphmine_tpu_torch.ops.blocking import (  # noqa: F401 — the planner's policy surface
@@ -42,12 +45,14 @@ _DEFAULT_HBM = 16 * (1 << 30)
 # the CUDA context live in the rest.
 _HBM_HEADROOM = 0.9
 _INT32_MAX = (1 << 31) - 1
+# The modeled per-device message count of a sharded schedule takes 12%
+# slack for the width ladder's and the shard padding; partition_graph
+# checks the exact count.
+_SHARD_PAD_SLACK = 1.12
 
 # What is not ported, and the ROADMAP queue-1 item that ports it.
 _NOT_PORTED = {
-    "sharded_2d": "A7 (multi-device)",
-    "replicated": "A7 (multi-device)",
-    "ring": "A7 (multi-device)",
+    "sharded_2d": "A7b (the 2-D and blocked shard families)",
 }
 
 
@@ -58,7 +63,7 @@ class PlanError(ValueError):
 
 def _not_ported(what: str, kind: str) -> PlanError:
     return PlanError(
-        f"{kind} {what!r} is not ported to the single-device PyTorch driver; "
+        f"{kind} {what!r} is not ported to the PyTorch driver; "
         f"it waits for ROADMAP queue 1 item {_NOT_PORTED[what]}"
     )
 
@@ -67,10 +72,20 @@ def _not_ported(what: str, kind: str) -> PlanError:
 class RunPlan:
     """Resolved execution plan for one LPA run."""
 
-    schedule: str            # "single"
+    schedule: str            # "single" | "replicated" | "ring"
     bytes_per_device: int    # modeled peak of the LPA operating point
     hbm_bytes: int           # the budget the plan was made against
     reason: str
+    lpa_only: bool = False   # shard_graph_arrays drops the sort-body arrays
+    estimates: dict = field(default_factory=dict)  # schedule -> bytes/device
+
+
+def messages_per_device(schedule: str, num_edges: int, num_devices: int) -> int:
+    """Modeled per-device message-array length of ``schedule``."""
+    m = 2.0 * num_edges
+    if schedule == "single" or num_devices <= 1:
+        return int(m)
+    return int(m / num_devices * _SHARD_PAD_SLACK)
 
 
 def device_hbm_bytes(device) -> int | None:
@@ -109,17 +124,35 @@ def estimate_bytes_per_device(schedule: str, num_vertices: int, num_edges: int,
 
 
 def degradation_ladder(schedule: str, num_devices: int, family: str = "bucketed") -> list[str]:
-    """The LPA operating points after resource exhaustion: the blocked
-    superstep steps down to ``single_bucketed`` (the tile and the stream
-    arrays go, the bucketed plan is built) and then ``single_sort``, the
-    bucketed one to ``single_sort`` (the padded plan matrices and their
-    transients go), and sort is the floor."""
-    if schedule != "single" or num_devices != 1:
-        raise _not_ported(schedule if schedule in _NOT_PORTED else "replicated", "schedule")
+    """The LPA operating points after resource exhaustion. One device: the
+    blocked superstep steps down to ``single_bucketed`` (the tile and the
+    stream arrays go, the bucketed plan is built) and then
+    ``single_sort``, the bucketed one to ``single_sort`` (the padded plan
+    matrices and their transients go), and sort is the floor. A mesh:
+    ``replicated`` steps to ``ring`` (no replicated label vector), and
+    ring is the floor."""
     if family in _NOT_PORTED:
         raise _not_ported(family, "superstep family")
-    return {"blocked": ["single_bucketed", "single_sort"], "sort": []}.get(
-        family, ["single_sort"])
+    if schedule == "single" or num_devices <= 1:
+        return {"blocked": ["single_bucketed", "single_sort"], "sort": []}.get(
+            family, ["single_sort"])
+    if schedule == "replicated":
+        return ["ring"]
+    return []
+
+
+def elastic_device_ladder(schedule: str, num_devices: int) -> list[int]:
+    """The surviving-mesh rungs after a device loss: D//2, D//4, ..., 1
+    (the survivors keep their memory, so the answer is a smaller mesh, not
+    a leaner schedule; halving bounds the re-partitions to log D). One
+    device has no mesh to shrink."""
+    if schedule == "single" or num_devices <= 1:
+        return []
+    rungs, d = [], num_devices // 2
+    while d >= 1:
+        rungs.append(d)
+        d //= 2
+    return rungs
 
 
 @dataclass(frozen=True)
@@ -170,37 +203,75 @@ def plan_lof(num_points: int, k: int, requested: str = "auto",
 
 def plan_run(num_vertices: int, num_edges: int, num_devices: int, weighted: bool = False,
              requested: str = "auto", hbm: int | None = None) -> RunPlan:
-    """Check the single-device LPA operating point for (V, E) against 90%
-    of the budget ``hbm``, or raise :class:`PlanError` with the numbers.
-    ``requested`` is ``"auto"`` or ``"single"``; more than one device, or
-    a multi-device schedule, raises (ROADMAP item A7)."""
+    """Pick the LPA schedule for (V, E, D) against 90% of the per-device
+    budget ``hbm``, or raise :class:`PlanError` with the numbers.
+    ``"auto"`` takes the first schedule that fits in speed order: the
+    single-device superstep on one device, else ``replicated``, else
+    ``ring``. A requested schedule is honoured but still checked (on one
+    device every request runs ``single``). ``estimates`` always holds
+    ``single``: the driver reads it to decide whether the whole graph may
+    also live on one device or must stay on the host (scale-out)."""
     if num_devices < 1:
         raise ValueError("num_devices must be >= 1")
     if requested in _NOT_PORTED:
         raise _not_ported(requested, "schedule")
-    if num_devices != 1:
-        raise _not_ported("replicated", "schedule")
-    if requested not in ("auto", "single"):
+    if requested not in ("auto", "single", "replicated", "ring"):
         raise ValueError(f"unknown schedule {requested!r}")
     budget = int((hbm if hbm is not None else hbm_bytes_per_device()) * _HBM_HEADROOM)
-    need = estimate_bytes_per_device("single", num_vertices, num_edges, 1, weighted)
+    candidates = ["single"] if num_devices == 1 else ["replicated", "ring"]
+    est = {s: estimate_bytes_per_device(s, num_vertices, num_edges, num_devices, weighted)
+           for s in dict.fromkeys(candidates + ["single"])}
 
     def _gb(b):
         return f"{b / (1 << 30):.2f} GiB"
 
-    if 2 * num_edges > _INT32_MAX:
-        raise PlanError(
-            f"message-index overflow: E={num_edges:,} gives {2 * num_edges:,} messages, "
-            f"above the int32 index bound {_INT32_MAX:,} of the device kernels; "
-            "sharding the messages waits for ROADMAP item A7"
+    def _idx_ok(s):
+        return messages_per_device(s, num_edges, num_devices) <= _INT32_MAX
+
+    def _idx_error(s):
+        mpd = messages_per_device(s, num_edges, num_devices)
+        need_d = int(2.0 * num_edges * _SHARD_PAD_SLACK / _INT32_MAX) + 1
+        return PlanError(
+            f"message-index overflow: schedule '{s}' puts ~{mpd:,} messages on one device "
+            f"for E={num_edges:,} on {num_devices} device(s), above the int32 index bound "
+            f"{_INT32_MAX:,} of the device kernels; use >= {need_d} devices so every "
+            "shard's messages fit int32"
         )
-    if need > budget:
-        raise PlanError(
-            f"the single-device LPA needs {_gb(need)} for V={num_vertices:,} "
-            f"E={num_edges:,}{' weighted' if weighted else ''} — budget is {_gb(budget)} "
-            f"(90% of {_gb(int(budget / _HBM_HEADROOM))}); multi-device schedules wait "
-            "for ROADMAP item A7, or set GRAPHMINE_HBM_BYTES if the card has more memory"
-        )
-    why = "one device: fused bucketed kernel" if requested == "auto" else \
-        f"requested 'single' ({_gb(need)}/device fits)"
-    return RunPlan(schedule="single", bytes_per_device=need, hbm_bytes=budget, reason=why)
+
+    if requested != "auto":
+        sched = requested if num_devices > 1 else "single"
+        if not _idx_ok(sched):
+            raise _idx_error(sched)
+        need = est[sched]
+        if need > budget:
+            fits = [s for s, b in est.items() if b <= budget]
+            hint = (f"schedule '{fits[0]}' would fit ({_gb(est[fits[0]])})" if fits
+                    else "no schedule fits; add devices or shrink the graph")
+            raise PlanError(
+                f"schedule '{sched}' needs {_gb(need)}/device for V={num_vertices:,} "
+                f"E={num_edges:,} on {num_devices} device(s) — budget is {_gb(budget)} "
+                f"(90% of {_gb(int(budget / _HBM_HEADROOM))}); {hint}"
+            )
+        return RunPlan(schedule=sched, bytes_per_device=need, hbm_bytes=budget,
+                       reason=f"requested '{requested}' ({_gb(need)}/device fits)",
+                       lpa_only=sched == "replicated", estimates=est)
+    idx_blocked = [s for s in candidates if not _idx_ok(s)]
+    for sched in candidates:
+        if est[sched] <= budget and _idx_ok(sched):
+            why = {
+                "single": "one device: fused bucketed kernel",
+                "replicated": "fastest multi-device schedule that fits",
+                "ring": (f"replicated labels would not fit "
+                         f"({_gb(est.get('replicated', 0))}/device); ring keeps labels sharded"),
+            }[sched]
+            return RunPlan(schedule=sched, bytes_per_device=est[sched], hbm_bytes=budget,
+                           reason=why, lpa_only=sched == "replicated", estimates=est)
+    if idx_blocked and all(est[s] <= budget for s in idx_blocked):
+        raise _idx_error(idx_blocked[-1])
+    detail = ", ".join(f"{s}={_gb(b)}" for s, b in est.items())
+    raise PlanError(
+        f"no LPA schedule fits V={num_vertices:,} E={num_edges:,} "
+        f"{'weighted ' if weighted else ''}on {num_devices} device(s): modeled peak per "
+        f"device {detail} vs budget {_gb(budget)} (90% of the card's memory). Add devices "
+        "(the O(E) terms shard), or set GRAPHMINE_HBM_BYTES if the card has more memory."
+    )

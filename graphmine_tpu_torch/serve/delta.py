@@ -31,7 +31,7 @@ package's on the same store and deltas.
 
 The sharded repair (``num_shards > 1``: ``_warm_lpa_sharded``,
 ``_sharded_exact_step``, ``_resolve_shard_family``, ``_repair_sharded``)
-is ROADMAP item A7 and raises ``NotImplementedError`` here.
+is ROADMAP item A7b and raises ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ from graphmine_tpu_torch.pipeline import resilience
 from graphmine_tpu_torch.pipeline.checkpoint import graph_fingerprint
 from graphmine_tpu_torch.serve.snapshot import Snapshot, SnapshotStore
 
-_SHARDED = ("the sharded delta repair (num_shards > 1) is ROADMAP item A7 "
+_SHARDED = ("the sharded delta repair (num_shards > 1) is ROADMAP item A7b "
             "of the port; this ingestor repairs on one device")
 
 # Growth guard: a typo'd insert id must not allocate a billion-row label
@@ -400,7 +400,7 @@ def sampled_exact_check(
     passes by construction; corrupted state, a non-fixpoint (budget ran
     out) or a wrong-graph mixup does not. Returns
     ``(ok, mismatching_samples)``. ``shards`` (the sharded check) is
-    ROADMAP item A7."""
+    ROADMAP item A7b."""
     if shards is not None:
         raise NotImplementedError(_SHARDED)
     from graphmine_tpu_torch.ops.cc import cc_superstep
@@ -607,7 +607,7 @@ def cold_recompute(graph, budget: int = 0, shards=None):
     On graphs whose synchronous LPA livelocks the result is the
     cycle-stopped bounded recompute, and every delta on such a graph
     routes here through the repair fallback. ``shards`` is ROADMAP item
-    A7."""
+    A7b."""
     if shards is not None:
         raise NotImplementedError(_SHARDED)
     from graphmine_tpu_torch.ops.cc import connected_components
@@ -626,7 +626,7 @@ def _verify_or_fallback(
 ) -> RepairResult:
     """The shared tail of the repair: fault seam → sampled exact check →
     accept or fall back (``shards``, the sharded caller's, is ROADMAP item
-    A7).
+    A7b).
 
     The fault seam is where tests corrupt the repaired state
     (poison_labels-style mutator) to prove the sampled check catches
@@ -728,7 +728,7 @@ class DeltaIngestor:
     the features, the LOF and the canary probe run on ``device`` (CUDA
     unless the caller names another).
 
-    ``num_shards > 1`` (the sharded repair) is ROADMAP item A7 and raises
+    ``num_shards > 1`` (the sharded repair) is ROADMAP item A7b and raises
     ``NotImplementedError``.
     """
 

@@ -21,10 +21,12 @@ The factories return the errors the production classifier sees on the
 card: :func:`oom_error` is a ``torch.cuda.OutOfMemoryError`` carrying the
 caching allocator's message, :func:`device_oom` provokes a real one from
 the allocator, so :func:`~graphmine_tpu_torch.pipeline.resilience.classify_error`
-is the code under test. :func:`poison_labels` corrupts the driver's label
-state without raising (the tripwires must catch it); :func:`hang` sleeps
-(the watchdog must bound it); :func:`corrupt_file` and
-:func:`truncate_file` damage checkpoints in place.
+is the code under test. :func:`device_loss` reads as a dead device
+(the elastic mesh rungs answer it). :func:`poison_labels` corrupts the
+driver's label state without raising (the tripwires must catch it);
+:func:`hang` sleeps (the watchdog must bound it); :func:`corrupt_file`,
+:func:`truncate_file`, :func:`corrupt_shard` and :func:`corrupt_manifest`
+damage checkpoints in place.
 
 Serving: :func:`slow_repair` stalls every delta apply at the
 ``delta_repair`` seam (``serve/delta.py::_verify_or_fallback``, ctx:
@@ -66,6 +68,11 @@ class SimulatedPreemption(Exception):
     graphmine_error_class = resilience.FATAL
 
 
+class InjectedDeviceLoss(Exception):
+    """Looks like a dead device or a torn link; classified
+    degradable_device (the elastic mesh rungs respond)."""
+
+
 def transient_error() -> Exception:
     return InjectedTransientError(
         "UNAVAILABLE: socket closed; failed to connect to remote runtime "
@@ -99,6 +106,16 @@ def device_oom(device) -> Exception:
 
 def preemption() -> Exception:
     return SimulatedPreemption("worker preempted (injected fault)")
+
+
+def device_loss(chip: int = 2) -> Exception:
+    """A device failure mid-exchange, classified by its message (the JAX
+    package's words, so the classifier is the code under test); the chip
+    index is what the driver routes its rung meshes around."""
+    return InjectedDeviceLoss(
+        f"DATA_LOSS: device failure on chip {chip}: ICI link down during "
+        "all-gather (injected fault)"
+    )
 
 
 def poison_labels(shard: int, num_shards: int, value: int = -7):
@@ -500,6 +517,27 @@ def corrupt_file(path: str, offset: int = -64, nbytes: int = 16) -> None:
         chunk = f.read(nbytes)
         f.seek(pos)
         f.write(bytes(b ^ 0xFF for b in chunk))
+
+
+def corrupt_shard(checkpoint_dir: str, shard: int, tag: str = "lpa") -> str:
+    """Flip bytes inside one shard file of the current sharded-checkpoint
+    generation; returns the damaged path."""
+    from graphmine_tpu_torch.pipeline import checkpoint as ckpt
+
+    path = ckpt.shard_file(ckpt.sharded_dir(checkpoint_dir, tag), shard)
+    corrupt_file(path)
+    return path
+
+
+def corrupt_manifest(checkpoint_dir: str, tag: str = "lpa") -> str:
+    """Flip bytes inside the manifest of the current sharded-checkpoint
+    generation (a wrong checksum or broken JSON; both roll back); returns
+    the damaged path."""
+    from graphmine_tpu_torch.pipeline import checkpoint as ckpt
+
+    path = os.path.join(ckpt.sharded_dir(checkpoint_dir, tag), ckpt.MANIFEST_NAME)
+    corrupt_file(path)
+    return path
 
 
 def truncate_file(path: str, keep_fraction: float = 0.5) -> None:

@@ -90,7 +90,7 @@ def test_betweenness_bit_equal(name, kw):
 
 def test_betweenness_over_a_mesh_names_a7():
     _, g = _random(2, v=20, e=40)
-    with pytest.raises(NotImplementedError, match=r"A7 \(multi-device\)"):
+    with pytest.raises(NotImplementedError, match=r"A7b \(multi-device\)"):
         tc.betweenness_centrality(g, mesh=object())
 
 

@@ -780,3 +780,71 @@ def test_card_rmat_draws_the_recipe_on_the_device():
     assert torch.equal(graph.src, again.src) and torch.equal(graph.dst, again.dst)
     deg = np.diff(ptr)
     assert deg.max() > 8 * deg.mean()  # R-MAT's skew: hubs far above the mean
+
+
+# ---- phase 11: the multi-device pipeline on a virtual mesh ----------------
+
+
+def test_parses_mesh_only():
+    assert chip_smoke.parse_args(["--mesh-only"]).mesh_only
+    assert not chip_smoke.parse_args([]).mesh_only
+    with pytest.raises(SystemExit):
+        chip_smoke.parse_args(["--mesh-only", "--blocked-only"])
+
+
+def test_mesh_only_exits_nonzero_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the smoke would run")
+    out = subprocess.run([sys.executable, "chip_smoke.py", "--mesh-only"], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and "CUDA is not available" in out.stderr
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: the shard bodies are many small ops, whose
+    thread pools would otherwise oversubscribe the cores the other test
+    workers share."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_mesh_small_phase_on_the_cpu(tmp_path, one_thread):
+    """Phase 11a with the CPU in the card's place (operators on a
+    512-vertex planted graph, pipelines on phase 4's parquet): every gate
+    holds, and the checks refuse a result that differs."""
+    import copy
+
+    chip_smoke.small_inputs(tmp_path)
+    out = chip_smoke.mesh_small(tmp_path, devices=("cpu", "cpu"), size=(512, 4000))
+    assert set(out["ops"]) == set(chip_smoke.MESH_SHARDS)
+    assert out["pipelines"]["mesh_degrade"]["to_devices"] == 2
+    ops = chip_smoke.mesh_ops_small("cpu", shards=(2,), v=256, e=2000)
+    bad = copy.deepcopy(ops)
+    bad["mesh"][2]["ring_lpa"][0] += 1
+    with pytest.raises(RuntimeError, match="ring_lpa"):
+        chip_smoke.check_mesh_ops(ops, bad)
+    bad = copy.deepcopy(ops)
+    bad["mesh"][2]["partition"]["msg_send"][0, 0] += 1
+    with pytest.raises(RuntimeError, match="partition msg_send"):
+        chip_smoke.check_mesh_ops(ops, bad)
+
+
+def test_superstep_points_agree_on_the_cpu(monkeypatch, one_thread):
+    from graphmine_tpu_torch import datasets
+    from graphmine_tpu_torch.graph.container import build_graph
+
+    monkeypatch.setenv("GRAPHMINE_VIRTUAL_DEVICES", "4")
+    src, dst, _, _ = datasets.planted_anomaly_graph(1024, 8000, seed=9)
+    g = build_graph(src, dst, num_vertices=1024, device="cpu")
+    labels = torch.arange(1024, dtype=torch.int32)
+    points = [chip_smoke.superstep_point(g, labels, s, d, device="cpu")
+              for s in ("replicated", "ring") for d in (1, 4)]
+    ref = points[0]["labels"]
+    for p in points:
+        assert torch.equal(p["labels"], ref) and p["ms"] > 0
+        assert p["predicted_bytes"] == p["predicted_bytes_per_shard"] * p["devices"]
+    assert [p["family"] for p in points] == ["bucketed", "bucketed", "sort", "sort"]

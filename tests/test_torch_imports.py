@@ -104,7 +104,8 @@ _BLOCKED = "import sys\nsys.modules['jax'] = None\nsys.modules['graphmine_tpu'] 
                                     "graphmine_tpu_torch.ops.aggregate",
                                     "graphmine_tpu_torch.ops.motifs",
                                     "graphmine_tpu_torch.ops.stats",
-                                    "graphmine_tpu_torch.ops.cluster_metrics"])
+                                    "graphmine_tpu_torch.ops.cluster_metrics",
+                                    "graphmine_tpu_torch.parallel"])
 def test_slice_modules_import_without_jax(module):
     code = _BLOCKED + f"import importlib\nimportlib.import_module({module!r})\nprint('ok')\n"
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -223,3 +224,26 @@ def test_blocked_family_exported_under_the_jax_names_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "6"
+
+
+def test_parallel_exported_under_the_jax_names_without_jax():
+    # graphmine_tpu_torch.parallel exports the JAX package's names, each
+    # the port's own object, in a process where JAX cannot be imported
+    import graphmine_tpu.parallel as jpar
+
+    names = sorted(jpar.__all__)
+    code = _BLOCKED + (
+        "import graphmine_tpu_torch as p, graphmine_tpu_torch.parallel as par\n"
+        f"names = {names!r}\n"
+        "assert set(names) == set(par.__all__), set(names) ^ set(par.__all__)\n"
+        "mods = {getattr(par, n).__module__ for n in names}\n"
+        "assert all(m.startswith('graphmine_tpu_torch.parallel') for m in mods), mods\n"
+        "for n in ('recursive_lpa_outliers_sharded', 'sharded_superstep_cost',\n"
+        "          'sharded_superstep_footprint'):\n"
+        "    assert getattr(p, n).__module__.startswith('graphmine_tpu_torch.'), n\n"
+        "print(len(names))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == str(len(names))

@@ -23,6 +23,7 @@ import functools
 
 import numpy as np
 import pytest
+import torch
 
 from graphmine_tpu.io import native as jnative
 from graphmine_tpu.pipeline.config import PipelineConfig as JPipelineConfig
@@ -281,3 +282,136 @@ def test_quarantine_record_counts_set_aside_rows(tmp_path):
         run_pipeline(PipelineConfig(data_path=str(path), data_format="edgelist",
                                     edge_weight_col=2, lof_k=8, quarantine_inputs=False,
                                     device="cpu"))
+
+
+# ---- the pipeline on a mesh: replicated, ring, scale-out ---------------
+#
+# A 4-shard virtual CPU mesh (GRAPHMINE_VIRTUAL_DEVICES) against the JAX
+# driver on its own 4-device virtual mesh, on the slice's graph with the
+# NumPy loaders and the exact LOF at lof_k=32. Labels and flags are equal
+# (the ring's too: it gives the replicated schedule's labels); LOF agrees
+# as the default-config tests above say (rtol 1e-4 on 99.9%, 1e-2 on all).
+# Scale-out: GRAPHMINE_HBM_BYTES between the two planners' replicated and
+# single-device estimates keeps the graph on the host in both packages;
+# the published labels and CC labels are equal. Its host features are
+# bit-equal to the JAX package's, but their standardization reduces the
+# column means in float32 in another order (XLA's against PyTorch's), an
+# ulp apart, and one vertex on a near-tie of its neighbour list moves by
+# 1.15e-2 (the rest within 1.4e-6): that case's bound on all vertices is
+# 2e-2.
+
+SCALE_OUT_HBM = "1200000"
+
+
+@pytest.fixture(scope="module")
+def mesh_runs(tmp_path_factory):
+    from graphmine_tpu.serve.snapshot import SnapshotStore as JStore
+
+    from graphmine_tpu_torch.serve.snapshot import SnapshotStore
+
+    src, dst, is_anomaly, _ = datasets.planted_anomaly_graph(4096, 60_000, seed=9)
+    root = tmp_path_factory.mktemp("mesh")
+    path = root / "edges.txt"
+    np.savetxt(path, np.stack([src, dst], axis=1), fmt="%d")
+    base = dict(data_path=str(path), data_format="edgelist", max_iter=5, outlier_method="both",
+                lof_k=LOF_K, num_devices=4)
+    out = {}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # many small shard ops: keep the workers' cores free
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("GRAPHMINE_VIRTUAL_DEVICES", "4")
+            mp.setattr(jnative, "load_edge_list_chunked", lambda *a, **k: None)
+            mp.setattr(jnative, "load_edge_list_native", lambda *a, **k: None)
+            mp.setattr(driver, "load_edge_list",
+                       functools.partial(load_edge_list, use_native=False))
+            out["jax"] = jrun_pipeline(JPipelineConfig(**base, lof_impl="xla"))
+            for sched in ("replicated", "ring"):
+                out[sched] = run_pipeline(PipelineConfig(**base, schedule=sched,
+                                                         lof_impl="exact", device="cpu"))
+            mp.setenv("GRAPHMINE_HBM_BYTES", SCALE_OUT_HBM)
+            out["jax_scale_out"] = jrun_pipeline(JPipelineConfig(
+                **base, lof_impl="xla", snapshot_out=str(root / "jax_store")))
+            out["scale_out"] = run_pipeline(PipelineConfig(
+                **base, lof_impl="exact", device="cpu", snapshot_out=str(root / "port_store")))
+    finally:
+        torch.set_num_threads(threads)
+    out["stores"] = (JStore(str(root / "jax_store")).load(),
+                     SnapshotStore(str(root / "port_store")).load())
+    out["is_anomaly"] = is_anomaly[out["replicated"].edge_table.names.astype(np.int64)]
+    return out
+
+
+def _lof_close(got, want, worst=1e-2):
+    rel = np.abs(got - want) / np.abs(want)
+    assert (rel <= 1e-4).mean() >= 0.999 and rel.max() <= worst, rel.max()
+
+
+@pytest.mark.parametrize("run", ["replicated", "ring", "scale_out"])
+def test_mesh_pipeline_labels_flags_and_lof(mesh_runs, run):
+    ref = mesh_runs["jax_scale_out" if run == "scale_out" else "jax"]
+    port = mesh_runs[run]
+    np.testing.assert_array_equal(port.labels, np.asarray(ref.labels))
+    assert port.num_communities == ref.num_communities
+    np.testing.assert_array_equal(port.outliers.outlier_vertices,
+                                  ref.outliers.outlier_vertices)
+    _lof_close(port.lof, np.asarray(ref.lof), worst=2e-2 if run == "scale_out" else 1e-2)
+    assert auroc(port.lof, mesh_runs["is_anomaly"]) == pytest.approx(
+        auroc(np.asarray(ref.lof), mesh_runs["is_anomaly"]), abs=1e-3)
+
+
+def test_mesh_pipeline_records(mesh_runs):
+    for run in ("replicated", "ring", "scale_out"):
+        m, jm = mesh_runs[run].metrics, mesh_runs["jax_scale_out" if run == "scale_out"
+                                                  else "jax"].metrics
+        (plan,) = m.of_phase("plan")
+        jplan = [r for r in jm.records if r["phase"] == "plan"][0]
+        assert plan["schedule"] == (run if run != "scale_out" else jplan["schedule"])
+        assert plan["virtual"] is True and plan["mem"]["devices"] == 4
+        parts = m.of_phase("partition")
+        assert parts and all(p["virtual"] and p["shards"] == 4 for p in parts)
+        assert all(r["virtual"] for r in m.of_phase("superstep_timing"))
+        (lof,) = m.of_phase("outliers_lof")
+        assert lof["devices"] == 4
+        sel = [r for r in m.of_phase("impl_selected")  # not the publish's canary
+               if r["op"] == "lof_knn" and r["n"] == mesh_runs[run].graph.num_vertices]
+        assert [(r["impl"], r["devices"]) for r in sel] == [("exact", 4)]
+        assert bool(m.of_phase("scale_out")) == (run == "scale_out") == bool(
+            [r for r in jm.records if r["phase"] == "scale_out"])
+    so = mesh_runs["scale_out"]
+    assert so.scale_out and so.feature_mode == "host-8-sampled"
+    assert so.graph.device.type == "cpu"
+    (rec,) = so.metrics.of_phase("outliers_recursive_lpa")
+    assert (rec["schedule"], rec["devices"]) == ("replicated", 4)
+    assert so.metrics.of_phase("outliers_lof")[0]["features"] == "host-8-sampled"
+    assert [p["schedule"] for p in mesh_runs["ring"].metrics.of_phase("partition")] == ["ring"]
+
+
+def test_scale_out_publish_equals_jax(mesh_runs):
+    jsnap, psnap = mesh_runs["stores"]
+    for name in ("labels", "cc_labels", "src", "dst", "census_sizes"):
+        np.testing.assert_array_equal(psnap.arrays[name], np.asarray(jsnap.arrays[name]))
+    assert psnap.meta["mesh_shape"] == [4] == list(jsnap.meta["mesh_shape"])
+    (cc,) = mesh_runs["scale_out"].metrics.of_phase("cc_summary")
+    assert cc["iterations"] >= 1
+    timing = [r for r in mesh_runs["scale_out"].metrics.of_phase("superstep_timing")
+              if r["op"] == "cc_superstep"]
+    assert [(r["variant"], r["devices"]) for r in timing] == [("sharded", 4)]
+
+
+def test_host_features_bit_equal(mesh_runs):
+    from graphmine_tpu.graph.container import build_graph as jbuild
+    from graphmine_tpu.ops.features import vertex_features_host as jfeatures
+
+    from graphmine_tpu_torch.ops.features import vertex_features_host
+
+    port = mesh_runs["scale_out"]
+    g = port.graph
+    jg = jbuild(port.edge_table.src, port.edge_table.dst, num_vertices=g.num_vertices,
+                to_device=False)
+    for clustering in ("sampled", True, False):
+        np.testing.assert_array_equal(
+            vertex_features_host(g, port.labels, include_clustering=clustering),
+            jfeatures(jg, port.labels, include_clustering=clustering))
+    with pytest.raises(ValueError, match="include_clustering"):
+        vertex_features_host(g, port.labels, include_clustering="sample")

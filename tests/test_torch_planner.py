@@ -55,9 +55,9 @@ def test_plan_superstep_decides_as_the_jax_planner(requested, monkeypatch):
 
 
 def test_unported_families_and_schedules_raise_plan_errors(monkeypatch):
-    """``sharded_2d`` and the multi-device schedules raise naming A7; the
-    blocked family resolves, requested or by the environment, with the
-    JAX planner's rung and ladder."""
+    """``sharded_2d`` raises naming A7b; the multi-device schedules plan as
+    the JAX planner's do; the blocked family resolves, requested or by the
+    environment, with the JAX planner's rung and ladder."""
     monkeypatch.delenv("GRAPHMINE_SUPERSTEP_FAMILY", raising=False)
     with pytest.raises(planner.PlanError, match="A7"):
         planner.plan_superstep(1 << 22, 1 << 23, requested="sharded_2d")
@@ -77,11 +77,16 @@ def test_unported_families_and_schedules_raise_plan_errors(monkeypatch):
     monkeypatch.delenv("GRAPHMINE_SUPERSTEP_FAMILY")
     assert planner.degradation_ladder("single", 1, family="blocked") == \
         jplanner.degradation_ladder("single", 1, family="blocked")
+    # the multi-device schedules are ported: on one device a request runs
+    # "single", on four "auto" takes replicated, as the JAX planner does
     for sched in ("replicated", "ring"):
-        with pytest.raises(planner.PlanError, match="A7"):
-            planner.plan_run(1000, 5000, 1, requested=sched)
-    with pytest.raises(planner.PlanError, match="A7"):
-        planner.plan_run(1000, 5000, 4)
+        assert planner.plan_run(1000, 5000, 1, requested=sched).schedule == \
+            jplanner.plan_run(1000, 5000, 1, requested=sched).schedule == "single"
+        assert planner.plan_run(1000, 5000, 4, requested=sched).schedule == sched
+    assert planner.plan_run(1000, 5000, 4).schedule == \
+        jplanner.plan_run(1000, 5000, 4).schedule == "replicated"
+    with pytest.raises(planner.PlanError, match="A7b"):
+        planner.plan_run(1000, 5000, 4, requested="sharded_2d")
     # past the port's blocked walls "auto" takes the blocked family
     thr = planner.crossover_thresholds()
     fam, why = planner.select_superstep_family(thr["blocked_min_vertices"],
@@ -206,3 +211,70 @@ def test_cost_records_and_window_timer():
     out, secs, cold = costmodel.timed_fixpoint(lambda: (torch.ones(3), 2))
     assert out[1] == 2 and secs >= 0 and cold is False
 
+
+
+def test_multi_device_ladders_and_schedules_follow_jax(monkeypatch):
+    """The memory and elastic ladders and the per-device message model are
+    the JAX planner's; "auto" walks replicated -> ring as the budget
+    shrinks (the byte seeds are the port's own, so the budgets are read
+    off each planner's estimates), and a too-small budget raises."""
+    monkeypatch.delenv("GRAPHMINE_HBM_BYTES", raising=False)
+    for sched, d in (("single", 1), ("replicated", 4), ("ring", 4), ("replicated", 2)):
+        assert planner.degradation_ladder(sched, d) == jplanner.degradation_ladder(sched, d)
+        assert planner.elastic_device_ladder(sched, d) == \
+            jplanner.elastic_device_ladder(sched, d)
+        assert planner.messages_per_device(sched, 12345, d) == \
+            jplanner.messages_per_device(sched, 12345, d)
+    v, e, d = 1 << 20, 1 << 24, 8
+    est = planner.plan_run(v, e, d, hbm=1 << 40).estimates
+    assert set(est) == {"replicated", "ring", "single"}
+    assert est["ring"] < est["replicated"] < est["single"]
+    for want, budget in (("replicated", est["replicated"]), ("ring", est["ring"])):
+        plan = planner.plan_run(v, e, d, hbm=int(budget / 0.9) + 1)
+        assert plan.schedule == want and plan.lpa_only == (want == "replicated")
+    with pytest.raises(planner.PlanError, match="no LPA schedule fits"):
+        planner.plan_run(v, e, d, hbm=int(est["ring"] / 0.9) - 1)
+    with pytest.raises(planner.PlanError, match="schedule 'replicated' needs"):
+        planner.plan_run(v, e, d, requested="replicated", hbm=int(est["ring"] / 0.9) + 1)
+    with pytest.raises(planner.PlanError, match="message-index overflow"):
+        planner.plan_run(1000, 1 << 31, 1, hbm=1 << 50)
+    inv = memmodel.schedule_inventory("ring", v, e, d)
+    assert abs(sum(inv.values()) - memmodel.schedule_bytes_per_device("ring", v, e, d)) < 16
+
+
+def test_sharded_cost_footprint_and_exchange_records():
+    """The sharded cost and memory models read a partition's shapes, host or
+    placed; the exchange bytes and the ``shard_exchange`` record equal the
+    JAX package's (the rates are each package's own)."""
+    import numpy as np
+
+    from graphmine_tpu.obs.costmodel import emit_shard_exchange as jemit
+    from graphmine_tpu.parallel.sharded import partition_graph as jpartition
+    from graphmine_tpu.pipeline.metrics import MetricsSink as JSink
+
+    from graphmine_tpu_torch.parallel.mesh import make_mesh
+    from graphmine_tpu_torch.parallel.sharded import partition_graph, shard_graph_arrays
+    from graphmine_tpu_torch.pipeline.metrics import MetricsSink
+
+    rng = np.random.default_rng(4)
+    src, dst = rng.integers(0, 300, 2000), rng.integers(0, 300, 2000)
+    for bucket in (False, True):
+        host = partition_graph(src, dst, num_vertices=300, num_shards=4, build_bucket_plan=bucket)
+        jhost = jpartition(src, dst, num_vertices=300, num_shards=4, build_bucket_plan=bucket)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("GRAPHMINE_VIRTUAL_DEVICES", "4")
+            placed = shard_graph_arrays(host, make_mesh(4, devices=["cpu"] * 4))
+        for sg in (host, placed):
+            cost = costmodel.sharded_superstep_cost("lpa_superstep", sg, 2000)
+            assert cost.family == ("bucketed" if bucket else "sort") and cost.devices == 4
+            assert cost.exchange_bytes == costmodel.allgather_exchange_bytes(jhost)
+            assert "not measured" in cost.record()["roofline"]["provenance"]
+            est = memmodel.sharded_superstep_footprint("lpa_superstep", sg, schedule="ring")
+            assert est.devices == 4 and est.exact and est.total_bytes > 0
+        m, jm = MetricsSink(), JSink()
+        rec, jrec = costmodel.emit_shard_exchange(m, "lpa", host, virtual=True), \
+            jemit(jm, "lpa", jhost)
+        for key in ("family", "devices", "peers", "exchange_bytes", "frontier_bytes",
+                    "ladder_bytes", "frontier_frac"):
+            assert rec[key] == jrec[key], key
+        assert rec["virtual"] is True

@@ -310,3 +310,141 @@ def test_poison_labels_keeps_the_tensor_type():
     faults.poison_labels(shard=1, num_shards=4)(state=state)
     assert state["labels"].dtype == torch.int32
     assert state["labels"].tolist() == [0, 1, -7, -7, 4, 5, 6, 7]
+
+
+# ---- the elastic mesh rungs and the tripwires, through the driver ---------
+#
+# A 4-shard virtual CPU mesh (GRAPHMINE_VIRTUAL_DEVICES) runs the
+# replicated schedule; the JAX driver runs the same faults on its own
+# 4-device virtual mesh. Labels equal the no-fault run's, and the
+# recovery records carry the JAX driver's values.
+
+
+@pytest.fixture(scope="module")
+def mesh_graph(tmp_path_factory):
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    v, e = 203, 1200
+    src = rng.integers(0, v, e)
+    dst = (src + rng.integers(1, v // 4, e)) % v
+    path = tmp_path_factory.mktemp("mesh") / "edges.txt"
+    path.write_text("".join(f"{s} {t}\n" for s, t in zip(src, dst)))
+    return str(path)
+
+
+@pytest.fixture
+def mesh_env(monkeypatch):
+    import functools
+
+    from graphmine_tpu.io import native as jnative
+
+    from graphmine_tpu_torch.io.edges import load_edge_list
+    from graphmine_tpu_torch.pipeline import driver
+
+    monkeypatch.setenv("GRAPHMINE_VIRTUAL_DEVICES", "4")
+    monkeypatch.setattr(jnative, "load_edge_list_chunked", lambda *a, **k: None)
+    monkeypatch.setattr(jnative, "load_edge_list_native", lambda *a, **k: None)
+    monkeypatch.setattr(driver, "load_edge_list",
+                        functools.partial(load_edge_list, use_native=False))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # many small shard ops: keep the workers' cores free
+    yield
+    torch.set_num_threads(threads)
+
+
+def _mesh_cfg(pkg, path, **kw):
+    from graphmine_tpu.pipeline.config import PipelineConfig as JConfig
+
+    from graphmine_tpu_torch.pipeline.config import PipelineConfig
+
+    base = dict(data_path=path, data_format="edgelist", outlier_method="none", max_iter=5,
+                num_devices=4)
+    base.update(kw)
+    if pkg == "jax":
+        base["resilience"] = jres.ResilienceConfig(**{"backoff_base_s": 0.001,
+                                                      "backoff_max_s": 0.01,
+                                                      **base.pop("res", {})})
+        return JConfig(**base)
+    base["resilience"] = res.ResilienceConfig(**{"backoff_base_s": 0.001, "backoff_max_s": 0.01,
+                                                 **base.pop("res", {})})
+    return PipelineConfig(**base, device="cpu")
+
+
+def _run(pkg, path, inj=None, **kw):
+    from graphmine_tpu.pipeline.driver import run_pipeline as jrun
+
+    from graphmine_tpu_torch.pipeline.driver import run_pipeline
+
+    run = jrun if pkg == "jax" else run_pipeline
+    if inj is None:
+        return run(_mesh_cfg(pkg, path, **kw))
+    with inj.installed():
+        return run(_mesh_cfg(pkg, path, **kw))
+
+
+_MESH_KEYS = ("from_devices", "to_devices", "schedule", "iteration", "resumed_from",
+              "dead_devices")
+
+
+def test_device_loss_walks_the_elastic_rungs_as_jax(mesh_graph, mesh_env, tmp_path):
+    import numpy as np
+
+    from graphmine_tpu_torch.pipeline import checkpoint as ckpt
+
+    base = _run("port", mesh_graph, num_devices=1).labels
+    got, want = [], []
+    for pkg, fmod, out in (("port", faults, got), ("jax", jfaults, want)):
+        inj = fmod.FaultInjector()
+        inj.add("lpa_superstep", fmod.device_loss, at=3)
+        ck = str(tmp_path / pkg)
+        r = _run(pkg, mesh_graph, inj, checkpoint_dir=ck)
+        np.testing.assert_array_equal(np.asarray(r.labels), base)
+        out += [{k: rec[k] for k in _MESH_KEYS} for rec in r.metrics.of_phase("mesh_degrade")]
+        out += [(rec["kind"], rec["to"]) for rec in r.metrics.of_phase("degrade")]
+        out.append([rec["iteration"] for rec in r.metrics.of_phase("lpa_iter")])
+        assert ckpt.load_sharded(ck)[1] == 5
+        if pkg == "port":
+            (md,) = r.metrics.of_phase("mesh_degrade")
+            assert md["virtual"] is True
+            assert all(rec.get("virtual") for rec in r.metrics.of_phase("partition"))
+    assert got == want
+    assert got[0] == {"from_devices": 4, "to_devices": 2, "schedule": "replicated",
+                      "iteration": 2, "resumed_from": "memory", "dead_devices": [2]}
+    # two losses walk 4 -> 2 -> 1 (the one-device sort superstep)
+    inj = faults.FaultInjector()
+    inj.add("lpa_superstep", faults.device_loss, at=2)
+    inj.add("lpa_superstep", faults.device_loss, at=4)
+    r = _run("port", mesh_graph, inj, checkpoint_dir=str(tmp_path / "twice"))
+    np.testing.assert_array_equal(r.labels, base)
+    assert [(x["from_devices"], x["to_devices"]) for x in r.metrics.of_phase("mesh_degrade")] \
+        == [(4, 2), (2, 1)]
+
+
+def test_kill_resumes_on_fewer_devices_and_tripwire_rolls_back(mesh_graph, mesh_env,
+                                                               tmp_path):
+    import numpy as np
+
+    from graphmine_tpu_torch.pipeline import checkpoint as ckpt
+
+    base = _run("port", mesh_graph, num_devices=1).labels
+    ck = str(tmp_path / "ck")
+    inj = faults.FaultInjector()
+    inj.add("lpa_superstep", faults.preemption, at=3)
+    with pytest.raises(faults.SimulatedPreemption):
+        _run("port", mesh_graph, inj, checkpoint_dir=ck)
+    assert ckpt.load_sharded(ck)[1] == 2
+    r = _run("port", mesh_graph, checkpoint_dir=ck, resume=True, num_devices=2)
+    np.testing.assert_array_equal(r.labels, base)
+    assert r.metrics.of_phase("resume")[0]["iteration"] == 2
+    # a poisoned shard: caught, rolled back to superstep 2, retried through
+    inj = faults.FaultInjector()
+    inj.add("lpa_superstep", faults.poison_labels(shard=1, num_shards=4), at=3)
+    r = _run("port", mesh_graph, inj, checkpoint_dir=str(tmp_path / "tw"),
+             res={"tripwire_every_k": 1})
+    np.testing.assert_array_equal(r.labels, base)
+    (tw,) = r.metrics.of_phase("tripwire")
+    assert (tw["kind"], tw["iteration"]) == ("label_out_of_range", 3)
+    assert 0 <= tw["shard"] < 4 and tw["bad_vertices"] > 0
+    assert r.metrics.of_phase("resume")[0] == {**r.metrics.of_phase("resume")[0],
+                                              "iteration": 2, "reason": "tripwire"}
