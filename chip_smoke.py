@@ -9,6 +9,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py --frames-only    # phases 1-3, then phase 9
     python3 chip_smoke.py --blocked-only   # phases 1-3, then phase 10
     python3 chip_smoke.py --mesh-only      # phases 1-3, then phase 11
+    python3 chip_smoke.py --serve-mesh-only  # phases 1-3, then phase 12
 
 In order, and failing on the first phase that fails:
 
@@ -107,8 +108,9 @@ In order, and failing on the first phase that fails:
    ``Retry-After`` and the state unchanged; 7b, a server on the card over
    phase 5's store (262,144 vertices, 25,007,860 edges): 256 single
    ``/vertex`` reads, 32 4,096-id ``/query`` posts drawn as ``bench.py``'s
-   serve tier draws them, the LOF bootstrap delta, deltas of 0.05% and
-   0.2% of E, the shed, and a reader posting ``/query`` throughout the
+   serve tier draws them, the LOF bootstrap delta, a delta of 0.05% of E
+   (not a 0.2% one too: cut for the smoke's time limit), the shed, a reader
+   posting ``/query`` throughout the
    applies (no error, every answer equal to the published snapshot of
    the version it names); every publish's CC labels equal a cold
    ``connected_components`` of its graph, a warm repair's labels are an
@@ -127,7 +129,8 @@ In order, and failing on the first phase that fails:
    versions equal the CPU server's fed the same deltas without a kill
    (LOF too where no writer restarted), nothing applied twice, the shard
    records present; prints the ``replicated`` line;
-7d. on phase 5's store, ``fleet_cli up --replicas 3 --standby --device
+7d. on a copy of phase 4's store (not phase 5's: cut for the smoke's
+   time limit), ``fleet_cli up --replicas 3 --standby --device
    cuda`` (writer, its standby, one read replica) behind the router, a
    reader posting ``/query`` through the router throughout: 256 ``/vertex``
    and 32 4,096-id ``/query`` through the router, 7b's 0.05% delta with
@@ -160,8 +163,10 @@ In order, and failing on the first phase that fails:
    and ``lof_impl="exact"`` (the fast instance at its full shape: launches
    >= 1), then ``louvain`` on its graph; prints the ``community`` line
    (wall and phase seconds, Q, communities, the largest, peak device
-   bytes, Louvain's seconds and Q); then every op once on its graph
-   (directed where the op reads direction, BFS from vertex 0), held to its
+   bytes, Louvain's seconds and Q); then every op once on its graph's
+   first quarter of the edges (cut from all of them for the smoke's time
+   limit; directed where the op reads direction, BFS from
+   vertex 0), held to its
    own invariants; prints the ``ops`` line with each op's seconds;
 9. (after phase 8) the GraphFrames entry point: 9a, on phase 4's graph,
    ``GraphFrame`` on the card and on the CPU runs PageRank (plain, with
@@ -181,17 +186,20 @@ In order, and failing on the first phase that fails:
    --device cuda`` and ``--device cpu`` on a CommonCrawl-shaped ``_c0..
    _c3`` parquet of phase 4's graph with null-domain rows: stdout
    identical; prints the ``frames_small`` line. 9b, on phase 5's parquet
-   file with phase 5's ``batch_rows``: ``GraphFrame.from_edge_table`` on
-   the card, then each op once, held to its own invariants (PageRank sums
-   to 1 and equals a CPU run within rtol 1e-4; MIS independent and
-   maximal and the colouring proper over every message; each of 4,096
-   sampled ``k_truss(4)`` edges in two kept triangles; link prediction of
-   1,000,000 pairs against each formula on a sample; orthonormal
-   embedding columns; SVD++'s RMSE falls; ``lof_scores(k=20,
+   file with phase 5's ``batch_rows`` (phase 5's own loaded table in the
+   full run), its first quarter of the edges (cut from all of them for
+   the smoke's time limit): ``GraphFrame.from_edge_table`` on the
+   card, then each op once, held to its own invariants (PageRank sums to
+   1 and equals a CPU run within rtol 1e-4; MIS independent and maximal
+   and the colouring proper over every message; each of 4,096 sampled
+   ``k_truss(4)`` edges in two kept triangles; link prediction of 250,000
+   pairs (cut from 1,000,000) against each formula on a sample;
+   orthonormal embedding columns; SVD++'s RMSE falls; ``lof_scores(k=20,
    lof_impl="exact")`` launches ``knn_topk``'s fast instance); prints the
    ``frames`` line with each op's seconds. 9c, the shim at scale: the
-   same script on ``planted_anomaly_graph(1 << 16, 1_000_000, seed=9)``
-   written CommonCrawl-shaped with 64 null-domain rows, through the shim
+   same script on ``planted_anomaly_graph(1 << 16, 500_000, seed=9)``
+   (cut from 1,000,000 rows) written CommonCrawl-shaped with 64
+   null-domain rows, through the shim
    on the card; its LPA partition equals the ``GraphFrame`` API's on the
    same file, name by name; prints the ``compat`` line; the ``kernels``
    entries of phase 6 carry phase 9's launches of their instance
@@ -232,21 +240,54 @@ In order, and failing on the first phase that fails:
    tolerance; a D = 4 checkpoint resumed at D = 2 and a device loss at
    superstep 3 (4 -> 2, one ``mesh_degrade`` record) give the labels of
    an uninterrupted run; prints the ``mesh_small`` line. 11b
-   (:func:`mesh_full`): phase 5's parquet through ``run_pipeline`` at 4
-   shards, ``schedule="replicated"`` then ``"ring"`` (phase 5 is the
-   D = 1 run): labels equal phase 5's, the sharded LOF's AUROC within
-   0.005 of phase 5's; each schedule's superstep at D = 1 and 4 (median
-   of 5 after a warm-up, partition seconds, peak bytes beside the
-   model's) and the ring kNN at D = 1 beside ``knn_topk``; prints the
-   ``mesh`` line. 11c (:func:`mesh_scale_out`): the same run with
-   ``GRAPHMINE_HBM_BYTES`` between the planner's replicated and
-   single-device estimates: the ``scale_out`` record, ``host-8-sampled``
-   features, the sharded recursive outliers, and a store whose labels and
+   (:func:`mesh_full`): on phase 5's graph (from its store; phase 5 is
+   the D = 1 pipeline; the 4-shard pipelines at this size are left to
+   11c, for the smoke's time limit, and 11a holds both schedules' pipelines card ==
+   CPU), each schedule's superstep at D = 1 and 4 (median of 5 after a
+   warm-up, partition seconds, peak bytes beside the model's) and the
+   ring kNN at D = 1 beside ``knn_topk``; prints the
+   ``mesh`` line. 11c (:func:`mesh_scale_out`): phase 5's parquet
+   through ``run_pipeline`` at 4 shards with ``GRAPHMINE_HBM_BYTES``
+   between the planner's replicated and single-device estimates: the
+   ``scale_out`` record, ``host-8-sampled`` features, the sharded
+   recursive outliers, LOF through the sharded scorer (IVF on the mesh)
+   equal to one device's on the same features, and a store whose labels and
    CC equal phase 5's, the launch counts set to 0 just before and read
    just after; prints the ``mesh_scale_out`` line and the phase's
-   seconds, then the ``kernels`` line of phase 6, its entries carrying
-   phase 11c's launches (``mesh_launches``);
-12. prints the smoke's total seconds, the card line again and the last
+   seconds;
+12. the serving plane's sharded repair on a virtual mesh of 4 shards:
+   12a (:func:`serve_mesh_small`) on phase 4's store, 7a's three deltas
+   through ``DeltaIngestor(num_shards=4)`` with the ``sort`` family forced
+   and with ``sharded_2d``, on the card, and on the CPU in a child process
+   that runs beside the card's 12a and 12b's repair together with the
+   single-shard ingestor: the two families' publishes equal on each
+   device and on the CPU equal to the single-shard ingestor's (labels, CC
+   labels, edges, LOF within phase 4's tolerances, versions, methods, and
+   iterations for ``sort``), the card's equal to the CPU's (iterations,
+   families and ``shard_exchange`` records too); ``knn_topk`` launched by
+   the sharded ingestors' LOF refresh (the launch counts set to 0 just
+   before them and read just after); a
+   pre-degrade under ``GRAPHMINE_HBM_BYTES=512`` (the
+   ``degrade`` record, the ``sort`` family, the same publish); one delta
+   over HTTP through ``SnapshotServer(num_shards=2)``; the source-sharded
+   PPR and betweenness against the single-device ops within rtol 1e-5 /
+   atol 1e-7; prints the ``serve_mesh_small`` line. 12b on phase 5's
+   graph (50,015,720 messages) at 4 shards: first, beside 12a's CPU side,
+   a delta of 0.05% of E repaired by ``repair_labels`` and by the sharded
+   ingestor's ``_repair`` for ``sort`` and ``sharded_2d``
+   (:func:`serve_mesh_repair`: labels, CC and method equal, iterations for
+   ``sort``); then, once the child has finished, for the replicated
+   bucketed, the blocked and the 2-D partition (:func:`serve_mesh_full`),
+   the partition's seconds, 5 LPA supersteps equal to phase 5's labels, CC
+   to its fixpoint equal to phase 5's, the median of 5 single LPA and CC
+   supersteps after a warm-up, peak bytes beside the memory model's and
+   the ``shard_exchange`` record's modeled bytes per superstep; prints the
+   ``serve_mesh`` line and the phase's seconds, then the ``kernels`` line
+   of phase 6, its
+   entries carrying phase 11c's launches (``mesh_launches``) and 12a's
+   (``serve_mesh_launches``). Every time on a virtual mesh is marked
+   ``virtual``;
+13. prints the smoke's total seconds, the card line again and the last
    line, ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only`` skips the pipelines: after phase 3 it holds and times
@@ -264,6 +305,7 @@ port's package is not beside this file.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import os
@@ -334,6 +376,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     mode.add_argument("--mesh-only", action="store_true",
                       help="phases 1-3, then phase 11 (the multi-device pipeline on a "
                            "virtual mesh)")
+    mode.add_argument("--serve-mesh-only", action="store_true",
+                      help="phases 1-3, then phase 12 (the serving plane's sharded repair "
+                           "on a virtual mesh)")
     return ap.parse_args(argv)
 
 
@@ -777,7 +822,8 @@ def main(argv=None) -> int:
             (run_community_only if args.community_only
              else run_frames_only if args.frames_only
              else run_blocked_only if args.blocked_only
-             else run_mesh_only if args.mesh_only else run_main_path)(work)
+             else run_mesh_only if args.mesh_only
+             else run_serve_mesh_only if args.serve_mesh_only else run_main_path)(work)
         finally:
             shutil.rmtree(work, ignore_errors=True)
 
@@ -1277,7 +1323,9 @@ SHED_ROWS = 150_000   # past the default max_pending_rows (100,000): shed
 SERVE_QUERY_IDS = 4096
 SERVE_QUERY_REPS = 32
 SERVE_VERTEX_GETS = 256
-SERVE_DELTA_FRACS = (0.0005, 0.002)  # of E: inserts; deletes are half as many
+# of E: inserts; deletes are half as many (no 0.2% delta too: left out to
+# keep the smoke inside its time limit)
+SERVE_DELTA_FRACS = (0.0005,)
 # Response keys that carry wall times or random ids, not results.
 _TIMING_KEYS = {"seconds", "snapshot_age_s", "tenant_snapshot_age_s", "ingest_lag_s",
                 "snapshot_id", "uptime_s"}
@@ -1664,10 +1712,11 @@ def run_serving(work: Path) -> dict:
 SERVE_BANNER = "serving snapshot v"
 FLEET_BANNER = "fleet: "
 REPLICA_SMALL_DELTA = 64  # rows of 7d's second and third deltas
-# The fleet's knobs for phase 5's store: a reload there loads 204 MB and
-# builds the query index (seconds), so the data-plane timeout and the
-# reader's deadline cover it; a SIGKILLed writer refuses connections at
-# once, so the prober still sees it DOWN within a few probe intervals.
+# The fleet's knobs, sized for phase 5's store (7d's larger case): a reload
+# there loads 204 MB and builds the query index (seconds), so the data-plane
+# timeout and the reader's deadline cover it; a SIGKILLed writer refuses
+# connections at once, so the prober still sees it DOWN within a few probe
+# intervals.
 FLEET_ENV = {
     "GRAPHMINE_FLEET_READ_TIMEOUT_S": "20",
     "GRAPHMINE_FLEET_DEFAULT_DEADLINE_MS": "60000",
@@ -1847,11 +1896,15 @@ def settled(port: int, version: int):
     return h if h["version"] >= version and wal.get("pending_entries", 0) == 0 else None
 
 
-def small_deltas(snap, seed: int = 5) -> list:
+def small_deltas(snap, seed: int = 5, skip_ids: int = 0) -> list:
     """7c's deltas on ``snap`` (drawn as 7a draws them): insert-only with
-    two new vertices, delete-only, mixed."""
+    two new vertices, delete-only, mixed. ``skip_ids`` first draws the ids
+    7a reads with (257 there): with ``seed=5`` these are then 7a's own
+    deltas."""
     v, src, dst = len(snap["labels"]), snap["src"], snap["dst"]
     rng = np.random.default_rng(seed)
+    if skip_ids:
+        rng.integers(0, v, skip_ids)
     pick = rng.integers(0, len(src), 24)
     edges = [[int(src[i]), int(dst[i])] for i in pick]
     new = rng.integers(0, v, (24, 2)).tolist()
@@ -2143,8 +2196,8 @@ def edge_keys(src, dst) -> np.ndarray:
 
 def fleet_phase(store: Path, work: Path, device: str = "cuda", vertex_gets: int = 256,
                 query_reps: int = 32, query_ids: int = SERVE_QUERY_IDS) -> dict:
-    """Phase 7d: ``fleet_cli up --replicas 3 --standby`` over phase 5's
-    store (writer, its standby, one read replica) behind the router, a
+    """Phase 7d: ``fleet_cli up --replicas 3 --standby`` over ``store``
+    (writer, its standby, one read replica) behind the router, a
     reader posting ``/query`` through the router throughout. Reads through
     the router; phase 7b's 0.05% delta acknowledged at the writer's log;
     a second delta acknowledged and the writer SIGKILLed at once; the
@@ -2433,8 +2486,8 @@ def cold_cc_check(captured: dict, device: str) -> list:
 
 
 def run_replicated(work: Path) -> dict:
-    """Phases 7c (phase 4's store, card against CPU) and 7d (phase 5's
-    store, the fleet on the card); prints the ``replicated`` and ``fleet``
+    """Phases 7c (phase 4's store, card against CPU) and 7d (a copy of
+    phase 4's store, the fleet on the card); prints the ``replicated`` and ``fleet``
     lines and returns the launches to add to the serving launches: the
     smoke's own count in 7c and the replicas' canaries of both."""
     t0 = time.perf_counter()
@@ -2442,7 +2495,10 @@ def run_replicated(work: Path) -> dict:
     small["seconds"] = time.perf_counter() - t0
     print(json.dumps({"replicated": small}), flush=True)
     t0 = time.perf_counter()
-    fleet = fleet_phase(work / "store", work)
+    # phase 4's store (a copy: phase 12 reads the original), not phase 5's:
+    # cut for the smoke's time limit
+    shutil.copytree(work / "store_cuda", work / "store_7d")
+    fleet = fleet_phase(work / "store_7d", work)
     fleet["seconds"] = time.perf_counter() - t0
     print(json.dumps({"fleet": fleet}), flush=True)
     replica = small["replica_canary_launches"] + fleet["canary_launches"]
@@ -2764,8 +2820,8 @@ def community_full(parquet: Path) -> None:
     """Phase 8b: Leiden through ``run_pipeline`` on phase 5's parquet file
     (``batch_rows`` of phase 5, ``lof_impl="exact"``: the fast instance
     at its full shape), then Louvain on that run's graph, then every op of
-    the graph-ops surface on its graph; prints the ``community`` and
-    ``ops`` lines."""
+    the graph-ops surface on the first 1/``FULL_OPS_EDGE_SHARE`` of its
+    edges; prints the ``community`` and ``ops`` lines."""
     import torch
 
     from graphmine_tpu_torch.ops.louvain import louvain
@@ -2801,7 +2857,11 @@ def community_full(parquet: Path) -> None:
         "louvain_level0": level0_breakdown(res.graph),
     })
     print(json.dumps({"community": line}), flush=True)
-    graph, digraph, sp_w = _op_graphs(res.edge_table, "cuda", weighted=False)
+    table = res.edge_table
+    keep = table.num_edges // FULL_OPS_EDGE_SHARE
+    graph, digraph, sp_w = _op_graphs(
+        dataclasses.replace(table, src=table.src[:keep], dst=table.dst[:keep], weights=None),
+        "cuda", weighted=False)
     outputs, seconds = graph_ops(graph, digraph, sp_w, res.labels, lv_labels)
     check_full_ops(outputs, v)
     print(json.dumps({"ops": ops_line(outputs, seconds)}), flush=True)
@@ -2812,7 +2872,10 @@ def community_full(parquet: Path) -> None:
 EMBED_DIM, EMBED_MIN_COS = 8, 0.9999
 FRAMES_LOF_K = 20
 PPR_SOURCES = {"small": 8, "full": 16}
-LINK_PAIRS = {"small": 4096, "full": 1_000_000}
+LINK_PAIRS = {"small": 4096, "full": 250_000}  # cut from 1,000,000 for the time limit
+# 8b's ops and 9b run on the first quarter of phase 5's edges (not all of
+# them), to keep the smoke inside its time limit
+FULL_OPS_EDGE_SHARE = 4
 LINK_SAMPLE = 256  # pairs held to each formula at full size
 TRUSS_K, TRUSS_SAMPLE = 4, 4096
 BETWEENNESS_SOURCES, BETWEENNESS_BATCH = 64, 8  # full size; 9a runs them all
@@ -2821,7 +2884,7 @@ FIXED_ITERS = {"hits": 30, "eigenvector": 100, "katz": 100}  # 9a, at tol=0
 PAGERANK_FULL = {"alpha": 0.85, "max_iter": 20}
 PAGERANK_CPU_RTOL = 1e-4
 FRAMES_OP_LIMIT_S = 60.0
-SHIM_V, SHIM_ROWS, SHIM_NULLS = 1 << 16, 1_000_000, 64
+SHIM_V, SHIM_ROWS, SHIM_NULLS = 1 << 16, 500_000, 64  # cut from 1,000,000 rows
 LINK_METHODS = ("common_neighbors", "jaccard", "adamic_adar", "resource_allocation",
                 "preferential_attachment")
 FRAMES_OPS = ("pagerank", "pagerank_weighted", "pagerank_reset", "ppr", "hits",
@@ -3231,18 +3294,26 @@ def check_link_prediction(outputs: dict, graph, pairs: np.ndarray,
                     f"9b: link_{m} of ({u}, {w}) is {got}, the formula gives {value}")
 
 
-def frames_full(parquet: Path, device: str = "cuda") -> dict:
-    """Phase 9b: ``GraphFrame.from_edge_table`` of phase 5's parquet file
-    on ``device`` (the card), each op once (:func:`frames_ops`), held to
+def frames_full(parquet: Path, device: str = "cuda", table=None) -> dict:
+    """Phase 9b: ``GraphFrame.from_edge_table`` of the first
+    1/``FULL_OPS_EDGE_SHARE`` of phase 5's edges (all of its 262,144
+    vertices) on ``device`` (the card), each op once (:func:`frames_ops`), held to
     :func:`check_frames_full`; PageRank against a CPU run of the port on
-    the same graph. Returns the ``frames`` line, launches included."""
+    the same graph. ``table`` is the file's edge table when the caller has
+    it loaded (phase 5's), else it is loaded here; ``load_seconds`` counts
+    the load only then. Returns the ``frames`` line, launches included."""
     import torch
 
     from graphmine_tpu_torch.frames import GraphFrame
     from graphmine_tpu_torch.io.edges import load_parquet_edges
 
     t0 = time.perf_counter()
-    table = load_parquet_edges(str(parquet), batch_rows=BATCH_ROWS)
+    if table is None:
+        table = load_parquet_edges(str(parquet), batch_rows=BATCH_ROWS)
+    e_all = table.num_edges
+    keep = e_all // FULL_OPS_EDGE_SHARE
+    table = dataclasses.replace(table, src=table.src[:keep], dst=table.dst[:keep],
+                                weights=None if table.weights is None else table.weights[:keep])
     gf = GraphFrame.from_edge_table(table, device=device)
     gf.graph()
     gf.graph(symmetric=False)
@@ -3274,7 +3345,9 @@ def frames_full(parquet: Path, device: str = "cuda") -> dict:
         "vertices": gf.num_vertices, "edges": gf.num_edges, "batch_rows": BATCH_ROWS,
         "load_seconds": load_s, "seconds": seconds, "peak_device_bytes": peak,
         "launches": launches, "pagerank_cpu_seconds": cpu_s,
-        "pagerank_cpu_max_rel_diff": float(rel.max()), **facts, "reduced": {},
+        "pagerank_cpu_max_rel_diff": float(rel.max()), **facts,
+        "reduced": {"edges": f"the first {keep:,} of the file's {e_all:,} edges (1/"
+                             f"{FULL_OPS_EDGE_SHARE}), for the smoke's time limit"},
     }, FRAMES_KEYS, "frames")
 
 
@@ -3346,13 +3419,13 @@ def compat_full(work: Path, device: str = "cuda") -> dict:
     }, COMPAT_KEYS, "compat")
 
 
-def run_frames(work: Path, parquet: Path) -> dict:
+def run_frames(work: Path, parquet: Path, table=None) -> dict:
     """Phase 9: prints the ``frames_small``, ``frames`` and ``compat``
     lines; returns phase 9's launches per instance (9a's card run and
-    9b)."""
+    9b). ``table``: the parquet file's edge table, when loaded."""
     small = frames_small(work)
     print(json.dumps({"frames_small": small}), flush=True)
-    full = frames_full(parquet)
+    full = frames_full(parquet, table=table)
     print(json.dumps({"frames": full}), flush=True)
     print(json.dumps({"compat": compat_full(work)}), flush=True)
     return {k: small["launches"][k] + full["launches"][k] for k in full["launches"]}
@@ -4080,62 +4153,40 @@ def ring_knn_point(feats, k: int = LOF_K) -> dict:
 
 
 def mesh_full(work: Path, parquet: Path, is_anomaly, phase5: dict | None = None) -> dict:
-    """11b: phase 5's parquet through ``run_pipeline`` on a virtual mesh of
-    4 shards, ``schedule="replicated"`` then ``"ring"``; the D = 1 run is
-    phase 5's (run here when ``phase5`` is None). Gates: LPA labels equal
-    phase 5's, LOF (the sharded scorer, IVF at this size) AUROC within
-    0.005. Then each schedule's superstep at D = 1 and 4, and the ring kNN
-    at D = 1 beside ``knn_topk``. Returns the line and phase 5's
-    reference."""
+    """11b: each schedule's superstep at D = 1 and 4 on phase 5's graph
+    (built from its store; the D = 1 pipeline run is phase 5's, run here
+    when ``phase5`` is None), and the ring kNN at D = 1 beside
+    ``knn_topk``. The 4-shard pipeline at this size is 11c's (11a runs
+    both schedules' pipelines at 4,096 vertices, card == CPU). Returns the
+    line and phase 5's reference."""
+    from graphmine_tpu_torch.graph.container import build_graph
     from graphmine_tpu_torch.ops.lof import auroc
     from graphmine_tpu_torch.pipeline import PipelineConfig
 
-    base = dict(data_path=str(parquet), batch_rows=BATCH_ROWS, max_iter=5,
-                outlier_method="both", lof_k=LOF_K, device="cuda")
     if phase5 is None:
         store = work / "store"
-        res, wall, _, peak = drive(PipelineConfig(**base, snapshot_out=str(store)), "11b D=1")
+        res, wall, _, peak = drive(PipelineConfig(
+            data_path=str(parquet), batch_rows=BATCH_ROWS, max_iter=5, outlier_method="both",
+            lof_k=LOF_K, device="cuda", snapshot_out=str(store)), "11b D=1")
         orig = generator_ids(res.edge_table.names)
         phase5 = {"labels": res.labels, "wall": wall, "store_arrays": store_arrays(store),
                   "auroc": auroc(res.lof, is_anomaly[orig]), "features": res.features}
         del res
     out = {"d1": {"wall_seconds": phase5.get("wall"), "lof_auroc": phase5["auroc"]}}
+    ref = phase5["store_arrays"]
+    graph = build_graph(ref["src"], ref["dst"], num_vertices=len(ref["labels"]), device="cuda")
     with _virtual_devices(MESH_DEVICES):
-        for sched in ("replicated", "ring"):
-            res, wall, launches, peak = drive(
-                PipelineConfig(**base, num_devices=MESH_DEVICES, schedule=sched), f"11b {sched}")
-            require(np.array_equal(res.labels, phase5["labels"]),
-                    f"11b {sched}: labels != phase 5's")
-            lof_auroc = auroc(res.lof, is_anomaly[generator_ids(res.edge_table.names)])
-            require(abs(lof_auroc - phase5["auroc"]) <= MESH_MAX_AUROC_DELTA,
-                    f"11b {sched}: AUROC {lof_auroc} vs phase 5's {phase5['auroc']}")
-            m = res.metrics
-            sel = [r for r in m.of_phase("impl_selected") if r["op"] == "lof_knn"][0]
-            require((sel["impl"], sel["devices"]) == ("ivf", MESH_DEVICES),
-                    f"11b {sched}: LOF ran {sel['impl']} on {sel['devices']} devices")
-            out[sched] = {
-                "wall_seconds": wall, "phase_seconds": m.phase_seconds(),
-                "communities": res.num_communities, "lof_auroc": lof_auroc,
-                "plan": {k: m.of_phase("plan")[0].get(k) for k in
-                         ("schedule", "bytes_per_device", "hbm_budget", "virtual")},
-                "partition": records(m, "partition"),
-                "superstep_timing": [{k: r[k] for k in ("iteration", "window", "seconds",
-                                                        "achieved_fraction", "virtual")}
-                                     for r in m.of_phase("superstep_timing")],
-                "lpa_iter_seconds": [r["seconds"] for r in m.of_phase("lpa_iter")],
-                "peak_device_bytes": peak, "launches": launches,
-            }
-            graph = res.graph
-            del res
         labels = torch_labels(phase5["labels"])
         points = []
         for sched in ("replicated", "ring"):
             for d in (1, MESH_DEVICES):
                 p = superstep_point(graph, labels, sched, d)
                 points.append(p)
-        ref = points[0].pop("labels")
+        first = points[0].pop("labels")
         for p in points[1:]:
-            require(bool((p.pop("labels") == ref).all()), "11b supersteps disagree across points")
+            require(bool((p.pop("labels") == first).all()),
+                    "11b supersteps disagree across points")
+    del graph
     out["supersteps"] = points
     out["ring_knn"] = ring_knn_point(phase5["features"])
     log(f"11b: {[(p['schedule'], p['devices'], round(p['ms'], 2)) for p in points]}")
@@ -4148,7 +4199,8 @@ def store_arrays(store: Path) -> dict:
     from graphmine_tpu_torch.serve.snapshot import SnapshotStore
 
     snap = SnapshotStore(str(store)).load()
-    return {k: snap.arrays[k] for k in ("src", "labels", "cc_labels")}
+    return {"version": snap.version,
+            **{k: snap.arrays[k] for k in ("src", "dst", "labels", "cc_labels")}}
 
 
 def torch_labels(labels):
@@ -4157,14 +4209,18 @@ def torch_labels(labels):
     return torch.from_numpy(np.asarray(labels, np.int32)).cuda()
 
 
-def mesh_scale_out(work: Path, parquet: Path, phase5: dict) -> dict:
+def mesh_scale_out(work: Path, parquet: Path, phase5: dict, is_anomaly) -> dict:
     """11c: the same run with ``GRAPHMINE_HBM_BYTES`` between the planner's
     replicated per-device estimate and its single-device one (both read
     from ``plan_run``): the ``scale_out`` record, the ``host-8-sampled``
     features, the sharded recursive outliers, and a published snapshot
-    whose LPA and CC labels equal phase 5's store. The launch counts are
-    set to 0 just before the run and read just after (the publish's
-    canary launches ``knn_topk``)."""
+    whose LPA and CC labels equal phase 5's store; LOF through the
+    sharded scorer (IVF, its search on the mesh), equal to one device's
+    IVF LOF on the same features within phase 4's tolerances, its AUROC
+    reported beside phase 5's. The launch counts are set to 0 just before
+    the run and read just after (the publish's canary launches
+    ``knn_topk``)."""
+    from graphmine_tpu_torch.ops.lof import auroc, lof_scores
     from graphmine_tpu_torch.pipeline import PipelineConfig, planner
     from graphmine_tpu_torch.serve.snapshot import SnapshotStore
 
@@ -4189,7 +4245,16 @@ def mesh_scale_out(work: Path, parquet: Path, phase5: dict) -> dict:
     for name in ("labels", "cc_labels"):
         require(np.array_equal(snap.arrays[name], ref[name]),
                 f"11c: the scale-out store's {name} != phase 5's")
-    return {"hbm_budget": hbm, "estimates": est, "wall_seconds": wall,
+    sel = [r for r in m.of_phase("impl_selected") if r["op"] == "lof_knn"][0]
+    require((sel["impl"], sel["devices"]) == ("ivf", MESH_DEVICES),
+            f"11c: LOF ran {sel['impl']} on {sel['devices']} devices")
+    # the sharded scorer against the single-device one on the same (host)
+    # features; the AUROC is reported beside phase 5's, whose features were
+    # computed on the card
+    single = lof_scores(res.features, k=LOF_K, impl="ivf").cpu().numpy()
+    _lof_close(np.asarray(res.lof), single, "11c: the sharded LOF vs one device's")
+    lof_auroc = auroc(res.lof, is_anomaly[generator_ids(res.edge_table.names)])
+    return {"hbm_budget": hbm, "lof_auroc": lof_auroc, "phase5_lof_auroc": phase5["auroc"], "estimates": est, "wall_seconds": wall,
             "phase_seconds": m.phase_seconds(), "feature_mode": res.feature_mode,
             "partition": records(m, "partition"), "cc_summary": records(m, "cc_summary"),
             "peak_device_bytes": peak, "launches": launches,
@@ -4204,7 +4269,7 @@ def run_mesh(work: Path, parquet: Path, is_anomaly, phase5: dict | None = None) 
     print(json.dumps({"mesh_small": mesh_small(work)}), flush=True)
     full, phase5 = mesh_full(work, parquet, is_anomaly, phase5)
     print(json.dumps({"mesh": full}, default=str), flush=True)
-    scale = mesh_scale_out(work, parquet, phase5)
+    scale = mesh_scale_out(work, parquet, phase5, is_anomaly)
     print(json.dumps({"mesh_scale_out": scale}, default=str), flush=True)
     print(json.dumps({"mesh_phase_seconds": time.perf_counter() - t0}), flush=True)
     return scale["launches"]
@@ -4228,6 +4293,485 @@ def with_mesh_launches(entries: list, mesh_launches: dict) -> list:
     """The ``kernels`` entries, each with phase 11's launch count of its
     instance on its path, 11c (``mesh_launches``)."""
     return [{**e, "mesh_launches": mesh_launches[f"knn_topk_{e['instance']}"]} for e in entries]
+
+
+# ---- 12. the serving plane's sharded repair on a virtual mesh --------------
+
+SERVE_MESH_SHARDS = 4       # 12a's and 12b's virtual mesh: 4 shards on the card
+SERVE_MESH_HTTP_SHARDS = 2  # 12a's server
+SERVE_MESH_REPS = 5
+SERVE_MESH_PPR_SOURCES = 8
+SERVE_MESH_BC_SOURCES = 64
+SERVE_MESH_RTOL, SERVE_MESH_ATOL = 1e-5, 1e-7  # the JAX package's betweenness tolerance
+SERVE_MESH_TINY_HBM = "512"  # 12a's pre-degrade: no 2-D table fits
+# The sharded repair's two families, forced as the JAX package's tests force
+# them: the 2-D crossover moved below every graph, or above every graph.
+SERVE_MESH_FAMILY_ENV = {"sort": {"GRAPHMINE_SHARDED2D_MIN_MESSAGES": str(1 << 62)},
+                         "sharded_2d": {"GRAPHMINE_SHARDED2D_MIN_MESSAGES": "1"}}
+# The 12b superstep families: a partition's keyword each.
+SERVE_MESH_PARTITIONS = (("replicated", {"build_bucket_plan": True}),
+                         ("blocked", {"build_blocked_plan": True}),
+                         ("sharded_2d", {"build_plan2d": True}))
+# The lines' keys (tests/test_torch_chip_smoke.py holds them).
+SERVE_MESH_SMALL_KEYS = ("shards", "deltas", "families", "exchange", "predegrade", "http",
+                         "ppr", "betweenness", "launches")
+SERVE_MESH_KEYS = ("shards", "virtual", "num_vertices", "num_messages", "graph_build_seconds",
+                   "supersteps", "repair")
+EXCHANGE_KEYS = ("family", "devices", "peers", "exchange_bytes", "frontier_bytes",
+                 "ladder_bytes", "frontier_frac", "boundary_slots", "padded_boundary")
+
+
+def _serve_mesh_env(shards: int, family: str | None = None, **extra):
+    """The virtual mesh of ``shards`` with ``family`` forced on the sharded
+    repair (``None``: the planner's own choice), and ``extra`` variables."""
+    env = {"GRAPHMINE_VIRTUAL_DEVICES": str(shards),
+           **(SERVE_MESH_FAMILY_ENV[family] if family else {}), **extra}
+    return mock.patch.dict(os.environ, env)
+
+
+def ingest_chain(store: Path, copy: Path, deltas: list, device, shards: int,
+                 family: str | None = None, **env) -> dict:
+    """``deltas`` through a ``DeltaIngestor(num_shards=shards)`` on
+    ``device`` over a copy of ``store`` at ``copy`` (on a virtual mesh of
+    ``shards`` with ``family`` forced): each apply's snapshot, version,
+    method, iterations and family, the ``shard_exchange`` and ``degrade``
+    records."""
+    from graphmine_tpu_torch.pipeline.metrics import MetricsSink
+    from graphmine_tpu_torch.serve.delta import DeltaIngestor, EdgeDelta
+    from graphmine_tpu_torch.serve.snapshot import SnapshotStore
+
+    shutil.copytree(store, copy)
+    sink = MetricsSink()
+    applies, snaps = [], []
+    with _serve_mesh_env(shards, family, **env):
+        ing = DeltaIngestor(SnapshotStore(str(copy)), sink=sink, num_shards=shards,
+                            device=device)
+        for body in deltas:
+            snaps.append(ing.apply(EdgeDelta.from_pairs(body.get("insert", ()),
+                                                        body.get("delete", ()))))
+            rec = sink.of_phase("delta_apply")[-1]
+            applies.append({"version": snaps[-1].version, "method": rec["method"],
+                            "iterations": rec["iterations"], "family": ing.last_shard_family})
+    _sync(device)
+    return {"snaps": snaps, "applies": applies,
+            "exchange": [{k: r[k] for k in EXCHANGE_KEYS} for r in sink.of_phase("shard_exchange")],
+            "degrade": sink.of_phase("degrade")}
+
+
+PUBLISH_ARRAYS = ("src", "dst", "labels", "cc_labels", "lof")
+
+
+def serve_mesh_cpu_chains(store: str, out: str, shards: int = SERVE_MESH_SHARDS) -> None:
+    """12a's CPU side, run in a process of its own (whose environment the
+    card's side does not share): 7a's deltas through the single-shard
+    ingestor on the CPU and through the sharded one for each family, each
+    sharded publish equal to the single-shard one (:func:`hold_to_one`);
+    each run's last publish written to ``out/<run>.npz`` and its applies,
+    exchange records and seconds to ``out/<run>.json`` (runs ``one`` and
+    the families)."""
+    import torch
+
+    from graphmine_tpu_torch.serve.snapshot import SnapshotStore
+
+    # a quarter of the host's cores: the parent's host work runs beside this
+    torch.set_num_threads(max(1, (os.cpu_count() or 4) // 4))
+    out = Path(out)
+    deltas = small_deltas(SnapshotStore(store).load(), seed=5, skip_ids=257)
+    one = None
+    for name in ("one", *SERVE_MESH_FAMILY_ENV):
+        t0 = time.perf_counter()
+        run = (ingest_chain(Path(store), out / "copy_one", deltas, "cpu", 1) if name == "one"
+               else ingest_chain(Path(store), out / f"copy_{name}", deltas, "cpu", shards, name))
+        if name == "one":
+            one = run
+        else:
+            hold_to_one(run, one, name)
+        snap = run["snaps"][-1]
+        np.savez(out / f"{name}.npz", **{k: np.asarray(snap[k]) for k in PUBLISH_ARRAYS})
+        (out / f"{name}.json").write_text(json.dumps(
+            {"applies": run["applies"], "exchange": run["exchange"],
+             "seconds": time.perf_counter() - t0}))
+
+
+def hold_to_one(run: dict, one: dict, family: str) -> None:
+    """A sharded run of ``family`` against the single-shard one on the same
+    device, publish by publish: labels, CC labels, edges, versions and
+    methods equal, LOF within phase 4's tolerances, and iterations for
+    ``sort`` (the 2-D CC's chunk-local pointer jump may take other
+    supersteps); every apply ran ``family`` and recorded its exchange."""
+    what = f"12a {family}"
+    require(all(a["family"] == family for a in run["applies"]),
+            f"{what}: families {[a['family'] for a in run['applies']]}")
+    require(run["exchange"] and all(x["family"] == family for x in run["exchange"]),
+            f"{what}: shard_exchange records {run['exchange']}")
+    _same_applies(run["applies"], one["applies"], f"{what} vs one shard",
+                  iterations=family == "sort")
+    for got, want in zip(run["snaps"], one["snaps"]):
+        same_publish(got, want, f"{what} vs one shard")
+
+
+def start_cpu_chains(procs, work: Path, shards: int = SERVE_MESH_SHARDS) -> tuple:
+    """Start :func:`serve_mesh_cpu_chains` in a child process of ``procs``
+    over phase 4's store: ``(process, output directory, log)``."""
+    out, log = work / "s12a_cpu", work / "s12a_cpu.log"
+    out.mkdir()
+    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
+            f"chip_smoke.serve_mesh_cpu_chains({str(work / 'store_cuda')!r}, {str(out)!r}, "
+            f"{shards})")
+    return procs.spawn([sys.executable, "-c", code], log), out, log
+
+
+def check_cpu_chains(job: tuple, runs: dict, timeout: float = 600.0) -> dict:
+    """Wait for the CPU side (whose sharded runs equal its single-shard
+    run) and hold the card's sharded runs ``runs`` (family ->
+    :func:`ingest_chain`'s result) to the CPU's: applies (versions,
+    methods, iterations, families) and exchange records equal, the last
+    publish's edges and labels equal, LOF within phase 4's tolerances.
+    Returns the CPU's single-shard applies and each run's seconds there."""
+    proc, out, log = job
+    rc = proc.wait(timeout=timeout)
+    require(rc == 0, f"12a CPU side exited {rc}: {log.read_text()[-3000:]}")
+    seconds = {}
+    for fam, run in runs.items():
+        want = json.loads((out / f"{fam}.json").read_text())
+        seconds[fam] = want["seconds"]
+        require(run["applies"] == want["applies"],
+                f"12a {fam}: {run['applies']} != {want['applies']} on the CPU")
+        require(run["exchange"] == want["exchange"], f"12a {fam}: exchange records differ")
+        arrays = np.load(out / f"{fam}.npz")
+        snap = run["snaps"][-1]
+        for name in PUBLISH_ARRAYS[:-1]:
+            require(np.array_equal(snap[name], arrays[name]), f"12a {fam}: {name} != CPU's")
+        _lof_close(np.asarray(snap["lof"]), arrays["lof"], f"12a {fam} card vs CPU")
+    one = json.loads((out / "one.json").read_text())
+    return {"one_shard": one["applies"], "seconds": {"one": one["seconds"], **seconds}}
+
+
+def _same_applies(got: list, want: list, what: str, iterations: bool = True) -> None:
+    keys = ("version", "method") + (("iterations",) if iterations else ())
+    for a, b in zip(got, want):
+        require(all(a[k] == b[k] for k in keys), f"{what}: {a} != {b}")
+    require(len(got) == len(want), f"{what}: {len(got)} applies, {len(want)} expected")
+
+
+def serve_mesh_ops(snap, device, shards: int = SERVE_MESH_SHARDS) -> dict:
+    """The source-sharded PPR and betweenness at ``shards`` shards on the
+    store's graph, against the single-device ops on ``device``: the
+    largest absolute and relative differences (held to rtol 1e-5 / atol
+    1e-7)."""
+    import torch
+
+    from graphmine_tpu_torch.graph.container import build_graph
+    from graphmine_tpu_torch.ops.centrality import betweenness_centrality
+    from graphmine_tpu_torch.ops.pagerank import parallel_personalized_pagerank
+    from graphmine_tpu_torch.parallel import sharded_personalized_pagerank
+    from graphmine_tpu_torch.parallel.mesh import device_mesh
+
+    v = len(snap["labels"])
+    g = build_graph(snap["src"], snap["dst"], num_vertices=v, device=device)
+    rng = np.random.default_rng(12)
+    sources = rng.choice(v, SERVE_MESH_PPR_SOURCES, replace=False)
+    bc_sources = rng.choice(v, SERVE_MESH_BC_SOURCES, replace=False)
+    out = {}
+    with _serve_mesh_env(shards):
+        mesh = device_mesh(shards, device)
+        pairs = {
+            "ppr": (lambda: sharded_personalized_pagerank(g, sources, mesh),
+                    lambda: parallel_personalized_pagerank(g, sources)),
+            "betweenness": (lambda: betweenness_centrality(g, sources=bc_sources, mesh=mesh),
+                            lambda: betweenness_centrality(g, sources=bc_sources)),
+        }
+        for name, (sharded, single) in pairs.items():
+            sharded_ms, got = one_ms(sharded, device)
+            single_ms, want = one_ms(single, device)
+            torch.testing.assert_close(got, want, rtol=SERVE_MESH_RTOL, atol=SERVE_MESH_ATOL,
+                                       msg=lambda m, n=name: f"12a {n}: {m}")
+            diff = (got - want).abs()
+            out[name] = {"shape": list(got.shape), "max_abs_err": float(diff.max()),
+                         "sharded_ms": sharded_ms, "single_ms": single_ms, "virtual": True}
+    return out
+
+
+def serve_mesh_http(store: Path, work: Path, body: dict, want, device) -> dict:
+    """One delta over HTTP through ``SnapshotServer(num_shards=2)`` on
+    ``device`` over a copy of ``store``: answered 200, the publish equal to
+    ``want`` (the ``sort`` run's first publish)."""
+    from graphmine_tpu_torch.pipeline.metrics import MetricsSink
+    from graphmine_tpu_torch.serve.server import SnapshotServer
+    from graphmine_tpu_torch.serve.snapshot import SnapshotStore
+
+    copy = work / "s12a_http"
+    shutil.copytree(store, copy)
+    sink = MetricsSink()
+    with _serve_mesh_env(SERVE_MESH_HTTP_SHARDS):
+        srv = SnapshotServer(SnapshotStore(str(copy)), sink=sink,
+                             num_shards=SERVE_MESH_HTTP_SHARDS, device=device)
+        port = srv.start()[1]
+        try:
+            status, _, res = http(port, "POST", "/delta", body)
+            require(status == 200, f"12a server: {status} {res}")
+            same_publish(srv.engine.snapshot, want, "12a server num_shards=2")
+        finally:
+            srv.stop()
+    (ex,) = sink.of_phase("shard_exchange")
+    rec = sink.of_phase("delta_apply")[-1]
+    return {"status": status, "version": res.get("version"), "method": rec["method"],
+            "iterations": rec["iterations"], "family": ex["family"], "devices": ex["devices"]}
+
+
+def serve_mesh_small(work: Path, device="cuda", shards: int = SERVE_MESH_SHARDS) -> tuple:
+    """12a on phase 4's store, ``device``'s side: 7a's three deltas through
+    the sharded ingestor at ``shards`` shards, once with the ``sort``
+    family forced and once ``sharded_2d``, the two families' publishes
+    equal (labels, CC labels, edges, versions, methods; LOF within phase
+    4's tolerances); a pre-degrade under a tiny memory budget, equal to
+    the ``sort`` run's first publish; one delta over HTTP through
+    ``SnapshotServer(num_shards=2)``, the same; the sharded PPR and
+    betweenness. The launch counts are set to 0 just before the sharded
+    ingestors and read just after (their LOF refresh launches
+    ``knn_topk``). Returns the line and the sharded runs, which
+    :func:`check_cpu_chains` holds to the CPU's (and through them to the
+    single-shard ingestor's)."""
+    import torch
+
+    from graphmine_tpu_torch.serve.snapshot import SnapshotStore
+
+    store = work / "store_cuda"
+    base = SnapshotStore(str(store)).load()
+    deltas = small_deltas(base, seed=5, skip_ids=257)
+    t0 = time.perf_counter()
+    reset_launches()
+    runs = {fam: ingest_chain(store, work / f"s12a_{fam}", deltas, device, shards, fam)
+            for fam in SERVE_MESH_FAMILY_ENV}
+    _sync(device)
+    launches = read_launches()
+    if torch.device(device).type == "cuda":
+        require(launches["knn_topk"] >= 1,
+                f"12a: the sharded ingestors' LOF refresh never launched knn_topk: {launches}")
+    chains_s = time.perf_counter() - t0
+    first = runs["sort"]["snaps"][0]
+    _same_applies(runs["sharded_2d"]["applies"], runs["sort"]["applies"], "12a 2-D vs sort",
+                  iterations=False)
+    for got, want in zip(runs["sharded_2d"]["snaps"], runs["sort"]["snaps"]):
+        same_publish(got, want, "12a 2-D vs sort")
+    pre = ingest_chain(store, work / "s12a_predegrade", deltas[:1], device, shards,
+                       "sharded_2d", GRAPHMINE_HBM_BYTES=SERVE_MESH_TINY_HBM)
+    deg = [r for r in pre["degrade"] if r.get("kind") == "mem_plan"]
+    require(deg and deg[0]["stage"] == "delta_repair_plan" and deg[0]["to"] == "sort"
+            and deg[0]["mem"]["family"] == "sharded_2d"
+            and "exchange_send_tab" in deg[0]["mem"]["inventory"],
+            f"12a pre-degrade: degrade records {pre['degrade']}")
+    require(pre["applies"][0]["family"] == "sort" and pre["exchange"][0]["family"] == "sort",
+            f"12a pre-degrade: {pre['applies']} {pre['exchange']}")
+    same_publish(pre["snaps"][0], first, "12a pre-degrade vs sort")
+    line = {
+        "shards": shards,
+        "families": {fam: run["applies"] for fam, run in runs.items()},
+        "exchange": {fam: run["exchange"] for fam, run in runs.items()},
+        "predegrade": {"mem": {k: deg[0]["mem"][k] for k in ("family", "total_bytes")},
+                       "budget_bytes": int(SERVE_MESH_TINY_HBM),
+                       "family": pre["applies"][0]["family"]},
+        "http": serve_mesh_http(store, work, deltas[0], first, device),
+        **serve_mesh_ops(base, device, shards), "launches": launches,
+        "chains_seconds": chains_s,
+    }
+    return line, runs
+
+
+def serve_mesh_point(graph, mesh, family: str, kw: dict, ref: dict, device="cuda") -> dict:
+    """One 12b family on ``mesh``: the partition's seconds, 5 LPA
+    supersteps from the identity (equal to phase 5's labels), CC to its
+    fixpoint (equal to phase 5's CC) with its superstep count, then the
+    median of ``SERVE_MESH_REPS`` single LPA and CC supersteps after a
+    warm-up, the peak bytes beside the memory model's, and the
+    ``shard_exchange`` record's modeled bytes per superstep."""
+    import torch
+
+    from graphmine_tpu_torch.obs.costmodel import emit_shard_exchange
+    from graphmine_tpu_torch.obs.memmodel import sharded_superstep_footprint
+    from graphmine_tpu_torch.parallel import sharded
+    from graphmine_tpu_torch.pipeline.metrics import MetricsSink
+
+    cuda = torch.device(device).type == "cuda"
+    _sync(device)
+    t0 = time.perf_counter()
+    sg = sharded.shard_graph_arrays(sharded.partition_graph(graph, mesh=mesh, **kw), mesh)
+    _sync(device)
+    part_s = time.perf_counter() - t0
+    labels = sharded.sharded_label_propagation(sg, mesh, max_iter=5)
+    require(np.array_equal(labels.cpu().numpy(), ref["labels"]),
+            f"12b {family}: 5 LPA supersteps != phase 5's labels")
+    cc, tele = sharded.sharded_connected_components(sg, mesh, telemetry=True)
+    require(np.array_equal(cc.cpu().numpy(), ref["cc_labels"]),
+            f"12b {family}: CC != phase 5's")
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    resident = int(torch.cuda.memory_allocated()) if cuda else None
+    lpa_ms, last = timed_ms(lambda: sharded.sharded_label_propagation(
+        sg, mesh, max_iter=1, init_labels=labels), device, reps=SERVE_MESH_REPS)
+    cc_ms, _ = timed_ms(lambda: sharded.sharded_connected_components(sg, mesh, max_iter=1),
+                        device, reps=SERVE_MESH_REPS)
+    est = sharded_superstep_footprint("lpa_superstep", sg)
+    rec = emit_shard_exchange(MetricsSink(), "serve_mesh", sg, virtual=True)
+    return {"family": family, "model_family": est.family, "devices": mesh.size,
+            "virtual": True, "partition_seconds": part_s, "lpa_ms": lpa_ms, "cc_ms": cc_ms,
+            "cc_supersteps": int(tele.iterations),
+            "peak_bytes": int(torch.cuda.max_memory_allocated()) if cuda else None,
+            "resident_bytes": resident,
+            "predicted_bytes_per_shard": est.total_bytes,
+            "predicted_bytes": est.total_bytes * mesh.size,
+            "exchange": {k: rec[k] for k in EXCHANGE_KEYS}, "next_labels": last}
+
+
+def serve_mesh_repair(phase5: dict, store: Path, device="cuda",
+                      shards: int = SERVE_MESH_SHARDS) -> dict:
+    """12b's repair: a delta of 0.05% of E drawn as 7b draws it on phase
+    5's publish (``phase5["store_arrays"]``, kept in memory), repaired by
+    the single-device ``repair_labels`` and by the sharded ingestor's
+    ``_repair`` (its sharded propagation and sampled check, no LOF pass)
+    for the ``sort`` and ``sharded_2d`` families: labels, CC, method
+    equal, and iterations for ``sort``; each one's seconds and its
+    ``shard_exchange`` record."""
+    from graphmine_tpu_torch.graph.container import build_graph
+    from graphmine_tpu_torch.pipeline.metrics import MetricsSink
+    from graphmine_tpu_torch.serve import delta as sd
+    from graphmine_tpu_torch.serve.snapshot import Snapshot, SnapshotStore
+
+    t0 = time.perf_counter()
+    ref = phase5["store_arrays"]
+    snap = Snapshot(arrays={k: ref[k] for k in ("src", "dst", "labels", "cc_labels")},
+                    meta={"version": ref["version"]})
+    v, e = len(snap["labels"]), len(snap["src"])
+    rng = np.random.default_rng(7)
+    n_d = max(8, int(e * SERVE_DELTA_FRACS[0]))
+    ins = np.stack([rng.integers(0, v, n_d), rng.integers(0, v, n_d)], 1)
+    idx = rng.integers(0, e, n_d // 2)
+    dele = np.stack([snap["src"][idx], snap["dst"][idx]], 1)
+    clean, _ = sd.validate_delta(sd.EdgeDelta.from_pairs(ins.tolist(), dele.tolist()), v)
+    src2, dst2, v2, _ = sd.splice_edges(snap["src"], snap["dst"], v, clean)
+    graph = build_graph(src2, dst2, num_vertices=v2, device=device)
+    _sync(device)
+    prep_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    single = sd.repair_labels(graph, snap["labels"], snap["cc_labels"], clean,
+                              check_samples=64, seed=snap.version)
+    _sync(device)
+    out = {"delta_rows": int(len(ins) + len(dele)), "version": snap.version,
+           "prep_seconds": prep_s,
+           "single": {"method": single.method, "iterations": single.iterations,
+                      "seconds": time.perf_counter() - t0}}
+    for fam in SERVE_MESH_FAMILY_ENV:
+        sink = MetricsSink()
+        with _serve_mesh_env(shards, fam):
+            ing = sd.DeltaIngestor(SnapshotStore(str(store)), sink=sink, num_shards=shards,
+                                   snapshot=snap, quality=False, device=device)
+            t0 = time.perf_counter()
+            res = ing._repair(graph, clean)
+            _sync(device)
+            secs = time.perf_counter() - t0
+        what = f"12b repair {fam}"
+        require(ing.last_shard_family == fam, f"{what}: ran {ing.last_shard_family}")
+        require(np.array_equal(res.labels, single.labels), f"{what}: labels != single's")
+        require(np.array_equal(res.cc_labels, single.cc_labels), f"{what}: CC != single's")
+        require(res.method == single.method, f"{what}: {res.method} != {single.method}")
+        if fam == "sort":
+            require(res.iterations == single.iterations,
+                    f"{what}: {res.iterations} iterations != {single.iterations}")
+        (ex,) = sink.of_phase("shard_exchange")
+        out[fam] = {"method": res.method, "iterations": res.iterations, "seconds": secs,
+                    "virtual": True, "exchange": {k: ex[k] for k in EXCHANGE_KEYS}}
+    return out
+
+
+def serve_mesh_full(phase5: dict, device="cuda", shards: int = SERVE_MESH_SHARDS) -> dict:
+    """12b's supersteps on phase 5's graph (nothing cut) at ``shards``
+    shards: each family (:func:`serve_mesh_point`), their labels equal.
+    Every time is a virtual mesh's (``virtual: true``): the shards share
+    the card."""
+    import torch
+
+    from graphmine_tpu_torch.graph.container import build_graph
+    from graphmine_tpu_torch.parallel.mesh import device_mesh
+
+    ref = phase5["store_arrays"]
+    v = len(ref["labels"])
+    t0 = time.perf_counter()
+    graph = build_graph(ref["src"], ref["dst"], num_vertices=v, device=device)
+    _sync(device)
+    build_s = time.perf_counter() - t0
+    points = []
+    with _serve_mesh_env(shards):
+        mesh = device_mesh(shards, device)
+        for family, kw in SERVE_MESH_PARTITIONS:
+            t1 = time.perf_counter()
+            points.append(serve_mesh_point(graph, mesh, family, kw, ref, device))
+            log(f"12b {family}: {time.perf_counter() - t1:.1f} s")
+            if torch.device(device).type == "cuda":
+                torch.cuda.empty_cache()
+    nxt = points[0].pop("next_labels")
+    for p in points[1:]:
+        require(torch.equal(p.pop("next_labels"), nxt), f"12b {p['family']}: labels differ")
+    log(f"12b: {[(p['family'], round(p['lpa_ms'], 2), round(p['cc_ms'], 2)) for p in points]}")
+    return {"shards": shards, "virtual": True, "num_vertices": v,
+            "num_messages": graph.num_messages, "graph_build_seconds": build_s,
+            "supersteps": points}
+
+
+def run_serve_mesh(work: Path, phase5: dict) -> dict:
+    """Phase 12: 12a's CPU side in a child process while the card runs 12a
+    and 12b's repair, then 12b's supersteps once the child is done (their
+    times then share the host with nothing); prints the
+    ``serve_mesh_small`` and ``serve_mesh`` lines and the phase's
+    seconds; returns 12a's launch counts (the card's sharded ingestors)."""
+    t0 = time.perf_counter()
+    with Processes() as procs:
+        job = start_cpu_chains(procs, work)
+        small, runs = serve_mesh_small(work)
+        log(f"12a on the card: {time.perf_counter() - t0:.1f} s")
+        t1 = time.perf_counter()
+        repair = serve_mesh_repair(phase5, work / "store")
+        log(f"12b repair: {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        cpu = check_cpu_chains(job, runs)
+        small.update(deltas=cpu["one_shard"], cpu_seconds=cpu["seconds"],
+                     cpu_wait_seconds=time.perf_counter() - t1)
+    full = check_keys({**serve_mesh_full(phase5), "repair": repair}, SERVE_MESH_KEYS,
+                      "serve_mesh")
+    print(json.dumps({"serve_mesh_small": check_keys(small, SERVE_MESH_SMALL_KEYS,
+                                                     "serve_mesh_small")}), flush=True)
+    print(json.dumps({"serve_mesh": full}), flush=True)
+    print(json.dumps({"serve_mesh_phase_seconds": time.perf_counter() - t0}), flush=True)
+    return small["launches"]
+
+
+def run_serve_mesh_only(work: Path) -> None:
+    """``--serve-mesh-only``: phase 12, after publishing phase 4's store
+    (the small graph's pipeline with a snapshot, on the card) and phase
+    5's (the main path's pipeline)."""
+    from graphmine_tpu_torch import datasets
+    from graphmine_tpu_torch.pipeline import PipelineConfig
+
+    small, _ = small_inputs(work)
+    drive(PipelineConfig(data_path=str(small), data_format="edgelist", lof_impl="exact",
+                         outlier_method="both", lof_k=SMALL_LOF_K, device="cuda",
+                         snapshot_out=str(work / "store_cuda")), "phase 4's store")
+    src, dst, _, _ = datasets.planted_anomaly_graph(V_MAIN, E_MAIN, seed=SEED_MAIN)
+    edges_pq = work / "edges.parquet"
+    write_parquet(edges_pq, src, dst, V_MAIN)
+    del src, dst
+    store = work / "store"
+    drive(PipelineConfig(data_path=str(edges_pq), batch_rows=BATCH_ROWS, max_iter=5,
+                         outlier_method="both", lof_k=LOF_K, snapshot_out=str(store),
+                         device="cuda"), "phase 5's store")
+    launches = run_serve_mesh(work, {"store_arrays": store_arrays(store)})
+    log(f"12a launches: {launches}")
+
+
+def with_serve_mesh_launches(entries: list, serve_mesh_launches: dict) -> list:
+    """The ``kernels`` entries, each with phase 12's launch count of its
+    instance on its path, 12a's sharded ingestors (``serve_mesh_launches``)."""
+    return [{**e, "serve_mesh_launches": serve_mesh_launches[f"knn_topk_{e['instance']}"]}
+            for e in entries]
 
 
 def run_main_path(work: Path) -> None:
@@ -4269,6 +4813,7 @@ def run_main_path(work: Path) -> None:
           flush=True)
     main_launches = launches
     feats_main = res.features
+    table_main = res.edge_table
     orig_main = generator_ids(res.edge_table.names)
     phase5 = {"labels": res.labels, "flags": res.outliers.outlier_vertices,
               "features": feats_main, "auroc": summary["lof_auroc"], "wall": wall,
@@ -4328,14 +4873,19 @@ def run_main_path(work: Path) -> None:
     community_full(edges_pq)
 
     # ---- 9. the GraphFrames entry point ---------------------------------
-    entries = with_frames_launches(entries, run_frames(work, edges_pq))
+    entries = with_frames_launches(entries, run_frames(work, edges_pq, table_main))
+    del table_main
 
     # ---- 10. the blocked superstep family --------------------------------
     run_blocked(work)
 
-    # ---- 11. the multi-device pipeline on a virtual mesh; then the kernels
+    # ---- 11. the multi-device pipeline on a virtual mesh ----------------
     mesh_launches = run_mesh(work, edges_pq, is_anomaly, phase5)
-    print_kernels(with_mesh_launches(entries, mesh_launches))
+
+    # ---- 12. the serving plane's sharded repair; then the kernels -------
+    serve_mesh_launches = run_serve_mesh(work, phase5)
+    print_kernels(with_serve_mesh_launches(with_mesh_launches(entries, mesh_launches),
+                                           serve_mesh_launches))
 
 
 if __name__ == "__main__":

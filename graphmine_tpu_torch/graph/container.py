@@ -63,8 +63,9 @@ class Graph:
 
 def _prepare_edges(src, dst, num_vertices):
     """Shared endpoint coercion/validation/V-inference for graph builders."""
-    src = np.asarray(src, dtype=np.int32)
-    dst = np.asarray(dst, dtype=np.int32)
+    # contiguous: a reversed or strided view cannot back a tensor
+    src = np.ascontiguousarray(src, dtype=np.int32)
+    dst = np.ascontiguousarray(dst, dtype=np.int32)
     if src.shape != dst.shape or src.ndim != 1:
         raise ValueError("src/dst must be equal-length 1-D arrays")
     if num_vertices is None:
@@ -81,7 +82,7 @@ def _prepare_weights(edge_weights, src: np.ndarray):
     NaN; ``None`` stays ``None``."""
     if edge_weights is None:
         return None
-    w = np.asarray(edge_weights, dtype=np.float32)
+    w = np.ascontiguousarray(edge_weights, dtype=np.float32)
     if w.shape != src.shape:
         raise ValueError("edge_weights must be one float per edge")
     if len(w) and not np.all(w >= 0):  # NaN >= 0 is False

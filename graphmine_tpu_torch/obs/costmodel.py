@@ -271,28 +271,37 @@ def _stack_shape(a) -> tuple:
 
 
 def _sharded_family(sg) -> str:
-    """The family a built ``ShardedGraph`` runs: ``bucketed`` with a plan,
-    else ``sort``. One owner for the cost, footprint and
+    """The family a built ``ShardedGraph`` runs: ``sharded_2d`` with the
+    per-peer tables, ``blocked`` with bin groups, ``bucketed`` with a
+    bucket plan, else ``sort``. One owner for the cost, footprint and
     ``shard_exchange`` consumers."""
+    if getattr(sg, "x2d_src_local", None) is not None:
+        return "sharded_2d"
+    if getattr(sg, "blk_src", None) is not None:
+        return "blocked"
     return "bucketed" if sg.bucket_send else "sort"
 
 
 def allgather_exchange_bytes(sg) -> int:
-    """Modeled exchange bytes per shard a superstep: every shard receives
-    the other ``D - 1`` chunks of the padded label vector (``4*Vc*(D-1)``),
-    whether as one all-gather (replicated) or D - 1 ring hops."""
+    """Modeled exchange bytes per shard a superstep of the one-all-gather
+    families: every shard receives the other ``D - 1`` chunks of the
+    padded label vector (``4*Vc*(D-1)``), whether as one all-gather
+    (replicated) or D - 1 ring hops. The 2-D family's comparison ladder."""
     return _I32 * int(sg.chunk_size) * max(int(sg.num_shards) - 1, 0)
 
 
 def neighbor_exchange_bytes(sg) -> int:
-    """The 2-D family's per-shard wire bytes; the port has no 2-D
-    partition (ROADMAP item A7b), so 0."""
-    return _I32 * max(int(sg.num_shards) - 1, 0) * int(getattr(sg, "x2d_boundary", 0))
+    """The 2-D family's wire bytes per shard a superstep: D - 1 shifts,
+    each one buffer of the shared padded width B (``4*(D-1)*B``), exact
+    from the partition; 0 without a 2-D partition."""
+    d = max(int(sg.num_shards), 1)
+    return _I32 * (d - 1) * int(getattr(sg, "x2d_boundary", 0))
 
 
 def neighbor_frontier_bytes(sg) -> int:
-    """The 2-D family's unpadded boundary bytes per shard; 0 without a
-    2-D partition."""
+    """The 2-D family's unpadded boundary bytes per shard, the fleet's
+    total boundary slots over D (rounded up); 0 without a 2-D
+    partition."""
     d = max(int(sg.num_shards), 1)
     return _I32 * -(-int(getattr(sg, "x2d_boundary_total", 0)) // d)
 
@@ -301,29 +310,43 @@ def sharded_superstep_cost(op: str, sg, num_edges: int, num_messages: int | None
                            weighted: bool | None = None,
                            anchors: dict | None = None) -> CostEstimate:
     """Cost of one sharded superstep of a built partition (shapes only):
-    per shard, the bucketed plan's padded slots or the sort body's padded
-    messages at the gather rate, plus the label exchange
-    (:func:`allgather_exchange_bytes`) at the unmeasured exchange seed."""
+    per shard, the bin groups' streamed slots at the binned rate and their
+    row slots at the gather rate (blocked and 2-D), the bucketed plan's
+    padded slots, or the sort body's padded messages at the gather rate;
+    plus the exchange at the unmeasured exchange seed: the 2-D family's
+    per-peer buffers (:func:`neighbor_exchange_bytes`), else the label
+    all-gather (:func:`allgather_exchange_bytes`)."""
     a = anchors if anchors is not None else rooflines()
     exch = exchange_anchor()
     d = int(sg.num_shards)
     gather = a["gather_slots_per_sec"]["v"]
     if weighted is None:  # explicit False models weight-blind ops (CC)
-        weighted = sg.msg_weight is not None or bool(sg.bucket_weight)
+        weighted = (sg.msg_weight is not None or bool(sg.bucket_weight)
+                    or bool(getattr(sg, "blk_row_weight", ())))
     wf = 2 if weighted else 1
     family = _sharded_family(sg)
-    if family == "bucketed":
-        mp = None
-        padded = sum(_stack_shape(b)[1] * _stack_shape(b)[2] for b in sg.bucket_send)
+    if family in ("sharded_2d", "blocked"):
+        stream = sg.x2d_src_local if family == "sharded_2d" else sg.blk_src
+        mp = _stack_shape(stream)[1]
+        rows = sum(_stack_shape(r)[1] * _stack_shape(r)[2] for r in sg.blk_row_idx)
+        padded = mp + rows
+        bytes_g = _I32 * (mp + rows * wf)
+        bytes_s = _I32 * mp + _I32 * int(sg.chunk_size)
+        compute = mp / a["binned_slots_per_sec"]["v"] + (rows * wf) / gather
     else:
-        mp = _stack_shape(sg.msg_send)[1]
-        padded = mp
-    bytes_g, bytes_s = _I32 * padded * wf, _I32 * int(sg.chunk_size)
-    compute = (padded * wf) / gather
+        if family == "bucketed":
+            mp = None
+            padded = sum(_stack_shape(b)[1] * _stack_shape(b)[2] for b in sg.bucket_send)
+        else:
+            mp = _stack_shape(sg.msg_send)[1]
+            padded = mp
+        bytes_g, bytes_s = _I32 * padded * wf, _I32 * int(sg.chunk_size)
+        compute = (padded * wf) / gather
     m_total = int(num_messages) if num_messages is not None else \
         (mp if mp is not None else padded) * d
     m_chip = max(m_total // max(d, 1), 1)
-    exchange_bytes = allgather_exchange_bytes(sg)
+    exchange_bytes = (neighbor_exchange_bytes(sg) if family == "sharded_2d"
+                      else allgather_exchange_bytes(sg))
     exchange = exchange_bytes / exch["v"]
     predicted = compute + exchange
     return CostEstimate(
@@ -334,24 +357,34 @@ def sharded_superstep_cost(op: str, sg, num_edges: int, num_messages: int | None
         predicted_per_chip=num_edges / (predicted * d) if predicted > 0 else 0.0,
         unit="edges/s/chip",
         roofline={"gather_slots_per_sec": a["gather_slots_per_sec"],
+                  "binned_slots_per_sec": a["binned_slots_per_sec"],
                   "exchange_bytes_per_sec": exch},
     )
 
 
 def emit_shard_exchange(sink, op: str, sg, **kv) -> dict | None:
     """Emit one ``shard_exchange`` record: the modeled per-shard exchange
-    bytes of the family that ran beside the one-all-gather model
-    (``4*Vc*(D-1)``; the same for the families the port runs, so
-    ``frontier_frac`` is 1.0). ``kv`` may add ``virtual=True``. No-op
-    without a sink."""
+    bytes of the family that ran (the 2-D family's padded per-peer
+    buffers, ``exchange_bytes``, and their unpadded content,
+    ``frontier_bytes``) beside the one-all-gather model (``4*Vc*(D-1)``,
+    ``ladder_bytes``), with ``frontier_frac`` the content's share of the
+    ladder (1.0 for the one-all-gather families). ``kv`` may add
+    ``virtual=True``. No-op without a sink."""
     if sink is None:
         return None
+    family = _sharded_family(sg)
     d = int(sg.num_shards)
     ladder = allgather_exchange_bytes(sg)
+    if family == "sharded_2d":
+        modeled, frontier = neighbor_exchange_bytes(sg), neighbor_frontier_bytes(sg)
+    else:
+        modeled = frontier = ladder
     return sink.emit(
-        "shard_exchange", op=op, family=_sharded_family(sg), devices=d, peers=max(d - 1, 0),
-        exchange_bytes=int(ladder), frontier_bytes=int(ladder), ladder_bytes=int(ladder),
-        frontier_frac=1.0, boundary_slots=0, padded_boundary=0, **kv,
+        "shard_exchange", op=op, family=family, devices=d, peers=max(d - 1, 0),
+        exchange_bytes=int(modeled), frontier_bytes=int(frontier), ladder_bytes=int(ladder),
+        frontier_frac=round(frontier / ladder if ladder else 1.0, 4),
+        boundary_slots=int(getattr(sg, "x2d_boundary_total", 0)),
+        padded_boundary=int(getattr(sg, "x2d_boundary", 0)), **kv,
     )
 
 

@@ -83,9 +83,15 @@ KNN_FAST_F, KNN_FAST_K = 8, 128
 KNN_TILE_POINTS, KNN_TILE_FLOATS = 512, 512 * 9
 KNN_SCRATCH_MIN_K = 1761
 
-# The plan-time pre-degrade ladder: blocked -> bucketed -> sort; sort is
-# the floor.
-FAMILY_DEGRADE = {"blocked": "bucketed", "bucketed": "sort", "sort": None}
+# The blocked family's bin budget (ops/blocking.py DEFAULT_TILE_SLOTS),
+# mirrored: a sharded pre-build estimate's tile is at most one bin a shard.
+BLOCKED_TILE_SLOTS_EST = 1 << 18
+
+# The plan-time pre-degrade ladder: sharded_2d -> blocked -> bucketed ->
+# sort, planner._SUPERSTEP_DEGRADE's order (sharded_2d's rung drops the
+# per-peer tables for the one-all-gather exchange); sort is the floor.
+FAMILY_DEGRADE = {"sharded_2d": "blocked", "blocked": "bucketed", "bucketed": "sort",
+                  "sort": None}
 
 
 @dataclass(frozen=True)
@@ -214,9 +220,30 @@ def superstep_footprint(op: str, family: str, num_vertices: int, num_messages: i
     gathered message labels with ``segment_mode``'s sort (two int64 keys
     and the permutation); ``blocked`` adds the stream pair and a tile of
     at least M slots (every bin is padded to the largest) to the bucketed
-    seeds."""
-    if int(num_devices) != 1:
-        raise ValueError("the port's superstep footprint is single-device")
+    seeds.
+
+    ``num_devices`` > 1 gives the pre-build estimate of one shard of a
+    sharded operating point: ``sharded_2d`` (which needs >= 2 devices)
+    as the single-device seeds over D, the stream pair and a tile of at
+    most one bin, the sharded labels and the per-peer tables at their
+    worst case (a boundary of the whole peer chunk: the real one is known
+    only once the partition is built, and an estimate too high
+    pre-degrades where one too low runs out of memory); the
+    one-all-gather families as the replicated schedule's seeds (the
+    blocked one with its stream pair and tile), so a walk off
+    ``sharded_2d`` compares shard with shard."""
+    d = max(int(num_devices), 1)
+    if family == "sharded_2d" and d < 2:
+        raise ValueError(
+            "family 'sharded_2d' needs num_devices >= 2 (its per-peer "
+            "exchange tables have no single-device meaning)"
+        )
+    if d > 1:
+        if plan is not None:
+            raise ValueError("a sharded footprint with a built partition is "
+                             "sharded_superstep_footprint's")
+        return _sharded_seed_footprint(op, family, int(num_vertices), int(num_messages),
+                                       num_edges, bool(weighted), d)
     if plan is not None:
         family = _plan_family(plan)
         if weighted is None:
@@ -287,6 +314,34 @@ def superstep_footprint(op: str, family: str, num_vertices: int, num_messages: i
                        inventory=inv, exact=True)
 
 
+def _sharded_seed_footprint(op: str, family: str, v: int, m: int, num_edges, weighted: bool,
+                            d: int) -> MemEstimate:
+    """The pre-build per-shard estimate of :func:`superstep_footprint` on
+    ``d`` devices."""
+    if family not in FAMILY_DEGRADE:
+        raise ValueError(f"unknown superstep family {family!r}")
+    m = max(m, 1)
+    e = int(num_edges) if num_edges is not None else m // 2
+    vc, mc = -(-v // d), -(-m // d)
+    if family == "sharded_2d":
+        base = schedule_inventory("single", v, e, 1, weighted)
+        inv = {k: b // d for k, b in base.items() if k != "labels"}
+        inv["stream"] = 2 * _I32 * mc
+        inv["tile"] = _I32 * min(mc, BLOCKED_TILE_SLOTS_EST)
+        inv["labels_sharded"] = 2 * _I32 * vc
+        inv["exchange_send_tab"] = _I32 * vc * (d - 1)
+        inv["exchange_recv_bufs"] = _I32 * vc * (d - 1)
+    else:
+        inv = schedule_inventory("replicated", v, e, d, weighted)
+        if family == "sort":
+            del inv["plan_mats"]
+        elif family == "blocked":
+            inv["stream"] = 2 * _I32 * mc
+            inv["tile"] = _I32 * min(mc, BLOCKED_TILE_SLOTS_EST)
+    return MemEstimate(op=op, family=family, devices=d, weighted=weighted, inventory=inv,
+                       exact=False)
+
+
 # ---- one sharded superstep ----------------------------------------------------
 
 
@@ -304,16 +359,19 @@ def sharded_superstep_footprint(op: str, sg, weighted: bool | None = None,
                                 schedule: str = "replicated") -> MemEstimate:
     """Per-shard footprint of one sharded superstep, read off a built
     partition's shapes: the shard's arrays (an ``lpa_only`` placement has
-    no sort-body arrays), its superstep's largest transient (a bucketed
-    class's gathered rows and mode scratch, or the sort body's gathered
-    labels with the segment mode's keys), and the labels of ``schedule``:
-    ``replicated`` holds the full vector in, its padded copy and the
-    gathered vector out; ``ring`` its chunk, the new one, the chunk in
-    hand and the one in transit. A virtual mesh puts every shard on one
-    device: that device holds ``devices`` times this."""
+    no sort-body arrays), its superstep's largest transient (a bucketed or
+    blocked class's gathered rows and mode scratch, or the sort body's
+    gathered labels with the segment mode's keys), and the labels of
+    ``schedule``: ``replicated`` holds the full vector in, its padded copy
+    and the gathered vector out; ``ring`` its chunk, the new one, the
+    chunk in hand and the one in transit. A 2-D partition keeps its labels
+    sharded whatever ``schedule`` says (the chunk and the new one) and
+    adds its per-peer send table and received buffers. A virtual mesh puts
+    every shard on one device: that device holds ``devices`` times this."""
     d, vc, v = int(sg.num_shards), int(sg.chunk_size), int(sg.padded_vertices)
+    blk_w = getattr(sg, "blk_row_weight", ())
     if weighted is None:
-        weighted = sg.msg_weight is not None or bool(sg.bucket_weight)
+        weighted = sg.msg_weight is not None or bool(sg.bucket_weight) or bool(blk_w)
     weighted = bool(weighted)
     inv: dict = {}
     if sg.degrees is not None:
@@ -323,7 +381,29 @@ def sharded_superstep_footprint(op: str, sg, weighted: bool | None = None,
         inv["shard_messages"] = msgs
     if sg.msg_weight is not None:
         inv["msg_weights"] = _per_chip_bytes(sg.msg_weight)
-    if sg.bucket_send:
+    x2d = getattr(sg, "x2d_src_local", None)
+    if x2d is not None or getattr(sg, "blk_src", None) is not None:
+        family = "sharded_2d" if x2d is not None else "blocked"
+        stream = x2d if x2d is not None else sg.blk_src
+        inv["stream"] = _per_chip_bytes(stream) + _per_chip_bytes(sg.blk_pos)
+        inv["tile"] = _I32 * int(sg.blk_tile_alloc)
+        rows = sum(_per_chip_bytes(r) for r in sg.blk_row_idx)
+        inv["reduce_rows"] = rows
+        inv["row_vertex"] = sum(_per_chip_bytes(t) for t in sg.blk_row_target)
+        if blk_w:
+            inv["weight_mats"] = sum(_per_chip_bytes(w) for w in blk_w)
+        shapes = [((len(r), *r[0].shape) if isinstance(r, tuple) else r.shape)
+                  for r in sg.blk_row_idx]
+        inv["gather_transient"] = max(
+            [(_I32 + 8) * (_per_chip_bytes(stream) // _I32)]
+            + [_bucket_transient(int(sh[1]), int(sh[2]), weighted) for sh in shapes])
+        if family == "sharded_2d":
+            inv["exchange_send_tab"] = _per_chip_bytes(sg.x2d_send_tab)
+            inv["exchange_recv_bufs"] = _per_chip_bytes(sg.x2d_send_tab)
+            inv["labels_sharded"] = 2 * _I32 * vc
+            return MemEstimate(op=op, family=family, devices=d, weighted=weighted,
+                               inventory=inv, exact=True)
+    elif sg.bucket_send:
         family = "bucketed"
         inv["plan_mats"] = sum(_per_chip_bytes(b) for b in sg.bucket_send)
         inv["plan_vertex_ids"] = sum(_per_chip_bytes(t) for t in sg.bucket_target)
@@ -427,7 +507,9 @@ def predegrade_superstep(family: str, num_vertices: int, num_messages: int,
     """Walk the family ladder at plan time until the modeled footprint
     fits ``budget_bytes``: ``(family, fit_estimate, steps)`` with
     ``steps`` the ``(from, to, oversized_estimate)`` trail. The sort floor
-    is returned even when it does not fit."""
+    is returned even when it does not fit. With ``num_devices`` > 1 every
+    rung is one shard's estimate on that mesh (a ``sharded_2d`` start
+    walks back to the one-all-gather ``blocked`` family)."""
     steps = []
     while True:
         est = superstep_footprint("lpa_superstep", family, num_vertices, num_messages,

@@ -85,6 +85,17 @@ BLOCKED_MIN_VERTICES = 1 << 25
 # NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6).
 DEFAULT_TILE_SLOTS = 1 << 18
 
+# The 2-D edge partition with its neighbour-only exchange (the serving
+# repair's sharded_2d family, parallel/sharded.py): the JAX package's
+# seeds, kept as they are. They were set for a TPU's interconnect and have
+# not been measured here: one card's virtual mesh exchanges through copies
+# inside the card, so it cannot see the interconnect time this wall
+# trades against (PERF.md §7). The message floor is the per-peer tables'
+# host build (one sorted-unique pass a shard), which below ~16K messages
+# would outweigh the run it plans.
+SHARDED2D_MIN_MESSAGES = 1 << 14
+SHARDED2D_MIN_DEVICES = 2
+
 FAMILIES = ("blocked", "bucketed", "sort", "sharded_2d")
 
 _INT32_MAX = (1 << 31) - 1
@@ -99,6 +110,10 @@ def crossover_thresholds() -> dict:
         "blocked_min_messages": int(env("GRAPHMINE_BLOCKED_MIN_MESSAGES", BLOCKED_MIN_MESSAGES)),
         "blocked_min_vertices": int(env("GRAPHMINE_BLOCKED_MIN_VERTICES", BLOCKED_MIN_VERTICES)),
         "blocked_tile_slots": int(env("GRAPHMINE_BLOCKED_TILE_SLOTS", DEFAULT_TILE_SLOTS)),
+        "sharded2d_min_messages": int(env("GRAPHMINE_SHARDED2D_MIN_MESSAGES",
+                                          SHARDED2D_MIN_MESSAGES)),
+        "sharded2d_min_devices": int(env("GRAPHMINE_SHARDED2D_MIN_DEVICES",
+                                         SHARDED2D_MIN_DEVICES)),
     }
 
 
@@ -109,32 +124,39 @@ def select_superstep_family(num_vertices: int, num_messages: int, requested: str
 
     ``requested`` forces a family (validated), else
     ``GRAPHMINE_SUPERSTEP_FAMILY`` forces it process-wide, else the
-    walls of :func:`crossover_thresholds` decide: ``blocked`` from both
-    its vertex and its message wall, ``bucketed`` from 2^16 messages,
-    ``sort`` below. Weights never change the choice. ``sharded_2d`` and
-    more than one device (the sharded families of the serving repair)
-    raise :class:`~graphmine_tpu_torch.pipeline.planner.PlanError` naming
-    ROADMAP item A7b."""
+    walls of :func:`crossover_thresholds` decide: ``sharded_2d`` on a mesh
+    of at least its device wall from its message wall, ``blocked`` from
+    both its vertex and its message wall, ``bucketed`` from 2^16
+    messages, ``sort`` below. Weights never change the choice. A request
+    for ``sharded_2d`` below 2 devices raises; the environment's
+    ``sharded_2d`` does not apply there (the single-device ops keep
+    working under a process-wide override)."""
     del weighted
-    from graphmine_tpu_torch.pipeline.planner import _not_ported
-
-    if int(num_devices) != 1:
-        raise _not_ported("sharded_2d", "multi-device superstep")
+    thr = crossover_thresholds()
+    d = int(num_devices)
     if requested != "auto":
         if requested not in FAMILIES:
             raise ValueError(f"unknown superstep family {requested!r}; expected one of "
                              f"{FAMILIES} or 'auto'")
-        if requested == "sharded_2d":
-            raise _not_ported(requested, "superstep family")
+        if requested == "sharded_2d" and d < 2:
+            raise ValueError(
+                "superstep family 'sharded_2d' needs a >= 2-device mesh "
+                f"(num_devices={d}); its neighbor-only exchange has no "
+                "single-device meaning — use 'blocked' there"
+            )
         return requested, f"requested {requested!r}"
     env = os.environ.get("GRAPHMINE_SUPERSTEP_FAMILY")
-    if env:
+    if env and not (env == "sharded_2d" and d < 2):
         if env not in FAMILIES:
             raise ValueError(f"GRAPHMINE_SUPERSTEP_FAMILY={env!r} is not one of {FAMILIES}")
-        if env == "sharded_2d":
-            raise _not_ported(env, "superstep family")
         return env, f"GRAPHMINE_SUPERSTEP_FAMILY={env} (env override)"
-    thr = crossover_thresholds()
+    if d >= thr["sharded2d_min_devices"] and num_messages >= thr["sharded2d_min_messages"]:
+        return "sharded_2d", (
+            f"D={d} >= {thr['sharded2d_min_devices']} and M={num_messages} >= "
+            f"{thr['sharded2d_min_messages']}: 2D edge partition — neighbor-only boundary "
+            "exchange beats the 4·Vc·(D-1)-byte label all_gather (the JAX package's "
+            "seed; not measured on this card)"
+        )
     min_m, min_v = thr["blocked_min_messages"], thr["blocked_min_vertices"]
     if num_messages >= min_m and num_vertices >= min_v:
         return "blocked", (
@@ -166,11 +188,15 @@ def _bin_bounds(ptr: np.ndarray, tile_slots: int) -> np.ndarray:
 
 
 def _blocked_layout(ptr: np.ndarray, send: torch.Tensor, tile_slots: int,
-                    weights: torch.Tensor | None = None):
+                    weights: torch.Tensor | None = None, widths: np.ndarray | None = None,
+                    tile_width: int | None = None):
     """The layout on ``send``'s device: ``(src_sorted, scatter_pos,
     bounds, tb, rows)`` with ``rows`` a list, one per width class, of
-    ``(vertex ids, [n, w] tile slots with -1 padding, [n, w] weights or
-    None)``."""
+    ``(class index, vertex ids, [n, w] tile slots with -1 padding, [n, w]
+    weights or None)``. ``widths`` is a shared width ladder (default: the
+    ladder extended to this CSR's largest degree) and ``tile_width``
+    forces the bin width (the sharded plan passes the largest over its
+    shards, so every shard's tile has one shape)."""
     dev = send.device
     deg = ptr[1:] - ptr[:-1]
     m = int(ptr[-1])
@@ -178,6 +204,10 @@ def _blocked_layout(ptr: np.ndarray, send: torch.Tensor, tile_slots: int,
     bin_msg_start = ptr[bounds[:-1]]
     tb = int((ptr[bounds[1:]] - bin_msg_start).max(initial=1))
     tb = -(-tb // 8) * 8
+    if tile_width is not None:
+        if tile_width < tb:
+            raise ValueError(f"tile_width {tile_width} below this CSR's max bin size {tb}")
+        tb = tile_width
     if (len(bounds) - 1) * tb + 1 > _INT32_MAX:
         raise ValueError(
             f"the blocked tile needs {(len(bounds) - 1) * tb + 1:,} slots, past the int32 "
@@ -195,7 +225,8 @@ def _blocked_layout(ptr: np.ndarray, send: torch.Tensor, tile_slots: int,
     scatter_pos = slot_of_csr[order].to(torch.int32)
     del order
 
-    widths = _extend_widths(int(deg.max(initial=1)))
+    if widths is None:
+        widths = _extend_widths(int(deg.max(initial=1)))
     rows = []
     for c, vr in _class_rows(deg, widths, deg > 0):
         w = int(widths[c])
@@ -207,7 +238,7 @@ def _blocked_layout(ptr: np.ndarray, send: torch.Tensor, tile_slots: int,
         if weights is not None:
             cidx = torch.clamp(first[:, None] + offs, max=max(m - 1, 0))
             wmat = torch.where(valid, weights[cidx], 0.0).to(torch.float32)
-        rows.append((vr, idx, wmat))
+        rows.append((c, vr, idx, wmat))
     return src_sorted.to(torch.int32), scatter_pos, bounds, tb, rows
 
 
@@ -290,13 +321,13 @@ class BlockedPlan:
                        tile_slots=tile_slots, tile_alloc=1,
                        weight_mat=None if weights is None else ())
         src_sorted, scatter_pos, bounds, tb, rows = _blocked_layout(ptr, send, tile_slots,
-                                                                    weights)
+                                                                    weights=weights)
         n_bins = len(bounds) - 1
         # one reserved slot past the bins, never written: it keeps the fill
         # value and every row padding points at it
         tile_alloc = n_bins * tb + 1
         row_idx, row_vertex, weight_mat = [], [], []
-        for vr, idx, wmat in rows:
+        for _c, vr, idx, wmat in rows:
             row_vertex.append(torch.from_numpy(vr.astype(np.int32)).to(dev))
             row_idx.append(torch.where(idx < 0, tile_alloc - 1, idx).to(torch.int32))
             if wmat is not None:

@@ -104,31 +104,46 @@ def betweenness_centrality(graph: Graph, sources=None, normalized: bool = True,
     array runs the sampled estimator scaled by ``V/k``. Parallel edges
     count as distinct shortest paths. ``directed`` defaults to ``not
     graph.symmetric``; undirected scores are halved, ``normalized``
-    applies NetworkX's ``1/((V-1)(V-2))`` (×2 undirected). ``mesh`` (the
-    JAX package's source-sharded run) waits for ROADMAP item A7b."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "betweenness_centrality over a mesh (the source-sharded run) is not "
-            "ported; it waits for ROADMAP queue 1 item A7b (multi-device)"
-        )
-    v, dev = graph.num_vertices, graph.device
+    applies NetworkX's ``1/((V-1)(V-2))`` (×2 undirected).
+
+    ``mesh`` splits the source tiles over its shards (padded so each gets
+    whole tiles, padded lanes masked), each shard sweeping its tiles on a
+    copy of the graph on its device; the partial sums meet in one
+    :func:`~graphmine_tpu_torch.parallel.mesh.psum` and come back on the
+    mesh's first device, equal to the single-device result up to float32
+    summation order."""
+    v = graph.num_vertices
     if directed is None:
         directed = not graph.symmetric
-    src, dst = graph.src.to(torch.int64), graph.dst.to(torch.int64)
-    send, recv = (src, dst) if directed else (torch.cat([src, dst]), torch.cat([dst, src]))
+    n_dev = 1 if mesh is None else mesh.size
+    devs = [graph.device] if mesh is None else list(mesh.devices)
     if sources is None:
-        src_ids = torch.arange(v, dtype=torch.int64, device=dev)
+        src_ids = np.arange(v, dtype=np.int64)
     else:
-        src_ids = torch.as_tensor(np.atleast_1d(np.asarray(sources, np.int64)), device=dev)
+        src_ids = np.atleast_1d(np.asarray(sources, np.int64))
     k = int(src_ids.shape[0])
     b = max(1, min(source_batch, k))
-    pad = (-k) % b
-    tiles = torch.cat([src_ids, src_ids.new_zeros(pad)]).reshape(-1, b)
-    valid = (torch.arange(k + pad, device=dev) < k).reshape(-1, b)
-    fwd, bwd = SegmentSums(recv, v), SegmentSums(send, v)
-    bc = torch.zeros(v, dtype=torch.float32, device=dev)
-    for srcs, ok in zip(tiles, valid):
-        bc = bc + _brandes_tile(srcs, ok, send, recv, fwd, bwd, v)
+    pad = (-k) % (b * n_dev)  # every shard gets whole tiles
+    tiles = np.concatenate([src_ids, np.zeros(pad, np.int64)]).reshape(-1, b)
+    valid = (np.arange(k + pad) < k).reshape(-1, b)
+    per = tiles.shape[0] // n_dev
+    parts = []
+    for i, dev in enumerate(devs):
+        src, dst = graph.src.to(dev, torch.int64), graph.dst.to(dev, torch.int64)
+        send, recv = (src, dst) if directed else (torch.cat([src, dst]), torch.cat([dst, src]))
+        fwd, bwd = SegmentSums(recv, v), SegmentSums(send, v)
+        acc = torch.zeros(v, dtype=torch.float32, device=dev)
+        t_dev = torch.from_numpy(tiles[i * per:(i + 1) * per]).to(dev)
+        ok_dev = torch.from_numpy(valid[i * per:(i + 1) * per]).to(dev)
+        for srcs, ok in zip(t_dev, ok_dev):
+            acc = acc + _brandes_tile(srcs, ok, send, recv, fwd, bwd, v)
+        parts.append(acc)
+    if mesh is None:
+        bc = parts[0]
+    else:
+        from graphmine_tpu_torch.parallel.mesh import psum
+
+        bc = psum(mesh, parts)[0]
     if not directed:
         bc = bc / 2.0
     if sources is not None and k and k < v:

@@ -163,6 +163,35 @@ def _validate_sources(sources, v: int) -> np.ndarray:
     return sources
 
 
+class _BatchedPPR:
+    """The batched PPR power iteration of one graph over one block of
+    source columns, on the graph's device: :meth:`step` returns the next
+    ranks and the largest column L1 delta (a 0-d tensor)."""
+
+    def __init__(self, graph: Graph, sources: np.ndarray, alpha: float):
+        v, dev = graph.num_vertices, graph.device
+        s = sources.shape[0]
+        self.src = graph.src.to(torch.int64)
+        out_deg = segment_sum(torch.ones_like(self.src), self.src, v)
+        self.inv_out = torch.where(
+            out_deg > 0, 1.0 / torch.clamp(out_deg, min=1).to(torch.float32),
+            torch.zeros(v, dtype=torch.float32, device=dev))
+        self.dangling = out_deg == 0
+        self.reset = torch.zeros((v, s), dtype=torch.float32, device=dev)
+        self.reset[torch.as_tensor(sources, dtype=torch.int64, device=dev),
+                   torch.arange(s, device=dev)] = 1.0
+        self.inflow = SegmentSums(graph.dst, v)
+        self.a = _f32(alpha, dev)
+        self.teleport = (1.0 - self.a) * self.reset
+        self.pr = torch.full((v, s), 1.0 / v, dtype=torch.float32, device=dev)
+
+    def step(self, pr: torch.Tensor) -> tuple:
+        flow = self.inflow.sum((pr * self.inv_out[:, None])[self.src])
+        dangling_mass = torch.where(self.dangling[:, None], pr, 0.0).sum(dim=0)
+        new = self.a * (flow + dangling_mass[None, :] * self.reset) + self.teleport
+        return new, (new - pr).abs().sum(dim=0).max()
+
+
 def parallel_personalized_pagerank(graph: Graph, sources, alpha: float = 0.85,
                                    max_iter: int = 100, tol: float = 1e-6) -> torch.Tensor:
     """Personalized PageRank from many sources at once (GraphFrames'
@@ -171,28 +200,13 @@ def parallel_personalized_pagerank(graph: Graph, sources, alpha: float = 0.85,
     stops when the largest column's L1 delta is no longer above ``tol``."""
     v = graph.num_vertices
     sources = _validate_sources(sources, v)
-    dev = graph.device
     if sources.size == 0:
-        return torch.zeros((v, 0), dtype=torch.float32, device=dev)
-    s = sources.shape[0]
-    src = graph.src.to(torch.int64)
-    out_deg = segment_sum(torch.ones_like(src), src, v)
-    inv_out = torch.where(out_deg > 0, 1.0 / torch.clamp(out_deg, min=1).to(torch.float32),
-                          torch.zeros(v, dtype=torch.float32, device=dev))
-    dangling = out_deg == 0
-    reset = torch.zeros((v, s), dtype=torch.float32, device=dev)
-    reset[torch.as_tensor(sources, dtype=torch.int64, device=dev),
-          torch.arange(s, device=dev)] = 1.0
-    inflow = SegmentSums(graph.dst, v)
-    a = _f32(alpha, dev)
-    teleport = (1.0 - a) * reset
-    pr = torch.full((v, s), 1.0 / v, dtype=torch.float32, device=dev)
+        return torch.zeros((v, 0), dtype=torch.float32, device=graph.device)
+    run = _BatchedPPR(graph, sources, alpha)
+    pr = run.pr
     tol = float(np.float32(tol))
     it, delta = 0, 1.0
     while delta > tol and it < max_iter:
-        flow = inflow.sum((pr * inv_out[:, None])[src])
-        dangling_mass = torch.where(dangling[:, None], pr, 0.0).sum(dim=0)
-        new = a * (flow + dangling_mass[None, :] * reset) + teleport
-        delta = float((new - pr).abs().sum(dim=0).max())
-        pr, it = new, it + 1
+        pr, d = run.step(pr)
+        delta, it = float(d), it + 1
     return pr

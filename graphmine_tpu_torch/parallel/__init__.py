@@ -1,8 +1,7 @@
 """The multi-device layer, inside one process: the mesh and its
-collectives, the replicated and ring supersteps, and the ring-sharded
-kNN/LOF, under the JAX package's names (``graphmine_tpu/parallel``). The
-source-sharded PPR (``sharded_personalized_pagerank``) raises: it waits
-for ROADMAP item A7b."""
+collectives, the replicated, blocked, 2-D and ring supersteps, the
+ring-sharded kNN/LOF and the source-sharded PPR, under the JAX package's
+names (``graphmine_tpu/parallel``)."""
 
 from graphmine_tpu_torch.parallel.knn import sharded_knn, sharded_lof
 from graphmine_tpu_torch.parallel.mesh import (
@@ -10,6 +9,7 @@ from graphmine_tpu_torch.parallel.mesh import (
     make_mesh,
     make_multislice_mesh,
 )
+from graphmine_tpu_torch.parallel.ppr import sharded_personalized_pagerank
 from graphmine_tpu_torch.parallel.ring import (
     ring_connected_components,
     ring_label_propagation,
@@ -24,16 +24,6 @@ from graphmine_tpu_torch.parallel.sharded import (
     sharded_lpa_fixpoint,
     sharded_pagerank,
 )
-
-
-
-def sharded_personalized_pagerank(*args, **kwargs):
-    """The JAX package's source-sharded PPR (``graphmine_tpu/parallel/ppr.py``):
-    not ported, it waits for ROADMAP item A7b."""
-    raise NotImplementedError(
-        "sharded_personalized_pagerank (the source-sharded PPR) is not ported; "
-        "it waits for ROADMAP item A7b"
-    )
 
 
 __all__ = [

@@ -101,6 +101,24 @@ def make_mesh(num_devices: int | None = None, devices=None) -> Mesh:
     return Mesh(devices, (VERTEX_AXIS,))
 
 
+def device_mesh(num_shards: int, device) -> Mesh:
+    """A 1-D vertex-axis mesh of ``num_shards`` on ``device``'s kind with
+    ``device`` first: the distinct cards, or on a virtual mesh
+    (``GRAPHMINE_VIRTUAL_DEVICES``) ``device`` repeated. Too few visible
+    devices raises, naming the variable that makes a virtual mesh."""
+    dev = _as_device(device)
+    visible = [_as_device(d) for d in visible_devices(dev)]
+    if dev in visible and len(set(visible)) == len(visible):
+        visible = [dev] + [d for d in visible if d != dev]
+    if num_shards > len(visible):
+        raise ValueError(
+            f"requested {num_shards} shards, only {len(visible)} {dev.type} device(s) "
+            f"visible; to run {num_shards} shards on one device, set "
+            f"{VIRTUAL_DEVICES_ENV}={num_shards} (a virtual mesh)"
+        )
+    return Mesh(visible[:num_shards], (VERTEX_AXIS,))
+
+
 def surviving_mesh(num_devices: int, exclude=(), devices=None) -> Mesh:
     """A 1-D vertex-axis mesh over the devices that survived a loss:
     ``exclude`` holds indices (into ``devices``, default the visible ones)

@@ -19,7 +19,12 @@ are those of the single-device supersteps, bit for bit for labels.
 the fast LPA body), so both packages partition a graph identically;
 :func:`shard_graph_arrays` places it on a mesh, one tensor per shard on
 that shard's device. The JAX package's blocked and 2-D partitions
-(``build_blocked_plan``, ``build_plan2d``) wait for ROADMAP item A7b.
+(``build_blocked_plan``, ``build_plan2d``) are array for array the JAX
+package's too: the blocked one makes each shard's chunk a bin group of
+destination tiles (the same one all-gather a superstep); the 2-D one
+keeps the labels sharded, and each superstep ships to every peer only the
+label slots its bins read, one :func:`~graphmine_tpu_torch.parallel.mesh.ppermute`
+a peer distance, in place of the all-gather.
 
 The in-loop divergence tripwires and the superstep telemetry keep the JAX
 package's kinds, attribution and counters. Their guards run on the device
@@ -32,6 +37,7 @@ LPA loop reads nothing until it returns.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -39,7 +45,7 @@ import torch
 
 from graphmine_tpu_torch.graph.container import Graph
 from graphmine_tpu_torch.ops.segment import SegmentSums, segment_min, segment_mode
-from graphmine_tpu_torch.parallel.mesh import Mesh, all_gather, place
+from graphmine_tpu_torch.parallel.mesh import Mesh, all_gather, gather_to, place, ppermute
 
 _SENTINEL = (1 << 31) - 1
 
@@ -189,6 +195,23 @@ class ShardedGraph:
     bucket_target  : per class, int32 [D, n_c] local owned-vertex rows
                      (padding rows = Vc + j, scratch past the chunk)
     bucket_weight  : per class, float32 [D, n_c, w_c] (weighted plans)
+    blk_src        : int32 [D, Mp] the shard's senders in sender-major order
+                     (padding = D*Vc, the label sentinel slot), or None
+    blk_pos        : int32 [D, Mp] each streamed message's slot in the
+                     shard's tile (padding: scratch slots past the bins)
+    blk_row_idx    : per class, int32 [D, n_c, w_c] tile slots (padding =
+                     the reserved slot ``blk_tile_alloc - 1``)
+    blk_row_target : per class, int32 [D, n_c] local owned-vertex rows
+                     (padding rows = Vc + j)
+    blk_row_weight : per class, float32 [D, n_c, w_c] (weighted plans)
+    x2d_send_tab   : int32 [D, D-1, B] local ids of the own chunk shipped
+                     at peer distance r (row r-1); padding 0
+    x2d_src_local  : int32 [D, Mp] the blocked stream remapped onto the
+                     compact table ``[own (Vc) | peer buffers (D-1)*B |
+                     sentinel]``; padding points at the sentinel
+    x2d_boundary   : B, the shared padded per-peer width;
+    x2d_boundary_total: the unpadded boundary slots over every (shard,
+                     peer) pair (a 2-D partition drops ``blk_src``)
     """
 
     msg_recv_local: object
@@ -201,6 +224,16 @@ class ShardedGraph:
     bucket_target: tuple = ()
     msg_weight: object = None
     bucket_weight: tuple = ()
+    blk_src: object = None
+    blk_pos: object = None
+    blk_row_idx: tuple = ()
+    blk_row_target: tuple = ()
+    blk_row_weight: tuple = ()
+    blk_tile_alloc: int = 0
+    x2d_send_tab: object = None
+    x2d_src_local: object = None
+    x2d_boundary: int = 0
+    x2d_boundary_total: int = 0
     mesh: Mesh | None = None
 
     @property
@@ -224,12 +257,17 @@ def partition_graph(graph_or_src, dst=None, num_vertices: int | None = None,
     NumPy). Takes a :class:`Graph` on any device, or raw ``(src, dst)``
     host arrays (built into a host graph first). The shard count comes
     from ``num_shards`` or ``mesh``. ``build_bucket_plan`` adds the stacked
-    degree-bucket plan of the fast LPA shard body."""
-    del blocked_tile_slots
-    if build_blocked_plan or build_plan2d:
-        raise NotImplementedError(
-            "the blocked and 2-D shard partitions (build_blocked_plan, "
-            "build_plan2d) wait for ROADMAP item A7b"
+    degree-bucket plan of the fast LPA shard body. ``build_blocked_plan``
+    adds the stacked blocking plan instead (each shard's chunk a bin group
+    of destination tiles, read by the blocked LPA and CC bodies;
+    ``blocked_tile_slots`` overrides the bin budget), and
+    ``build_plan2d`` extends it with the per-peer boundary tables of the
+    ``sharded_2d`` family, remapping the stream onto the compact table
+    and dropping ``blk_src``. One plan family per partition."""
+    if build_bucket_plan and (build_blocked_plan or build_plan2d):
+        raise ValueError(
+            "build_bucket_plan and build_blocked_plan/build_plan2d are "
+            "mutually exclusive — one plan family per partition"
         )
     if mesh is not None and num_shards is None:
         num_shards = mesh.size
@@ -284,11 +322,16 @@ def partition_graph(graph_or_src, dst=None, num_vertices: int | None = None,
     if build_bucket_plan:
         bucket_send, bucket_target, bucket_weight = _build_shard_bucket_plan(
             deg, send_pad, counts, vc, d, w_pad)
+    blk = {}
+    if build_blocked_plan or build_plan2d:
+        blk = _build_shard_blocked_plan(deg, send_pad, vc, d, w_pad, blocked_tile_slots)
+    if build_plan2d:
+        blk.update(_build_shard_plan2d(blk.pop("blk_src"), vc, d, pad_multiple))
     return ShardedGraph(
         msg_recv_local=recv_local, msg_send=send_pad, degrees=deg,
         num_vertices=num_vertices, chunk_size=vc, num_shards=d,
         bucket_send=bucket_send, bucket_target=bucket_target,
-        msg_weight=w_pad, bucket_weight=bucket_weight,
+        msg_weight=w_pad, bucket_weight=bucket_weight, **blk,
     )
 
 
@@ -343,16 +386,155 @@ def _build_shard_bucket_plan(deg, send_pad, counts, chunk_size, d, w_pad=None):
     return tuple(bucket_send), tuple(bucket_target), tuple(bucket_weight)
 
 
+def _build_shard_blocked_plan(deg, send_pad, chunk_size, d, w_pad=None, tile_slots=None):
+    """Stacked per-shard blocking plan with uniform shapes: each shard's
+    local message CSR split into destination bins by
+    :func:`~graphmine_tpu_torch.ops.blocking._blocked_layout` (on the
+    host), on one shared width ladder and one tile width (the largest over
+    the shards). Padding messages stream the sentinel sender into scratch
+    slots past the bins; padding rows target ``chunk_size + j``."""
+    from graphmine_tpu_torch.ops.blocking import (
+        DEFAULT_TILE_SLOTS,
+        _bin_bounds,
+        _blocked_layout,
+    )
+    from graphmine_tpu_torch.ops.bucketed_mode import _extend_widths
+
+    if tile_slots is None:
+        tile_slots = int(os.environ.get("GRAPHMINE_BLOCKED_TILE_SLOTS", DEFAULT_TILE_SLOTS))
+    sentinel_send = chunk_size * d
+    mp = send_pad.shape[1]
+    widths = _extend_widths(int(deg.max(initial=1)))
+
+    ptrs, tb = [], 8
+    for s in range(d):
+        ptr_s = np.zeros(chunk_size + 1, dtype=np.int64)
+        np.cumsum(deg[s], out=ptr_s[1:])
+        ptrs.append(ptr_s)
+        bounds = _bin_bounds(ptr_s, tile_slots)
+        sizes = ptr_s[bounds[1:]] - ptr_s[bounds[:-1]]
+        tb = max(tb, -(-int(sizes.max(initial=1)) // 8) * 8)
+
+    layouts, n_bins_max = [], 1
+    for s in range(d):
+        weights = None if w_pad is None else torch.from_numpy(w_pad[s])
+        layout = _blocked_layout(ptrs[s], torch.from_numpy(send_pad[s]), tile_slots,
+                                 weights=weights, widths=widths, tile_width=tb)
+        layouts.append(layout)
+        n_bins_max = max(n_bins_max, len(layout[2]) - 1)
+
+    tile_total = n_bins_max * tb
+    tile_alloc = tile_total + mp + 1
+    sentinel_slot = tile_alloc - 1
+    blk_src = np.full((d, mp), sentinel_send, dtype=np.int32)
+    blk_pos = np.empty((d, mp), dtype=np.int32)
+    class_rows: dict = {}
+    for s, (src_sorted, scatter_pos, _bounds, _tb, rows) in enumerate(layouts):
+        n = len(src_sorted)
+        blk_src[s, :n] = src_sorted.numpy()
+        blk_pos[s, :n] = scatter_pos.numpy()
+        # padding messages: distinct scratch slots past the bins
+        blk_pos[s, n:] = tile_total + np.arange(n, mp, dtype=np.int64)
+        for c, vr, idx, wmat in rows:
+            class_rows.setdefault(c, [None] * d)[s] = (
+                vr, idx.numpy(), None if wmat is None else wmat.numpy())
+
+    blk_row_idx, blk_row_target, blk_row_weight = [], [], []
+    for c in sorted(class_rows):
+        w = int(widths[c])
+        per_shard = class_rows[c]
+        n_c = max((p[0].shape[0] for p in per_shard if p is not None), default=0)
+        idx_c = np.full((d, n_c, w), sentinel_slot, dtype=np.int32)
+        tgt_c = np.empty((d, n_c), dtype=np.int32)
+        tgt_c[:] = chunk_size + np.arange(n_c, dtype=np.int64)[None, :]
+        wgt_c = None if w_pad is None else np.zeros((d, n_c, w), dtype=np.float32)
+        for s, payload in enumerate(per_shard):
+            if payload is None:
+                continue
+            vr, idx, wmat = payload
+            n = len(vr)
+            idx_c[s, :n] = np.where(idx < 0, sentinel_slot, idx)
+            tgt_c[s, :n] = vr
+            if wgt_c is not None:
+                wgt_c[s, :n] = wmat
+        blk_row_idx.append(idx_c)
+        blk_row_target.append(tgt_c)
+        if wgt_c is not None:
+            blk_row_weight.append(wgt_c)
+    return dict(blk_src=blk_src, blk_pos=blk_pos, blk_row_idx=tuple(blk_row_idx),
+                blk_row_target=tuple(blk_row_target), blk_row_weight=tuple(blk_row_weight),
+                blk_tile_alloc=tile_alloc)
+
+
+def _build_shard_plan2d(blk_src, chunk_size, d, pad_multiple=8):
+    """The source axis of the blocked bin groups: per-peer boundary tables
+    and the stream's remap onto the compact table.
+
+    For shard ``s`` and peer distance ``r`` (1..D-1), ``need(s, r)`` is
+    the sorted unique local ids of the senders that ``s``'s bins read from
+    the owner ``(s - r) % D``. Every set pads to one width ``B``;
+    ``send_tab[s, r-1]`` holds what ``s`` ships at shift ``r``,
+    ``need((s + r) % D, r)``, so the shift delivers it to the shard that
+    reads it. The stream's global sender ids are remapped onto ``[own (Vc)
+    | bufs (D-1)*B | sentinel]``; padding messages point at the
+    sentinel. Every row of ``blk_src`` is ascending, as the blocked
+    plan build makes it, so each owner's senders are one slice of the row,
+    and the distinct ids and each entry's rank among them come from one
+    pass over the run starts (no sort, no search per entry)."""
+    mp = blk_src.shape[1]
+    bounds_at = np.arange(d + 1, dtype=np.int64) * chunk_size
+    need: list[list] = [[] for _ in range(d)]
+    ranks, uniq_bounds, owner_bounds = [], [], []
+    for s in range(d):
+        g = blk_src[s]
+        start = np.empty(mp, dtype=bool)
+        start[:1] = True
+        np.not_equal(g[1:], g[:-1], out=start[1:])
+        ranks.append(np.cumsum(start, dtype=np.int64) - 1)
+        uniq = g[start].astype(np.int64)                  # the sentinel included
+        bound = np.searchsorted(uniq, bounds_at)
+        uniq_bounds.append(bound)
+        owner_bounds.append(np.searchsorted(g, bounds_at))
+        for r in range(1, d):
+            peer = (s - r) % d
+            need[s].append(uniq[bound[peer]: bound[peer + 1]] - peer * chunk_size)
+    b = max((len(ids) for row in need for ids in row), default=1)
+    b = max(-(-max(b, 1) // pad_multiple) * pad_multiple, pad_multiple)
+    send_tab = np.zeros((d, max(d - 1, 0), b), dtype=np.int32)
+    for s in range(d):
+        for r in range(1, d):
+            ids = need[(s + r) % d][r - 1]
+            send_tab[s, r - 1, : len(ids)] = ids
+    sentinel_slot = chunk_size + (d - 1) * b
+    src_local = np.full((d, mp), sentinel_slot, dtype=np.int32)  # padding stays here
+    for s in range(d):
+        for owner in range(d):
+            lo, hi = owner_bounds[s][owner], owner_bounds[s][owner + 1]
+            if owner == s:
+                src_local[s, lo:hi] = blk_src[s, lo:hi] - s * chunk_size
+            else:
+                base = chunk_size + ((s - owner) % d - 1) * b - uniq_bounds[s][owner]
+                src_local[s, lo:hi] = ranks[s][lo:hi] + base
+    total = sum(len(ids) for row in need for ids in row)
+    return dict(x2d_send_tab=send_tab, x2d_src_local=src_local, x2d_boundary=int(b),
+                x2d_boundary_total=int(total))
+
+
 def shard_graph_arrays(sg: ShardedGraph, mesh: Mesh, lpa_only: bool = False) -> ShardedGraph:
     """Place a partition on ``mesh``: shard ``s`` of every array on
-    ``mesh.devices[s]``. ``lpa_only`` (with a bucket plan only) drops the
-    sort-body arrays, which the bucketed LPA body never reads; such a
-    graph serves :func:`sharded_label_propagation` alone."""
+    ``mesh.devices[s]``. ``lpa_only`` (with a bucket, blocked or 2-D plan)
+    drops the sort-body arrays, which those LPA bodies never read; such a
+    graph serves :func:`sharded_label_propagation` alone (and the blocked
+    and 2-D CC bodies, which read only their plan)."""
     _check_mesh(sg, mesh)
     if sg.mesh is not None:
         raise ValueError(f"this partition is already placed on {sg.mesh}")
-    if lpa_only and not sg.bucket_send:
-        raise ValueError("lpa_only requires partition_graph(build_bucket_plan=True)")
+    if lpa_only and not sg.bucket_send and sg.blk_src is None and sg.x2d_src_local is None:
+        raise ValueError(
+            "lpa_only requires partition_graph(build_bucket_plan=True), "
+            "partition_graph(build_blocked_plan=True) or "
+            "partition_graph(build_plan2d=True)"
+        )
 
     def put(a):
         return None if a is None else place(mesh, a)
@@ -366,6 +548,13 @@ def shard_graph_arrays(sg: ShardedGraph, mesh: Mesh, lpa_only: bool = False) -> 
         bucket_target=tuple(put(t) for t in sg.bucket_target),
         msg_weight=keep(sg.msg_weight),
         bucket_weight=tuple(put(b) for b in sg.bucket_weight),
+        blk_src=put(sg.blk_src), blk_pos=put(sg.blk_pos),
+        blk_row_idx=tuple(put(b) for b in sg.blk_row_idx),
+        blk_row_target=tuple(put(t) for t in sg.blk_row_target),
+        blk_row_weight=tuple(put(w) for w in sg.blk_row_weight),
+        blk_tile_alloc=sg.blk_tile_alloc,
+        x2d_send_tab=put(sg.x2d_send_tab), x2d_src_local=put(sg.x2d_src_local),
+        x2d_boundary=sg.x2d_boundary, x2d_boundary_total=sg.x2d_boundary_total,
         mesh=mesh,
     )
 
@@ -423,16 +612,8 @@ def _lpa_shard_body_bucketed(full, bsend, btarget, bweight, s: int, vc: int):
     from the full vector padded with the sentinel label and take their row
     mode (weighted when the class carries weights); padding rows scatter
     into scratch slots past the chunk, which are cut off."""
-    from graphmine_tpu_torch.ops.bucketed_mode import _bucket_mode, _bucket_wmode
-
     lbl_pad = torch.cat([full, full.new_full((1,), _SENTINEL)])
-    n_max = max((t.shape[-1] for t in btarget), default=0)
-    own = torch.cat([_own(full, s, vc), full.new_zeros((n_max,))])
-    for c, (sidx, tgt) in enumerate(zip(bsend, btarget)):
-        mat = lbl_pad[sidx]
-        vals = _bucket_mode(mat) if bweight is None else _bucket_wmode(mat, bweight[c])
-        own[tgt] = vals
-    return own[:vc].to(torch.int32)
+    return _rows_mode(lbl_pad, _own(full, s, vc), bsend, btarget, bweight, vc)
 
 
 def _cc_shard_body(full, recv_local, send, deg, s: int, vc: int):
@@ -441,6 +622,112 @@ def _cc_shard_body(full, recv_local, send, deg, s: int, vc: int):
     neigh_min = segment_min(full[send], recv_local, vc)
     own = _own(full, s, vc)
     return torch.where(deg > 0, torch.minimum(own, neigh_min), own).to(torch.int32)
+
+
+def _blocked_shard_tile(values, blk_src, blk_pos, tile_alloc: int, fill) -> torch.Tensor:
+    """One shard's bin pass: ``values`` (padded with ``fill`` at the
+    sentinel slot) read in stream order and scattered into the shard's
+    destination-binned tile; slots nobody writes keep ``fill``. The
+    blocked family streams the full label vector by global sender id;
+    the 2-D family its compact table ``[own | peer buffers]`` by the
+    remapped ids, which gives the same tile value for value."""
+    pad = torch.cat([values, values.new_full((1,), fill)])
+    tile = values.new_full((tile_alloc,), fill)
+    tile[blk_pos] = pad[blk_src]
+    return tile
+
+
+def _rows_mode(tile, own, row_idx, row_target, row_weight, vc: int) -> torch.Tensor:
+    """The reduce pass of the LPA bodies: each width class's rows of
+    ``tile`` slots (a blocked tile, or the bucketed body's padded label
+    vector) take their (weighted) row mode into the owned chunk; padding
+    rows write scratch past it, which is cut off."""
+    from graphmine_tpu_torch.ops.bucketed_mode import _bucket_mode, _bucket_wmode
+
+    n_max = max((t.shape[-1] for t in row_target), default=0)
+    out = torch.cat([own, own.new_zeros((n_max,))])
+    for c, (ridx, tgt) in enumerate(zip(row_idx, row_target)):
+        mat = tile[ridx]
+        out[tgt] = _bucket_mode(mat) if row_weight is None else _bucket_wmode(mat, row_weight[c])
+    return out[:vc].to(torch.int32)
+
+
+def _rows_min(tile, own, row_idx, row_target, vc: int) -> torch.Tensor:
+    """The reduce pass of the CC bodies: each row's minimum against the
+    owned label (the int32-max fill never wins); targets are distinct."""
+    n_max = max((t.shape[-1] for t in row_target), default=0)
+    out = torch.cat([own, own.new_zeros((n_max,))])
+    for ridx, tgt in zip(row_idx, row_target):
+        out[tgt] = torch.minimum(out[tgt], tile[ridx].min(dim=1).values)
+    return out[:vc].to(torch.int32)
+
+
+def _lpa_shard_body_blocked(full, blk_src, blk_pos, row_idx, row_target, row_weight,
+                            s: int, vc: int, tile_alloc: int):
+    """One shard's blocked LPA superstep: the bin pass into the shard's
+    tile, then the row modes with tile-local indices. Returns the shard's
+    new chunk (the exchange is the step's all-gather)."""
+    tile = _blocked_shard_tile(full, blk_src, blk_pos, tile_alloc, _SENTINEL)
+    return _rows_mode(tile, _own(full, s, vc), row_idx, row_target, row_weight, vc)
+
+
+def _cc_shard_body_blocked(full, blk_src, blk_pos, row_idx, row_target, s: int, vc: int,
+                           tile_alloc: int):
+    """One shard's blocked CC superstep before the exchange: the row
+    minima of its tile against the owned labels; the step's pointer jump
+    runs on the gathered vector, as the sort body's does."""
+    tile = _blocked_shard_tile(full, blk_src, blk_pos, tile_alloc, _SENTINEL)
+    return _rows_min(tile, _own(full, s, vc), row_idx, row_target, vc)
+
+
+def _check_2d_mesh(mesh: Mesh) -> None:
+    """The 2-D family's exchange is a ring of shifts over one mesh axis:
+    a multi-axis mesh is refused (the one-all-gather families take it)."""
+    if len(tuple(mesh.axis_names)) != 1:
+        raise ValueError(
+            f"the sharded_2d family needs a 1-D mesh for its ppermute "
+            f"neighbor exchange (got axes {tuple(mesh.axis_names)}); use "
+            "the one-all_gather families on multi-slice meshes"
+        )
+
+
+def _exchange_2d(mesh: Mesh, own, send_tab) -> list:
+    """The neighbour-only exchange: for each peer distance ``r``, one
+    :func:`~graphmine_tpu_torch.parallel.mesh.ppermute` shift carrying
+    each shard's padded boundary buffer (``send_tab[s][r-1]``, the label
+    slots its peer's bins read). Returns, per shard, its D - 1 received
+    buffers in distance order (the compact table's layout)."""
+    d = mesh.size
+    got = [ppermute(mesh, [own[i][send_tab[i][r - 1]] for i in range(d)], r)
+           for r in range(1, d)]
+    return [[got[r][s] for r in range(d - 1)] for s in range(d)]
+
+
+def _lpa_shard_body_2d(own, bufs, src_local, blk_pos, row_idx, row_target, row_weight,
+                       vc: int, tile_alloc: int):
+    """One shard's 2-D LPA superstep on its own chunk and its received
+    buffers: the tile is the blocked family's, so the labels are too.
+    Labels stay sharded: in and out is the shard's ``[Vc]`` chunk."""
+    tile = _blocked_shard_tile(torch.cat([own, *bufs]), src_local, blk_pos, tile_alloc,
+                               _SENTINEL)
+    return _rows_mode(tile, own, row_idx, row_target, row_weight, vc)
+
+
+def _cc_shard_body_2d(own, bufs, src_local, blk_pos, row_idx, row_target, s: int, vc: int,
+                      tile_alloc: int):
+    """One shard's 2-D CC superstep: the row minima, then a chunk-local
+    pointer jump (a label in the shard's own range is followed; the full
+    jump would need the O(V) exchange this family removes). Convergence
+    may take more supersteps than the one-all-gather bodies, up to the
+    diameter where a chain alternates shards; the fixpoint, the component
+    minimum, is the same."""
+    tile = _blocked_shard_tile(torch.cat([own, *bufs]), src_local, blk_pos, tile_alloc,
+                               _SENTINEL)
+    new = _rows_min(tile, own, row_idx, row_target, vc)
+    loc = new.to(torch.int64) - s * vc
+    in_chunk = (loc >= 0) & (loc < vc)
+    jumped = new[torch.clamp(loc, 0, vc - 1)]
+    return torch.minimum(new, torch.where(in_chunk, jumped, new))
 
 
 def _pointer_jump(full: torch.Tensor) -> torch.Tensor:
@@ -543,18 +830,61 @@ def _pad_labels(labels, sg: ShardedGraph, device) -> torch.Tensor:
 
 
 def _init_full(sg, mesh, init_labels) -> list:
-    """The replicated initial state: one padded label vector per shard."""
+    """The initial state: one padded label vector per shard, or for a 2-D
+    partition (labels sharded) each shard's own chunk."""
     dev0 = mesh.devices[0]
     full = (_padded_init_labels(sg, dev0) if init_labels is None
             else _pad_labels(init_labels, sg, dev0))
+    if _is_2d(sg):
+        vc = sg.chunk_size
+        return [_own(full, s, vc).to(dev, copy=True) for s, dev in enumerate(mesh.devices)]
     return [full.to(dev, copy=True) for dev in mesh.devices]
 
 
+def _is_2d(sg: ShardedGraph) -> bool:
+    return sg.x2d_src_local is not None
+
+
+def _state_chunks(sg: ShardedGraph):
+    """Per-shard chunks of a state: a 2-D state is its chunks already."""
+    return list if _is_2d(sg) else _replicated_chunks(sg)
+
+
+def _labels_of(sg: ShardedGraph, mesh: Mesh, state) -> torch.Tensor:
+    """The ``[V]`` labels of a state, on the mesh's first device."""
+    full = gather_to(state, mesh.devices[0]) if _is_2d(sg) else state[0]
+    return full[: sg.num_vertices]
+
+
 def _build_lpa_step(sg: ShardedGraph, mesh: Mesh):
-    """The replicated LPA superstep over a list of full label vectors:
-    the bucketed body when the partition has a plan, else the sort body;
-    then one all-gather."""
+    """The LPA superstep over the state of :func:`_init_full`: the 2-D body
+    on a 2-D partition (its exchange inside the step), else the blocked,
+    bucketed or sort body followed by one all-gather."""
     vc, d = sg.chunk_size, sg.num_shards
+    if _is_2d(sg):
+        _check_2d_mesh(mesh)
+        wts = sg.blk_row_weight or None
+
+        def step(own):
+            bufs = _exchange_2d(mesh, own, sg.x2d_send_tab)
+            return [_lpa_shard_body_2d(
+                own[s], bufs[s], sg.x2d_src_local[s], sg.blk_pos[s],
+                [r[s] for r in sg.blk_row_idx], [t[s] for t in sg.blk_row_target],
+                None if wts is None else [w[s] for w in wts], vc, sg.blk_tile_alloc)
+                for s in range(d)]
+
+        return step
+    if sg.blk_src is not None:
+        wts = sg.blk_row_weight or None
+
+        def step(full):
+            return all_gather(mesh, [_lpa_shard_body_blocked(
+                full[s], sg.blk_src[s], sg.blk_pos[s], [r[s] for r in sg.blk_row_idx],
+                [t[s] for t in sg.blk_row_target],
+                None if wts is None else [w[s] for w in wts], s, vc, sg.blk_tile_alloc)
+                for s in range(d)])
+
+        return step
     if sg.bucket_send:
         weights = sg.bucket_weight or None
 
@@ -589,12 +919,12 @@ def sharded_label_propagation(sg: ShardedGraph, mesh: Mesh, max_iter: int = 5,
     dev0 = mesh.devices[0]
     out = _scan_supersteps(
         _build_lpa_step(sg, mesh), _init_full(sg, mesh, init_labels), max_iter,
-        _replicated_chunks(sg), dev0, tripwire_every=tripwire_every,
+        _state_chunks(sg), dev0, tripwire_every=tripwire_every,
         v_pad=sg.padded_vertices, collect=telemetry)
     if not telemetry:
-        return out[0][: sg.num_vertices]
+        return _labels_of(sg, mesh, out)
     state, (changed, per) = out
-    return state[0][: sg.num_vertices], SuperstepTelemetry(
+    return _labels_of(sg, mesh, state), SuperstepTelemetry(
         changed.cpu().numpy(), per.cpu().numpy(), int(max_iter))
 
 
@@ -607,20 +937,42 @@ def sharded_lpa_fixpoint(sg: ShardedGraph, mesh: Mesh, max_iter: int = 0, init_l
     sg = _on_mesh(sg, mesh)
     state, (changed, _per, it) = _fixpoint_supersteps(
         _build_lpa_step(sg, mesh), _init_full(sg, mesh, init_labels), sg, max_iter,
-        _replicated_chunks(sg), mesh.devices[0], tripwire_every=tripwire_every,
+        _state_chunks(sg), mesh.devices[0], tripwire_every=tripwire_every,
         collect=True, guard=_lpa_range_tripwire)
     row = min(it, changed.shape[0]) - 1
     converged = it == 0 or int(changed[row]) == 0
-    return state[0][: sg.num_vertices], it, converged
+    return _labels_of(sg, mesh, state), it, converged
 
 
 def _build_cc_step(sg: ShardedGraph, mesh: Mesh):
+    """The CC superstep: the 2-D body (its exchange and a chunk-local
+    pointer jump inside it), else the blocked or sort body, one
+    all-gather and the pointer jump on every shard's full vector."""
     vc, d = sg.chunk_size, sg.num_shards
-    recv, send, deg = (_need(sg.msg_recv_local, "message CSR"), sg.msg_send, sg.degrees)
+    if _is_2d(sg):
+        _check_2d_mesh(mesh)
+
+        def step(own):
+            bufs = _exchange_2d(mesh, own, sg.x2d_send_tab)
+            return [_cc_shard_body_2d(
+                own[s], bufs[s], sg.x2d_src_local[s], sg.blk_pos[s],
+                [r[s] for r in sg.blk_row_idx], [t[s] for t in sg.blk_row_target], s, vc,
+                sg.blk_tile_alloc) for s in range(d)]
+
+        return step
+    if sg.blk_src is not None:
+        def body(full, s):
+            return _cc_shard_body_blocked(
+                full[s], sg.blk_src[s], sg.blk_pos[s], [r[s] for r in sg.blk_row_idx],
+                [t[s] for t in sg.blk_row_target], s, vc, sg.blk_tile_alloc)
+    else:
+        recv, send, deg = (_need(sg.msg_recv_local, "message CSR"), sg.msg_send, sg.degrees)
+
+        def body(full, s):
+            return _cc_shard_body(full[s], recv[s], send[s], deg[s], s, vc)
 
     def step(full):
-        gathered = all_gather(mesh, [_cc_shard_body(full[s], recv[s], send[s], deg[s], s, vc)
-                                     for s in range(d)])
+        gathered = all_gather(mesh, [body(full, s) for s in range(d)])
         # pointer jumping on each shard's full vector: no extra exchange
         return [_pointer_jump(f) for f in gathered]
 
@@ -638,13 +990,13 @@ def sharded_connected_components(sg: ShardedGraph, mesh: Mesh, max_iter: int = 0
     sg = _on_mesh(sg, mesh)
     out = _fixpoint_supersteps(
         _build_cc_step(sg, mesh), _init_full(sg, mesh, init_labels), sg, max_iter,
-        _replicated_chunks(sg), mesh.devices[0], tripwire_every=tripwire_every,
+        _state_chunks(sg), mesh.devices[0], tripwire_every=tripwire_every,
         collect=telemetry)
     if not telemetry:
-        return out[0][: sg.num_vertices]
+        return _labels_of(sg, mesh, out)
     state, (changed, per, it) = out
     n = min(it, changed.shape[0])
-    return state[0][: sg.num_vertices], SuperstepTelemetry(
+    return _labels_of(sg, mesh, state), SuperstepTelemetry(
         changed.cpu().numpy()[:n], per.cpu().numpy()[:n], it)
 
 

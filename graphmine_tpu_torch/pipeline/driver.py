@@ -315,15 +315,13 @@ def _run_pipeline(config: PipelineConfig, m: MetricsSink,
 def _mesh_devices(config: PipelineConfig, device: torch.device) -> list:
     """The run's devices: the first ``num_devices`` (default all) of
     :func:`~graphmine_tpu_torch.device.visible_devices` of ``device``'s
-    kind; more than are visible raises, as the JAX driver's mesh does."""
-    visible = visible_devices(device)
-    if device.type == "cuda" and device.index is not None and device in visible:
-        # the named card first: the graph and the mesh's first shard share it
-        visible = [device] + [d for d in visible if d != device]
-    n = config.num_devices or len(visible)
-    if n > len(visible):
-        raise ValueError(f"requested {n} devices, only {len(visible)} visible")
-    return visible[:n]
+    kind, ``device`` first
+    (:func:`~graphmine_tpu_torch.parallel.mesh.device_mesh`); more than
+    are visible raises, as the JAX pipeline's mesh does."""
+    from graphmine_tpu_torch.parallel.mesh import device_mesh
+
+    n = config.num_devices or len(visible_devices(device))
+    return list(device_mesh(n, device).devices)
 
 
 def _virtual(devices) -> dict:

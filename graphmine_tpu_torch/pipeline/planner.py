@@ -6,8 +6,8 @@ anything is allocated: ``single`` on one device, else ``replicated`` (the
 full label vector on every shard, one all-gather a superstep) before
 ``ring`` (labels sharded); a requested schedule is checked, and a config
 that cannot fit raises :class:`PlanError` with the numbers.
-:func:`plan_superstep` resolves the superstep family (``blocked``,
-``bucketed`` or ``sort``, through the ops layer's
+:func:`plan_superstep` resolves the superstep family (``sharded_2d`` on
+a mesh, ``blocked``, ``bucketed`` or ``sort``, through the ops layer's
 :func:`~graphmine_tpu_torch.ops.blocking.select_superstep_family`) with
 its degradation rung, :func:`plan_lof` the LOF kNN family (``ivf`` or
 ``exact``) with the opposite family as its rung,
@@ -21,10 +21,7 @@ the port's own buffers. The budget is the card's own memory
 ``GRAPHMINE_HBM_BYTES`` overrides it; only a run off CUDA, which has no
 device memory to budget, plans against a nominal 16 GiB.
 
-The JAX package's ``sharded_2d`` superstep family is not ported: asking
-for it raises :class:`PlanError` naming the ROADMAP item that ports it,
-never a silent substitute. One device has no elastic rung, so a
-device-loss error there raises.
+One device has no elastic rung, so a device-loss error there raises.
 """
 
 from __future__ import annotations
@@ -50,22 +47,9 @@ _INT32_MAX = (1 << 31) - 1
 # checks the exact count.
 _SHARD_PAD_SLACK = 1.12
 
-# What is not ported, and the ROADMAP queue-1 item that ports it.
-_NOT_PORTED = {
-    "sharded_2d": "A7b (the 2-D and blocked shard families)",
-}
-
-
 class PlanError(ValueError):
-    """No operating point fits, or the request names one the port does
-    not run: raised at plan time, before any allocation."""
-
-
-def _not_ported(what: str, kind: str) -> PlanError:
-    return PlanError(
-        f"{kind} {what!r} is not ported to the PyTorch driver; "
-        f"it waits for ROADMAP queue 1 item {_NOT_PORTED[what]}"
-    )
+    """No operating point fits: raised at plan time, before any
+    allocation."""
 
 
 @dataclass(frozen=True)
@@ -117,8 +101,6 @@ def hbm_bytes_per_device(device_bytes=None) -> int:
 def estimate_bytes_per_device(schedule: str, num_vertices: int, num_edges: int,
                               num_devices: int, weighted: bool = False) -> int:
     """Modeled peak bytes of ``schedule`` (``memmodel``'s single owner)."""
-    if schedule in _NOT_PORTED:
-        raise _not_ported(schedule, "schedule")
     return memmodel.schedule_bytes_per_device(schedule, num_vertices, num_edges,
                                               num_devices, weighted)
 
@@ -131,8 +113,6 @@ def degradation_ladder(schedule: str, num_devices: int, family: str = "bucketed"
     matrices and their transients go), and sort is the floor. A mesh:
     ``replicated`` steps to ``ring`` (no replicated label vector), and
     ring is the floor."""
-    if family in _NOT_PORTED:
-        raise _not_ported(family, "superstep family")
     if schedule == "single" or num_devices <= 1:
         return {"blocked": ["single_bucketed", "single_sort"], "sort": []}.get(
             family, ["single_sort"])
@@ -157,22 +137,26 @@ def elastic_device_ladder(schedule: str, num_devices: int) -> list[int]:
 
 @dataclass(frozen=True)
 class SuperstepPlan:
-    """Resolved superstep family: ``family`` (``"blocked"`` /
-    ``"bucketed"`` / ``"sort"``) and ``degrade_to``, the family a resource
-    failure steps down to."""
+    """Resolved superstep family: ``family`` (``"sharded_2d"`` /
+    ``"blocked"`` / ``"bucketed"`` / ``"sort"``) and ``degrade_to``, the
+    family a resource failure steps down to: the 2-D family to the
+    one-all-gather ``blocked`` one (its per-peer tables go), blocked to
+    bucketed, bucketed to sort."""
 
     family: str
     degrade_to: str
     reason: str
 
 
-_SUPERSTEP_DEGRADE = {"blocked": "bucketed", "bucketed": "sort", "sort": "sort"}
+_SUPERSTEP_DEGRADE = {"sharded_2d": "blocked", "blocked": "bucketed", "bucketed": "sort",
+                      "sort": "sort"}
 
 
 def plan_superstep(num_vertices: int, num_messages: int, requested: str = "auto",
                    weighted: bool = False, num_devices: int = 1) -> SuperstepPlan:
     """Resolve the LPA/CC superstep family at plan time, with its
-    degradation rung."""
+    degradation rung; ``num_devices`` >= 2 (the serving repair's mesh)
+    may resolve the ``sharded_2d`` family."""
     family, reason = select_superstep_family(num_vertices, num_messages, requested=requested,
                                              weighted=weighted, num_devices=num_devices)
     return SuperstepPlan(family=family, degrade_to=_SUPERSTEP_DEGRADE[family], reason=reason)
@@ -213,8 +197,6 @@ def plan_run(num_vertices: int, num_edges: int, num_devices: int, weighted: bool
     also live on one device or must stay on the host (scale-out)."""
     if num_devices < 1:
         raise ValueError("num_devices must be >= 1")
-    if requested in _NOT_PORTED:
-        raise _not_ported(requested, "schedule")
     if requested not in ("auto", "single", "replicated", "ring"):
         raise ValueError(f"unknown schedule {requested!r}")
     budget = int((hbm if hbm is not None else hbm_bytes_per_device()) * _HBM_HEADROOM)

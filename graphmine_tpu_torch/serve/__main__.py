@@ -16,7 +16,8 @@ any port or JAX publish. ``--wal DIR`` makes accepted deltas durable
 before the acknowledgement (replayed on restart); ``--wal DIR
 --standby-of URL [--primary-wal DIR]`` runs the log-shipped standby.
 ``GRAPHMINE_WRITER_SHARDS`` > 1 runs the sharded write plane.
-``--num-shards`` > 1 (the sharded repair) raises ``NotImplementedError``.
+``--num-shards`` > 1 repairs deltas on a mesh of that many shards on
+``--device`` (several on one device only with ``GRAPHMINE_VIRTUAL_DEVICES``).
 
 ``info`` reads the store's manifest (and the sharded write plane's
 committed epoch, when the store has one). ``query`` and ``delta`` run
@@ -491,7 +492,8 @@ def main(argv=None) -> int:
     p.add_argument("--file", default=None,
                    help='JSON file {"insert": [[s,d],...], "delete": [...]}')
     p.add_argument("--num-shards", type=int, default=1,
-                   help="sharded repair; above 1 raises NotImplementedError")
+                   help="repair deltas on a mesh of this many shards (one device "
+                        "holds several only with GRAPHMINE_VIRTUAL_DEVICES)")
     p.add_argument("--delta-id", default=None,
                    help="idempotency key (X-Delta-Id) for --url mode; "
                         "default: one generated key reused across retries")
@@ -515,7 +517,8 @@ def main(argv=None) -> int:
     p.add_argument("--prom-out", default=None,
                    help="Prometheus textfile, rewritten on every publish")
     p.add_argument("--num-shards", type=int, default=1,
-                   help="sharded repair; above 1 raises NotImplementedError")
+                   help="repair deltas on a mesh of this many shards (one device "
+                        "holds several only with GRAPHMINE_VIRTUAL_DEVICES)")
     p.add_argument("--slow-request-s", type=float, default=1.0,
                    help="access_log records at or past this carry the body digest")
     p.add_argument("--wal", default=None, metavar="DIR",

@@ -1,7 +1,7 @@
 """Incremental delta ingest: splice edge batches, repair labels warm
-(PyTorch, one device).
+(PyTorch).
 
-Counterpart of ``graphmine_tpu/serve/delta.py``'s single-device path:
+Counterpart of ``graphmine_tpu/serve/delta.py``:
 
 1. **validate** an insert/delete batch through the ingestion-quarantine
    rules (negative or absurdly large ids, deletes that match nothing are
@@ -29,9 +29,17 @@ warm LPA is checked, not assumed. Outlier scores ride
 the repair method and its iteration counts are bit-equal to the JAX
 package's on the same store and deltas.
 
-The sharded repair (``num_shards > 1``: ``_warm_lpa_sharded``,
-``_sharded_exact_step``, ``_resolve_shard_family``, ``_repair_sharded``)
-is ROADMAP item A7b and raises ``NotImplementedError`` here.
+With ``num_shards > 1`` the repair runs on a mesh of that many shards
+on the ingestor's device (the distinct cards, or a virtual mesh with
+``GRAPHMINE_VIRTUAL_DEVICES``): the propagation, the sampled check and
+the cold fallback go through the sharded entries of
+:mod:`graphmine_tpu_torch.parallel.sharded`, on the ``sharded_2d``
+partition past the planner's crossover (the per-peer boundary exchange)
+and on the plain one-all-gather partition otherwise. Labels, CC labels,
+methods and versions equal the single-shard ingestor's, and with the
+iterations and the family the JAX package's sharded ingestor's (the 2-D
+CC jumps pointers only inside a shard's chunk, so its superstep count may
+differ from one device's).
 """
 
 from __future__ import annotations
@@ -50,9 +58,6 @@ from graphmine_tpu_torch.device import resolve_device
 from graphmine_tpu_torch.pipeline import resilience
 from graphmine_tpu_torch.pipeline.checkpoint import graph_fingerprint
 from graphmine_tpu_torch.serve.snapshot import Snapshot, SnapshotStore
-
-_SHARDED = ("the sharded delta repair (num_shards > 1) is ROADMAP item A7b "
-            "of the port; this ingestor repairs on one device")
 
 # Growth guard: a typo'd insert id must not allocate a billion-row label
 # vector. Inserts past current V + this bound are quarantined.
@@ -349,6 +354,27 @@ def _warm_lpa(graph, init_labels: np.ndarray, budget: int):
     return labels.cpu().numpy(), budget, False
 
 
+def _warm_lpa_sharded(shards, init_labels: np.ndarray, budget: int):
+    """Sharded twin of :func:`_warm_lpa` with the same stop conditions
+    (fixpoint, period-2 livelock, budget): the sharded entry driven one
+    superstep at a time, each iterate compared on the host."""
+    from graphmine_tpu_torch.parallel.sharded import sharded_lpa_fixpoint
+
+    sg, mesh = shards
+    labels = np.asarray(init_labels, np.int32)
+    prev = None
+    for it in range(budget):
+        new, _, _ = sharded_lpa_fixpoint(sg, mesh, max_iter=1, init_labels=labels)
+        new = new.cpu().numpy()
+        if np.array_equal(new, labels):
+            return new, it + 1, True
+        if prev is not None and np.array_equal(new, prev):
+            return new, it + 1, False  # period-2 livelock
+        prev = labels
+        labels = new
+    return labels, budget, False
+
+
 def _warm_cc(graph, init_labels: np.ndarray, budget: int):
     """Warm-start min-propagation CC to a fixpoint (monotone, so any valid
     upper-bound init converges to THE fixpoint). Returns ``(labels,
@@ -390,6 +416,23 @@ def cc_repair_init(
     return init
 
 
+def _sharded_exact_step(shards, labels: np.ndarray, kind: str) -> np.ndarray:
+    """One exact superstep through the sharded entries (``max_iter=1``
+    from ``labels``): unchanged iff the labels are a superstep fixpoint,
+    with no whole-graph superstep on one device."""
+    from graphmine_tpu_torch.parallel.sharded import (
+        sharded_connected_components,
+        sharded_lpa_fixpoint,
+    )
+
+    sg, mesh = shards
+    if kind == "lpa":
+        nxt, _, _ = sharded_lpa_fixpoint(sg, mesh, max_iter=1, init_labels=labels)
+    else:
+        nxt = sharded_connected_components(sg, mesh, max_iter=1, init_labels=labels)
+    return nxt.cpu().numpy()
+
+
 def sampled_exact_check(
     graph, labels: np.ndarray, samples: np.ndarray, kind: str = "lpa",
     shards=None,
@@ -399,20 +442,21 @@ def sampled_exact_check(
     every sampled label must be a real vertex id. A genuine fixpoint
     passes by construction; corrupted state, a non-fixpoint (budget ran
     out) or a wrong-graph mixup does not. Returns
-    ``(ok, mismatching_samples)``. ``shards`` (the sharded check) is
-    ROADMAP item A7b."""
-    if shards is not None:
-        raise NotImplementedError(_SHARDED)
-    from graphmine_tpu_torch.ops.cc import cc_superstep
-    from graphmine_tpu_torch.ops.lpa import lpa_superstep
-
+    ``(ok, mismatching_samples)``. ``shards``, a ``(sharded_graph,
+    mesh)`` pair, runs the superstep through the sharded entries."""
     v = graph.num_vertices
     lbl = np.asarray(labels)
     oob = int(((lbl < 0) | (lbl >= v)).sum())
     if oob:
         return False, oob
-    step = lpa_superstep if kind == "lpa" else cc_superstep
-    nxt = step(_device_labels(lbl, graph), graph).cpu().numpy()
+    if shards is not None:
+        nxt = _sharded_exact_step(shards, lbl, kind)
+    else:
+        from graphmine_tpu_torch.ops.cc import cc_superstep
+        from graphmine_tpu_torch.ops.lpa import lpa_superstep
+
+        step = lpa_superstep if kind == "lpa" else cc_superstep
+        nxt = step(_device_labels(lbl, graph), graph).cpu().numpy()
     samples = np.asarray(samples, np.int64)
     samples = samples[(samples >= 0) & (samples < v)]
     bad = int((nxt[samples] != lbl[samples]).sum())
@@ -606,14 +650,35 @@ def cold_recompute(graph, budget: int = 0, shards=None):
     early), CC from the identity. Returns ``(labels, cc_labels, iters)``.
     On graphs whose synchronous LPA livelocks the result is the
     cycle-stopped bounded recompute, and every delta on such a graph
-    routes here through the repair fallback. ``shards`` is ROADMAP item
-    A7b."""
-    if shards is not None:
-        raise NotImplementedError(_SHARDED)
-    from graphmine_tpu_torch.ops.cc import connected_components
+    routes here through the repair fallback.
 
+    ``shards``, a ``(sharded_graph, mesh)`` pair, runs it through
+    ``sharded_lpa_fixpoint`` and ``sharded_connected_components``. A run
+    that does not converge is probed with two more supersteps: back at
+    its start means it ended inside a 2-cycle, and it is replayed one
+    superstep at a time with :func:`_warm_lpa`'s exit, so the labels are
+    the single-device oracle's cycle-stopped state (not a phase that the
+    budget's parity picks); a run still converging is left as it is."""
     v = graph.num_vertices
     budget = budget or frontier_budget(v, v)
+    if shards is not None:
+        from graphmine_tpu_torch.parallel.sharded import (
+            sharded_connected_components,
+            sharded_lpa_fixpoint,
+        )
+
+        sg, mesh = shards
+        labels, it_l, conv = sharded_lpa_fixpoint(sg, mesh, max_iter=budget)
+        labels = labels.cpu().numpy()
+        if not conv:
+            probe, _, _ = sharded_lpa_fixpoint(sg, mesh, max_iter=2, init_labels=labels)
+            if np.array_equal(probe.cpu().numpy(), labels):
+                labels, it_l, _ = _warm_lpa_sharded(
+                    shards, np.arange(v, dtype=np.int32), budget)
+        cc = sharded_connected_components(sg, mesh).cpu().numpy()
+        return labels, cc, int(it_l)
+    from graphmine_tpu_torch.ops.cc import connected_components
+
     labels, it_l, _ = _warm_lpa(graph, np.arange(v, dtype=np.int32), budget)
     cc = connected_components(graph).cpu().numpy()
     return labels, cc, it_l
@@ -624,9 +689,10 @@ def _verify_or_fallback(
     iterations: int, check_samples: int, sink, num_shards: int = 1,
     seed: int = 0, shards=None, tenant: str = "",
 ) -> RepairResult:
-    """The shared tail of the repair: fault seam → sampled exact check →
-    accept or fall back (``shards``, the sharded caller's, is ROADMAP item
-    A7b).
+    """The shared tail of both repairs, single-device and sharded: fault
+    seam → sampled exact check → accept or fall back. ``shards`` (the
+    sharded caller's ``(sharded_graph, mesh)``) keeps the check and the
+    fallback recompute on the sharded entries too.
 
     The fault seam is where tests corrupt the repaired state
     (poison_labels-style mutator) to prove the sampled check catches
@@ -728,8 +794,11 @@ class DeltaIngestor:
     the features, the LOF and the canary probe run on ``device`` (CUDA
     unless the caller names another).
 
-    ``num_shards > 1`` (the sharded repair) is ROADMAP item A7b and raises
-    ``NotImplementedError``.
+    ``num_shards > 1`` repairs on a mesh of that many shards on
+    ``device`` (:func:`~graphmine_tpu_torch.parallel.mesh.device_mesh`:
+    one device holds several only on a virtual mesh,
+    ``GRAPHMINE_VIRTUAL_DEVICES``); the LOF pass, the census and the
+    quality pass stay on ``device``.
     """
 
     def __init__(
@@ -746,9 +815,12 @@ class DeltaIngestor:
         quality: bool | None = None,
         device=None,
     ):
-        if num_shards > 1:
-            raise NotImplementedError(_SHARDED)
         self.device = resolve_device(device)
+        self.mesh = None
+        if num_shards > 1:
+            from graphmine_tpu_torch.parallel.mesh import device_mesh
+
+            self.mesh = device_mesh(num_shards, self.device)
         self.store = store
         self.sink = sink
         self.check_samples = check_samples
@@ -805,6 +877,10 @@ class DeltaIngestor:
         # StreamingLOF(centers=...) reuse path — Lloyd never re-trains
         # what an earlier ingestor already paid for.
         self._centers = snap.get("lof_centers")
+        # superstep family of the last sharded repair ("sharded_2d" past
+        # the planner's crossover, else "sort"; None before any sharded
+        # apply and on single-shard ingestors)
+        self.last_shard_family = None
         # LOF-staleness backlog (admission rung 2, serve/admission.py):
         # vertices whose scores a deferred apply skipped. The next
         # lof_mode="refresh" apply re-scores the union. A snapshot loaded
@@ -846,10 +922,100 @@ class DeltaIngestor:
         # long-run coverage of silent corruption outside the frontier.
         seed = self.snapshot.version
         tenant = getattr(self.store, "tenant", "")
-        return repair_labels(
-            graph, self.labels, self.cc_labels, delta,
-            check_samples=self.check_samples, sink=self.sink,
-            seed=seed, tenant=tenant,
+        if self.num_shards <= 1:
+            return repair_labels(
+                graph, self.labels, self.cc_labels, delta,
+                check_samples=self.check_samples, sink=self.sink,
+                seed=seed, tenant=tenant,
+            )
+        return self._repair_sharded(graph, delta, seed)
+
+    def _resolve_shard_family(self, graph) -> str:
+        """The sharded repair's superstep family at plan time: the
+        planner's crossover picks between the 2-D partition and the
+        one-all-gather sort bodies, then the memory model pre-degrades a
+        2-D pick whose per-peer tables (modeled at their worst case, as
+        the partition is not built yet) would not fit the per-device
+        budget, with a ``degrade`` record carrying the oversized
+        inventory. Returns ``"sharded_2d"`` or ``"sort"``: any degraded
+        rung repairs on the plain partition."""
+        from graphmine_tpu_torch.obs.memmodel import predegrade_superstep
+        from graphmine_tpu_torch.pipeline import planner
+
+        weighted = self.weights is not None
+        plan_family = planner.plan_superstep(
+            graph.num_vertices, graph.num_messages, weighted=weighted,
+            num_devices=self.num_shards,
+        ).family
+        if plan_family != "sharded_2d":
+            return "sort"
+        budget = int(planner.hbm_bytes_per_device(
+            lambda: planner.device_hbm_bytes(self.device)) * planner._HBM_HEADROOM)
+        _fam, _fit, steps = predegrade_superstep(
+            "sharded_2d", graph.num_vertices, graph.num_messages, graph.num_edges,
+            weighted, budget, num_devices=self.num_shards,
+        )
+        if not steps:
+            return "sharded_2d"
+        if self.sink is not None:
+            frm, _to, oversized = steps[0]
+            self.sink.emit(
+                "degrade", stage="delta_repair_plan", to="sort", depth=1, kind="mem_plan",
+                error=(
+                    f"plan-time memory pre-degrade: modeled {frm!r} "
+                    f"footprint {oversized.total_bytes:,} B (per-peer "
+                    f"exchange tables included) exceeds the {budget:,} B "
+                    "budget — repairing via the one-all_gather partition"
+                ),
+                mem=oversized.record(),
+            )
+        return "sort"
+
+    def _repair_sharded(self, graph, delta: EdgeDelta, seed: int = 0) -> RepairResult:
+        """Mesh twin of :func:`repair_labels`: the same inits, the
+        propagation through the sharded entries and the same
+        verify/fallback tail. Past the 2-D crossover the partition is the
+        ``sharded_2d`` one, whose supersteps ship only the per-peer
+        boundaries; the labels are the same either way. The 2-D CC jumps
+        pointers only within a shard's chunk, so it gets a budget scaled
+        by D (at most 512). The warm LPA steps one superstep at a time
+        (:func:`_warm_lpa_sharded`) and so leaves a 2-cycle early, as the
+        single-device repair does, where the JAX package's compiled
+        fixpoint runs its whole budget: a cycle never reaches a fixpoint,
+        so the fallback, its reason and every published number are the
+        same. The partition is built anew every apply, and nothing is
+        compiled or cached per shape, so there is no cache to evict
+        between applies."""
+        from graphmine_tpu_torch.obs.costmodel import emit_shard_exchange
+        from graphmine_tpu_torch.parallel.sharded import (
+            partition_graph,
+            shard_graph_arrays,
+            sharded_connected_components,
+        )
+
+        v = graph.num_vertices
+        budget = frontier_budget(v, len(affected_vertices(delta)))
+        mesh = self.mesh
+        family = self._resolve_shard_family(graph)
+        self.last_shard_family = family
+        sg = shard_graph_arrays(
+            partition_graph(graph, mesh=mesh, build_plan2d=family == "sharded_2d"), mesh)
+        emit_shard_exchange(self.sink, "delta_repair", sg, version=self.snapshot.version,
+                            **({"virtual": True} if mesh.virtual else {}))
+        init_lpa = np.arange(v, dtype=np.int32)
+        init_lpa[: len(self.labels)] = self.labels
+        labels, it_l, conv_l = _warm_lpa_sharded((sg, mesh), init_lpa, budget)
+        budget_cc = min(budget * self.num_shards, 512) if family == "sharded_2d" else budget
+        cc, tele = sharded_connected_components(
+            sg, mesh, max_iter=budget_cc,
+            init_labels=cc_repair_init(self.cc_labels, v, delta), telemetry=True)
+        conv_c = tele.iterations < budget_cc or (
+            len(tele.labels_changed) > 0 and int(tele.labels_changed[-1]) == 0)
+        return _verify_or_fallback(
+            graph, labels, cc.cpu().numpy(), conv_l, conv_c, delta, budget,
+            int(it_l) + int(tele.iterations), self.check_samples, self.sink,
+            num_shards=self.num_shards, seed=seed, shards=(sg, mesh),
+            tenant=getattr(self.store, "tenant", ""),
         )
 
     def _refresh_lof(self, graph, labels: np.ndarray, aff: np.ndarray):

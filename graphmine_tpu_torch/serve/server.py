@@ -117,7 +117,6 @@ from graphmine_tpu_torch.serve.admission import (
     coalesce_deltas,
 )
 from graphmine_tpu_torch.serve.delta import (
-    _SHARDED,
     DeltaIngestor,
     EdgeDelta,
     RepairDebt,
@@ -293,7 +292,11 @@ class _TenantState:
 class SnapshotServer:
     """Query server + delta ingest endpoint over one snapshot store, on
     ``device`` (CUDA unless the caller names another device): the query
-    engines' gather tables and every delta repair live there."""
+    engines' gather tables and every delta repair live there.
+    ``num_shards`` > 1 repairs deltas on a mesh of that many shards on
+    ``device``; one device holds several only on a virtual mesh
+    (``GRAPHMINE_VIRTUAL_DEVICES``), and the mesh is checked here, before
+    the server starts."""
 
     def __init__(
         self,
@@ -315,10 +318,13 @@ class SnapshotServer:
         writer_shards: int | None = None,
         device=None,
     ):
-        if int(num_shards) > 1:
-            # the sharded repair, not the sharded write plane
-            raise NotImplementedError(_SHARDED)
         self.device = resolve_device(device)
+        if int(num_shards) > 1:
+            # the sharded repair's mesh (not the sharded write plane):
+            # refused here when the device cannot hold that many shards
+            from graphmine_tpu_torch.parallel.mesh import device_mesh
+
+            device_mesh(int(num_shards), self.device)
         self.store = store
         self.sink = sink
         self.prom_out = prom_out

@@ -19,7 +19,8 @@ force many bins and one oversized hub bin.
   values), ``run_pipeline`` with ``GRAPHMINE_SUPERSTEP_FAMILY=blocked``
   and its ``single_bucketed`` rung under an injected OOM.
 
-The sharded cases wait for ROADMAP item A7.
+The sharded cases are in ``tests/test_torch_sharded_blocked.py`` and
+``tests/test_torch_sharded2d.py``.
 """
 
 import functools
@@ -351,7 +352,7 @@ def test_policy_picks_the_jax_family_under_the_same_walls(walls, monkeypatch):
     thr, jthr = tb.crossover_thresholds(), jb.crossover_thresholds()
     assert {k: thr[k] for k in thr if k in jthr} == {k: jthr[k] for k in thr if k in jthr}
     assert {"bucketed_min_messages", "blocked_min_messages", "blocked_min_vertices",
-            "blocked_tile_slots"} == set(thr)
+            "blocked_tile_slots", "sharded2d_min_messages", "sharded2d_min_devices"} == set(thr)
 
 
 def test_policy_env_family_and_requested_validation(monkeypatch):
@@ -373,15 +374,21 @@ def test_policy_env_family_and_requested_validation(monkeypatch):
 
 
 def test_sharded_2d_and_more_devices_raise_a_plan_error_naming_a7(monkeypatch):
-    with pytest.raises(planner.PlanError, match="A7"):
-        tb.select_superstep_family(1 << 22, 1 << 23, requested="sharded_2d")
-    with pytest.raises(planner.PlanError, match="A7"):
-        tb.select_superstep_family(1 << 22, 1 << 23, num_devices=2)
+    """``sharded_2d`` and more devices are ported (ROADMAP A7b): a request
+    for the 2-D family on one device is refused as in the JAX package,
+    two devices resolve it as there, the environment's ``sharded_2d`` does
+    not apply on one device, and the ladder is the JAX planner's."""
+    monkeypatch.delenv("GRAPHMINE_SUPERSTEP_FAMILY", raising=False)
+    for mod in (tb, jb):
+        with pytest.raises(ValueError, match="2-device mesh"):
+            mod.select_superstep_family(1 << 22, 1 << 23, requested="sharded_2d")
+    assert tb.select_superstep_family(1 << 22, 1 << 23, num_devices=2)[0] == \
+        jb.select_superstep_family(1 << 22, 1 << 23, num_devices=2)[0] == "sharded_2d"
     monkeypatch.setenv("GRAPHMINE_SUPERSTEP_FAMILY", "sharded_2d")
-    with pytest.raises(planner.PlanError, match="A7"):
-        planner.plan_superstep(4096, 1 << 20)
-    with pytest.raises(planner.PlanError, match="A7"):
-        planner.degradation_ladder("single", 1, family="sharded_2d")
+    assert planner.plan_superstep(4096, 1 << 20).family == \
+        jplanner.plan_superstep(4096, 1 << 20).family == "bucketed"
+    assert planner.degradation_ladder("single", 1, family="sharded_2d") == \
+        jplanner.degradation_ladder("single", 1, family="sharded_2d")
 
 
 def test_planner_ladder_and_predegrade_walk_as_the_jax_planner():

@@ -3,7 +3,8 @@ centrality against the JAX package (CPU).
 
 Betweenness sums path counts and dependencies in float32 in message
 order on both sides, and closeness sums integer distances: both are
-bit-equal. The power iterations agree within rtol 1e-5 / atol 1e-7
+bit-equal (betweenness over a mesh within rtol 1e-5 / atol 1e-7, its
+shards' partial sums meeting in another order). The power iterations agree within rtol 1e-5 / atol 1e-7
 (full reductions in another order), compared at a fixed iteration count
 (``tol=0``) and at the defaults on graphs whose delta does not land near
 ``tol``.
@@ -88,10 +89,23 @@ def test_betweenness_bit_equal(name, kw):
     assert got.dtype == np.float32 and np.array_equal(got, want)
 
 
-def test_betweenness_over_a_mesh_names_a7():
-    _, g = _random(2, v=20, e=40)
-    with pytest.raises(NotImplementedError, match=r"A7b \(multi-device\)"):
-        tc.betweenness_centrality(g, mesh=object())
+@pytest.mark.parametrize("kw", [{}, {"sources": [0, 3, 5, 8, 11], "source_batch": 2}],
+                         ids=["exact", "sampled"])
+@pytest.mark.parametrize("d", [2, 4])
+def test_betweenness_over_a_mesh_names_a7(monkeypatch, d, kw):
+    """The source-sharded run (ROADMAP A7b): tiles split over a ``[cpu] * D``
+    mesh, padded lanes masked, partial sums meeting in one ``psum``: within
+    rtol 1e-5 / atol 1e-7 of the JAX package's mesh run and of the
+    single-device result."""
+    from graphmine_tpu.parallel.mesh import make_mesh as jmake_mesh
+
+    from graphmine_tpu_torch.parallel.mesh import make_mesh
+
+    monkeypatch.setenv("GRAPHMINE_VIRTUAL_DEVICES", str(d))
+    jg, g = _random(2, v=60, e=150, symmetric=False)
+    got = tc.betweenness_centrality(g, mesh=make_mesh(d, devices=["cpu"] * d), **kw)
+    _close(jc.betweenness_centrality(jg, mesh=jmake_mesh(d), **kw), got)
+    _close(tc.betweenness_centrality(g, **kw), got)
 
 
 @pytest.mark.parametrize("kw", [{}, {"wf_improved": False}, {"vertices": [0, 4, 8, 2]}],

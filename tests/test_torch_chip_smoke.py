@@ -293,8 +293,8 @@ def test_serving_phase_checks_and_line_on_a_cpu_run(tmp_path):
     line = chip_smoke.serve_full(full_store, device="cpu", query_reps=3, vertex_gets=8)
     json.dumps(line)
     assert line["vertices"] == 1024 and line["store_bytes"] > 0
-    assert [d["delta"] for d in line["deltas"]] == ["lof_bootstrap", "0.0005_of_E", "0.002_of_E"]
-    assert [d["version"] for d in line["deltas"]] == [2, 3, 4]
+    assert [d["delta"] for d in line["deltas"]] == ["lof_bootstrap", "0.0005_of_E"]
+    assert [d["version"] for d in line["deltas"]] == [2, 3]
     for d in line["deltas"]:
         assert d["verdict"] == "accept" and d["repair_method"] in ("warm", "full_recompute")
         assert d["apply_seconds"] >= d["delta_apply_seconds"] > 0
@@ -848,3 +848,100 @@ def test_superstep_points_agree_on_the_cpu(monkeypatch, one_thread):
         assert torch.equal(p["labels"], ref) and p["ms"] > 0
         assert p["predicted_bytes"] == p["predicted_bytes_per_shard"] * p["devices"]
     assert [p["family"] for p in points] == ["bucketed", "bucketed", "sort", "sort"]
+
+
+# ---- phase 12: the serving plane's sharded repair on a virtual mesh --------
+
+
+def test_parses_serve_mesh_only():
+    assert chip_smoke.parse_args(["--serve-mesh-only"]).serve_mesh_only
+    assert not chip_smoke.parse_args([]).serve_mesh_only
+    with pytest.raises(SystemExit):
+        chip_smoke.parse_args(["--serve-mesh-only", "--mesh-only"])
+
+
+def test_serve_mesh_only_exits_nonzero_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the smoke would run")
+    out = subprocess.run([sys.executable, "chip_smoke.py", "--serve-mesh-only"], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and "CUDA is not available" in out.stderr
+
+
+def test_serve_mesh_lines_and_launches():
+    for keys, what in ((chip_smoke.SERVE_MESH_KEYS, "serve_mesh"),
+                       (chip_smoke.SERVE_MESH_SMALL_KEYS, "serve_mesh_small")):
+        line = {k: 0 for k in keys}
+        assert chip_smoke.check_keys(line, keys, what) is line
+        del line[keys[-1]]
+        with pytest.raises(RuntimeError, match=keys[-1]):
+            chip_smoke.check_keys(line, keys, what)
+    entries = [{"instance": "fast", "launches": 1}, {"instance": "wide", "launches": 0}]
+    out = chip_smoke.with_serve_mesh_launches(entries, {"knn_topk_fast": 8,
+                                                        "knn_topk_wide": 0})
+    assert [e["serve_mesh_launches"] for e in out] == [8, 0]
+    assert "serve_mesh_launches" not in entries[0]
+
+
+def test_small_deltas_skip_ids_are_7a_draw():
+    """With ``skip_ids=257`` the deltas are 7a's own: the 257 read ids are
+    drawn first from the same generator."""
+    snap = {"labels": np.zeros(50), "src": np.arange(40), "dst": np.arange(40)[::-1]}
+    rng = np.random.default_rng(5)
+    rng.integers(0, 50, 257)
+    pick = rng.integers(0, 40, 24)
+    got = chip_smoke.small_deltas(snap, seed=5, skip_ids=257)
+    assert got[1]["delete"] == [[int(i), int(39 - i)] for i in pick[:12]]
+    assert got != chip_smoke.small_deltas(snap, seed=5)
+
+
+def test_serve_mesh_phase_on_the_cpu(tmp_path, monkeypatch, one_thread):
+    """Phase 12 with the CPU in the card's place, on a 512-vertex planted
+    store standing for both phase 4's and phase 5's: every gate holds, the
+    child process's included; the CPU side's check refuses a publish or an
+    apply that differs."""
+    import copy
+
+    from graphmine_tpu_torch import datasets
+    from graphmine_tpu_torch.graph.container import build_graph
+    from graphmine_tpu_torch.ops.lpa import label_propagation
+    from graphmine_tpu_torch.pipeline import PipelineConfig, run_pipeline
+
+    src, dst, _, _ = datasets.planted_anomaly_graph(512, 5000, seed=9)
+    edges = tmp_path / "small.txt"
+    chip_smoke.write_edge_list(edges, src, dst)
+    run_pipeline(PipelineConfig(data_path=str(edges), data_format="edgelist",
+                                lof_impl="exact", lof_k=16, device="cpu",
+                                snapshot_out=str(tmp_path / "store_cuda")))
+    shutil.copytree(tmp_path / "store_cuda", tmp_path / "store")
+    ref = chip_smoke.store_arrays(tmp_path / "store")
+    g = build_graph(ref["src"], ref["dst"], num_vertices=len(ref["labels"]), device="cpu")
+    ref["labels"] = label_propagation(g, max_iter=5).numpy()
+    for name in ("serve_mesh_small", "serve_mesh_full", "serve_mesh_repair"):
+        fn = getattr(chip_smoke, name)
+        monkeypatch.setattr(chip_smoke, name, lambda *a, _fn=fn: _fn(*a, "cpu"))
+    assert chip_smoke.run_serve_mesh(tmp_path, {"store_arrays": ref})["knn_topk"] == 0
+
+    # the CPU side's outputs, held against themselves, then against changes
+    class Done:
+        def wait(self, timeout):
+            return 0
+
+    out = tmp_path / "s12a_cpu"
+    runs = {}
+    for fam in chip_smoke.SERVE_MESH_FAMILY_ENV:
+        rec = json.loads((out / f"{fam}.json").read_text())
+        runs[fam] = {"applies": rec["applies"], "exchange": rec["exchange"],
+                     "snaps": [dict(np.load(out / f"{fam}.npz"))]}
+    job = (Done(), out, tmp_path / "s12a_cpu.log")
+    got = chip_smoke.check_cpu_chains(job, runs)
+    assert set(got["seconds"]) == {"one", *runs} and len(got["one_shard"]) == 3
+    bad = copy.deepcopy(runs)
+    bad["sort"]["snaps"][0]["labels"][0] += 1
+    with pytest.raises(RuntimeError, match="sort: labels"):
+        chip_smoke.check_cpu_chains(job, bad)
+    bad = copy.deepcopy(runs)
+    bad["sharded_2d"]["applies"][0]["iterations"] += 1
+    with pytest.raises(RuntimeError, match="sharded_2d"):
+        chip_smoke.check_cpu_chains(job, bad)

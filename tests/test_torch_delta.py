@@ -413,11 +413,171 @@ def test_repair_debt_ledger_matches():
     assert sa == sb and a.applies_total == b.applies_total == 2
 
 
-def test_sharded_repair_is_roadmap_a7(tmp_path):
+def test_sharded_repair_is_roadmap_a7(tmp_path, monkeypatch):
+    """The sharded repair (ROADMAP A7b) runs: one device holds several
+    shards only on a virtual mesh, and without one the ingestor says which
+    variable makes it; with one, the sharded cold recompute equals the JAX
+    package's and the single-device one."""
     src, dst, v = _community_graph()
     _, store = _publish(tmp_path, src, dst, v)
-    with pytest.raises(NotImplementedError, match="A7"):
+    monkeypatch.delenv("GRAPHMINE_VIRTUAL_DEVICES", raising=False)
+    with pytest.raises(ValueError, match="GRAPHMINE_VIRTUAL_DEVICES=2"):
         pd.DeltaIngestor(store, num_shards=2, device="cpu")
-    _, g = _both(src, dst, v)
-    with pytest.raises(NotImplementedError, match="A7"):
-        pd.cold_recompute(g, shards=object())
+    monkeypatch.setenv("GRAPHMINE_VIRTUAL_DEVICES", "2")
+    ing = pd.DeltaIngestor(store, num_shards=2, device="cpu")
+    assert ing.mesh.virtual and ing.mesh.size == 2 and ing.last_shard_family is None
+    jg, g = _both(src, dst, v)
+    got = pd.cold_recompute(g, shards=_shards(g, 2))
+    want = jd.cold_recompute(jg, shards=_jshards(jg, 2))
+    for a, b, c in zip(got, want, pd.cold_recompute(g)):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+
+
+# ---- the sharded repair (num_shards > 1) -------------------------------------
+
+
+def _shards(g, d, plan2d=False):
+    from graphmine_tpu_torch.parallel.mesh import make_mesh
+    from graphmine_tpu_torch.parallel.sharded import partition_graph, shard_graph_arrays
+
+    m = make_mesh(d, devices=["cpu"] * d)
+    return shard_graph_arrays(partition_graph(g, mesh=m, build_plan2d=plan2d), m), m
+
+
+def _jshards(jg, d, plan2d=False):
+    from graphmine_tpu.parallel.mesh import make_mesh as jmake_mesh
+    from graphmine_tpu.parallel.sharded import partition_graph, shard_graph_arrays
+
+    m = jmake_mesh(d)
+    return shard_graph_arrays(partition_graph(jg, mesh=m, build_plan2d=plan2d), m), m
+
+
+FAMILY_ENV = {"sort": str(1 << 62), "sharded_2d": "1"}
+
+
+@pytest.fixture
+def virtual4(monkeypatch):
+    """A 4-shard virtual CPU mesh for the port, one intra-op thread."""
+    import torch
+
+    monkeypatch.setenv("GRAPHMINE_VIRTUAL_DEVICES", "4")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("family", ["sort", "sharded_2d"])
+def test_sharded_ingestor_chain_bit_equal_to_jax(tmp_path, monkeypatch, virtual4, family):
+    """Two deltas through ``num_shards=4`` ingestors of both packages, the
+    family forced by the 2-D crossover's variable: labels, CC labels,
+    methods, iterations, versions, ``last_shard_family``, the
+    ``shard_exchange`` records and ``mesh_shape`` equal; the labels equal
+    the port's single-shard ingestor's (warm repairs on the cliques) and
+    a cold recompute's."""
+    monkeypatch.setenv("GRAPHMINE_SHARDED2D_MIN_MESSAGES", FAMILY_ENV[family])
+    src, dst, v = _community_graph(extra=[(0, 12)])
+    jstore, store = _publish(tmp_path, src, dst, v)
+    _publish(tmp_path / "one", src, dst, v, pkg="port")
+    js, ps = JMetricsSink(), MetricsSink()
+    jing = jd.DeltaIngestor(jstore, sink=js, lof_k=4, check_samples=16, num_shards=4,
+                            quality=False)
+    ing = pd.DeltaIngestor(store, sink=ps, lof_k=4, check_samples=16, num_shards=4,
+                           quality=False, device="cpu")
+    one = pd.DeltaIngestor(SnapshotStore(str(tmp_path / "one" / "p")), lof_k=4,
+                           check_samples=16, quality=False, device="cpu")
+    for ins, dele in (([(40, 12), (40, 13), (40, 14)], [(0, 1)]), ([(41, 26)], [(12, 13)])):
+        a = jing.apply(jd.EdgeDelta.from_pairs(ins, dele))
+        b = ing.apply(pd.EdgeDelta.from_pairs(ins, dele))
+        c = one.apply(pd.EdgeDelta.from_pairs(ins, dele))
+        ra, rb = js.of_phase("delta_apply")[-1], ps.of_phase("delta_apply")[-1]
+        for key in ("method", "iterations", "budget", "version", "num_vertices", "num_edges"):
+            assert rb[key] == ra[key], key
+        assert rb["method"] == "warm" and ing.last_shard_family == jing.last_shard_family == family
+        for name in ("labels", "cc_labels", "src", "dst"):
+            np.testing.assert_array_equal(b[name], a[name])
+            np.testing.assert_array_equal(b[name], c[name])
+        assert b.meta["mesh_shape"] == a.meta["mesh_shape"] == [4]
+        keys = ("op", "family", "devices", "peers", "exchange_bytes", "frontier_bytes",
+                "ladder_bytes", "frontier_frac", "boundary_slots", "padded_boundary", "version")
+        ea, eb = js.of_phase("shard_exchange")[-1], ps.of_phase("shard_exchange")[-1]
+        assert {k: eb[k] for k in keys} == {k: ea[k] for k in keys} and eb["virtual"] is True
+    # the warm repairs landed on the cold recompute's labels
+    cold_l, cold_c, _ = pd.cold_recompute(build_graph(b["src"], b["dst"],
+                                                      num_vertices=len(b["labels"]),
+                                                      device="cpu"))
+    np.testing.assert_array_equal(b["labels"], cold_l)
+    np.testing.assert_array_equal(b["cc_labels"], cold_c)
+    assert validate_records(ps.records) == []
+
+
+def test_sharded_fallback_and_predegrade_match_jax(tmp_path, monkeypatch, virtual4):
+    """Injected corruption falls back through the sharded entries (the
+    sampled check and the cold recompute on the mesh); a tiny memory
+    budget pre-degrades the 2-D pick to the plain partition with a
+    ``degrade`` record carrying the 2-D estimate; both as in JAX."""
+    monkeypatch.setenv("GRAPHMINE_SHARDED2D_MIN_MESSAGES", "1")
+    monkeypatch.setenv("GRAPHMINE_HBM_BYTES", "512")
+    src, dst, v = _community_graph()
+    jstore, store = _publish(tmp_path, src, dst, v)
+    js, ps = JMetricsSink(), MetricsSink()
+    jing = jd.DeltaIngestor(jstore, sink=js, lof_k=4, check_samples=16, num_shards=4,
+                            quality=False)
+    ing = pd.DeltaIngestor(store, sink=ps, lof_k=4, check_samples=16, num_shards=4,
+                           quality=False, device="cpu")
+    jinj = jfaults.FaultInjector().add("delta_repair", jfaults.poison_labels(0, 1))
+    inj = faults.FaultInjector().add("delta_repair", faults.poison_labels(0, 1))
+    with jinj.installed():
+        a = jing.apply(jd.EdgeDelta.from_pairs(insert=[(40, 12), (40, 13)]))
+    with inj.installed():
+        b = ing.apply(pd.EdgeDelta.from_pairs(insert=[(40, 12), (40, 13)]))
+    (jfb,), (pfb,) = js.of_phase("repair_fallback"), ps.of_phase("repair_fallback")
+    assert pfb["reason"] == jfb["reason"] and "sampled exact check failed" in pfb["reason"]
+    assert ps.of_phase("delta_apply")[-1]["method"] == "full_recompute"
+    assert ps.of_phase("delta_apply")[-1]["iterations"] == \
+        js.of_phase("delta_apply")[-1]["iterations"]
+    for name in ("labels", "cc_labels"):
+        np.testing.assert_array_equal(b[name], a[name])
+    assert ing.last_shard_family == jing.last_shard_family == "sort"
+    (jdeg,), (pdeg,) = js.of_phase("degrade"), ps.of_phase("degrade")
+    for key in ("stage", "to", "depth", "kind"):
+        assert pdeg[key] == jdeg[key], key
+    assert pdeg["mem"]["family"] == "sharded_2d" and pdeg["mem"]["devices"] == 4
+    assert {"exchange_send_tab", "exchange_recv_bufs"} <= set(pdeg["mem"]["inventory"])
+    assert ps.of_phase("shard_exchange")[-1]["family"] == "sort"
+    assert validate_records(ps.records) == []
+
+
+@pytest.mark.parametrize("kind", ["lpa", "cc"])
+def test_sampled_exact_check_sharded_matches(kind, virtual4):
+    src, dst, v = _community_graph()
+    jg, g = _both(src, dst, v)
+    labels, cc, _ = pd.cold_recompute(g)
+    lbl = labels if kind == "lpa" else cc
+    bad = lbl.copy()
+    bad[[3, 20]] = bad[[20, 3]]
+    shards, jshards = _shards(g, 4, plan2d=True), _jshards(jg, 4, plan2d=True)
+    for case in (lbl, bad, np.full(v, -7, np.int32)):
+        got = pd.sampled_exact_check(g, case, np.arange(v), kind, shards=shards)
+        assert got == jd.sampled_exact_check(jg, case, np.arange(v), kind, shards=jshards)
+        assert got == pd.sampled_exact_check(g, case, np.arange(v), kind)
+
+
+@pytest.mark.parametrize("plan2d", [False, True], ids=["sort", "sharded_2d"])
+def test_cold_recompute_livelock_parity(plan2d, virtual4):
+    """A bipartite star livelocks synchronous LPA: the sharded cold
+    recompute's probe finds the 2-cycle and its replay stops where the
+    single-device oracle stops, with the JAX package's labels and count."""
+    src = np.zeros(8, np.int32)
+    dst = np.arange(1, 9, dtype=np.int32)
+    jg, g = _both(src, dst, 9)
+    got = pd.cold_recompute(g, shards=_shards(g, 4, plan2d))
+    want = jd.cold_recompute(jg, shards=_jshards(jg, 4, plan2d))
+    single = pd.cold_recompute(g)
+    for a, b, c in zip(got[:2], want[:2], single[:2]):
+        np.testing.assert_array_equal(a, np.asarray(b))
+        np.testing.assert_array_equal(a, c)
+    assert got[2] == want[2] == single[2]
+    assert pd._warm_lpa_sharded(_shards(g, 4, plan2d), np.arange(9, dtype=np.int32), 40)[1:] \
+        == (single[2], False)

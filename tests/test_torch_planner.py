@@ -2,8 +2,8 @@
 
 ``plan_lof`` and ``plan_superstep`` decide as the JAX package's on a grid
 below the blocked crossover; ``predegrade_superstep`` walks the same
-families under a small and a large budget; the families and schedules the
-port does not run raise ``PlanError``; the memory model's exact counts are
+families under a small and a large budget; ``sharded_2d`` needs a mesh as in
+the JAX planner; the memory model's exact counts are
 the bytes of the tensors the port builds; and no roofline anchor is a TPU
 number.
 """
@@ -55,18 +55,26 @@ def test_plan_superstep_decides_as_the_jax_planner(requested, monkeypatch):
 
 
 def test_unported_families_and_schedules_raise_plan_errors(monkeypatch):
-    """``sharded_2d`` raises naming A7b; the multi-device schedules plan as
-    the JAX planner's do; the blocked family resolves, requested or by the
+    """Every family and schedule is ported (``sharded_2d`` since ROADMAP
+    A7b): a ``sharded_2d`` request needs a mesh, as in the JAX planner, and
+    resolves on one with the JAX rung; the environment's ``sharded_2d``
+    does not apply on one device; the multi-device schedules plan as the
+    JAX planner's do; the blocked family resolves, requested or by the
     environment, with the JAX planner's rung and ladder."""
     monkeypatch.delenv("GRAPHMINE_SUPERSTEP_FAMILY", raising=False)
-    with pytest.raises(planner.PlanError, match="A7"):
-        planner.plan_superstep(1 << 22, 1 << 23, requested="sharded_2d")
+    for mod in (planner, jplanner):
+        with pytest.raises(ValueError, match="2-device mesh"):
+            mod.plan_superstep(1 << 22, 1 << 23, requested="sharded_2d")
+    got = planner.plan_superstep(1 << 22, 1 << 23, requested="sharded_2d", num_devices=4)
+    want = jplanner.plan_superstep(1 << 22, 1 << 23, requested="sharded_2d", num_devices=4)
+    assert (got.family, got.degrade_to) == (want.family, want.degrade_to) == (
+        "sharded_2d", "blocked")
     monkeypatch.setenv("GRAPHMINE_SUPERSTEP_FAMILY", "sharded_2d")
-    with pytest.raises(planner.PlanError, match="A7"):
-        planner.plan_superstep(4096, 1 << 20)
+    assert planner.plan_superstep(4096, 1 << 20).family == \
+        jplanner.plan_superstep(4096, 1 << 20).family == "bucketed"
     monkeypatch.delenv("GRAPHMINE_SUPERSTEP_FAMILY")
-    with pytest.raises(planner.PlanError, match="A7"):
-        planner.degradation_ladder("single", 1, family="sharded_2d")
+    assert planner.degradation_ladder("single", 1, family="sharded_2d") == \
+        jplanner.degradation_ladder("single", 1, family="sharded_2d")
     got = planner.plan_superstep(1 << 22, 1 << 23, requested="blocked")
     want = jplanner.plan_superstep(1 << 22, 1 << 23, requested="blocked")
     assert (got.family, got.degrade_to) == (want.family, want.degrade_to) == (
@@ -85,7 +93,8 @@ def test_unported_families_and_schedules_raise_plan_errors(monkeypatch):
         assert planner.plan_run(1000, 5000, 4, requested=sched).schedule == sched
     assert planner.plan_run(1000, 5000, 4).schedule == \
         jplanner.plan_run(1000, 5000, 4).schedule == "replicated"
-    with pytest.raises(planner.PlanError, match="A7b"):
+    # a superstep family, not a schedule
+    with pytest.raises(ValueError, match="unknown schedule 'sharded_2d'"):
         planner.plan_run(1000, 5000, 4, requested="sharded_2d")
     # past the port's blocked walls "auto" takes the blocked family
     thr = planner.crossover_thresholds()

@@ -28,6 +28,7 @@ import pytest
 
 from graphmine_tpu.graph.container import build_graph as jbuild_graph
 from graphmine_tpu.obs import alerts as jalerts
+from graphmine_tpu.pipeline.metrics import MetricsSink as JMetricsSink
 from graphmine_tpu.serve import admission as jadm
 from graphmine_tpu.serve import tenancy as jten
 from graphmine_tpu.serve.delta import EdgeDelta as JEdgeDelta
@@ -405,8 +406,9 @@ def test_later_batch_raises_naming_the_roadmap(tmp_path, monkeypatch, kw, env):
     """The durable write path, standbys and the sharded write plane have
     landed: the constructor answers these arguments as the JAX server's
     does (a standby without its own log is a ValueError in both, the rest
-    construct) and never with NotImplementedError; only the sharded repair
-    (``num_shards > 1``) still raises, naming its ROADMAP item."""
+    construct) and never with NotImplementedError; the sharded repair
+    (``num_shards > 1``) runs, and on one device without a virtual mesh its
+    error names the variable that makes one."""
     _base(tmp_path)
     shutil.copytree(tmp_path / "base", tmp_path / "j")
     for k, v in env.items():
@@ -424,8 +426,44 @@ def test_later_batch_raises_naming_the_roadmap(tmp_path, monkeypatch, kw, env):
                          srv.standby_of, srv.healthz().get("writer_shards")))
             srv.stop()
     assert outs[0] == outs[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP item A7"):
+    monkeypatch.delenv("GRAPHMINE_VIRTUAL_DEVICES", raising=False)
+    with pytest.raises(ValueError, match="GRAPHMINE_VIRTUAL_DEVICES=2"):
         SnapshotServer(SnapshotStore(str(tmp_path / "base")), device="cpu", num_shards=2)
+
+
+def test_sharded_repair_server_answers_as_the_jax_server(tmp_path, monkeypatch):
+    """``num_shards=2``: a delta over HTTP repairs on the two-shard mesh of
+    both servers with the same answer, publish, repair record and
+    ``shard_exchange`` family."""
+    monkeypatch.setenv("GRAPHMINE_VIRTUAL_DEVICES", "2")
+    _base(tmp_path)
+    shutil.copytree(tmp_path / "base", tmp_path / "j")
+    sink, jsink = MetricsSink(), JMetricsSink()
+    servers = (JSnapshotServer(JSnapshotStore(str(tmp_path / "j")), sink=jsink, num_shards=2),
+               SnapshotServer(SnapshotStore(str(tmp_path / "base")), sink=sink, num_shards=2,
+                              device="cpu"))
+    ports = [srv.start()[1] for srv in servers]
+    try:
+        body = {"insert": [[1, 2], [V, 3]], "delete": [[int(x) for x in _base_edge(tmp_path)]]}
+        a, b = (_req(port, "POST", "/delta", body) for port in ports)
+        assert b[0] == a[0] == 200 and _results(b[2]) == _results(a[2])
+        snaps = [srv.engine.snapshot for srv in servers]
+        for name in ("labels", "cc_labels", "src", "dst"):
+            np.testing.assert_array_equal(snaps[1][name], snaps[0][name])
+        ra, rb = jsink.of_phase("delta_apply")[-1], sink.of_phase("delta_apply")[-1]
+        for key in ("method", "iterations", "budget", "version"):
+            assert rb[key] == ra[key], key
+        ea, eb = jsink.of_phase("shard_exchange")[-1], sink.of_phase("shard_exchange")[-1]
+        assert (eb["family"], eb["devices"]) == (ea["family"], ea["devices"])
+        assert snaps[1].meta["mesh_shape"] == [2]
+    finally:
+        for srv in servers:
+            srv.stop()
+
+
+def _base_edge(root):
+    snap = SnapshotStore(str(root / "base")).load()
+    return snap["src"][0], snap["dst"][0]
 
 
 def test_wal_ack_and_promote_answer_as_without_a_log(pair):

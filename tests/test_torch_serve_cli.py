@@ -140,14 +140,29 @@ def test_delta_on_the_store_prints_what_the_jax_cli_prints(tmp_path, capsys, del
         assert np.array_equal(a[k], b[k])
 
 
-def test_num_shards_above_one_keeps_the_sharded_repair_refusal(tmp_path):
+def test_num_shards_above_one_keeps_the_sharded_repair_refusal(tmp_path, capsys, monkeypatch):
+    """``--num-shards 2`` repairs on two shards: on one device without a
+    virtual mesh both subcommands refuse, naming the variable that makes
+    one; with it, ``delta`` prints what the JAX CLI's sharded ``delta``
+    prints and publishes the same labels."""
     _publish(tmp_path / "snap")
-    for argv in (["delta", "--store", str(tmp_path / "snap"), "--device", "cpu",
-                  "--num-shards", "2", "--insert", "0,13"],
+    shutil.copytree(tmp_path / "snap", tmp_path / "j")
+    monkeypatch.delenv("GRAPHMINE_VIRTUAL_DEVICES", raising=False)
+    delta = ["--num-shards", "2", "--insert", "0,13", "--delete", "0,1"]
+    for argv in (["delta", "--store", str(tmp_path / "snap"), "--device", "cpu"] + delta,
                  ["serve", "--store", str(tmp_path / "snap"), "--device", "cpu",
                   "--num-shards", "2", "--port", "0"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP item A7"):
+        with pytest.raises(ValueError, match="GRAPHMINE_VIRTUAL_DEVICES=2"):
             cli.main(argv)
+    monkeypatch.setenv("GRAPHMINE_VIRTUAL_DEVICES", "2")
+    got = _run(cli.main, ["delta", "--store", str(tmp_path / "snap"), "--device", "cpu"] + delta,
+               capsys)
+    want = _run(jcli.main, ["delta", "--store", str(tmp_path / "j")] + delta, capsys)
+    assert _clean(got) == _clean(want) and got[1]["version"] == 2
+    a, b = SnapshotStore(str(tmp_path / "snap")).load(), JSnapshotStore(str(tmp_path / "j")).load()
+    for k in ("labels", "cc_labels"):
+        assert np.array_equal(a[k], b[k])
+    assert a.meta["mesh_shape"] == b.meta["mesh_shape"] == [2]
 
 
 def test_store_or_url_is_required_alike(capsys):

@@ -268,16 +268,32 @@ def test_tripwires_match_jax():
             jout_weights(jgw), max_iter=20, tripwire_every=2))
 
 
-def test_unported_partitions_and_mesh_errors():
+@pytest.mark.parametrize("d", [2, 4])
+def test_unported_partitions_and_mesh_errors(d):
+    """What waited for ROADMAP A7b runs: the source-sharded PPR (within
+    rtol 1e-5 of JAX's sharded run and of the single-device batch, empty
+    sources included) and the blocked and 2-D partitions; the mesh
+    errors stay."""
+    from graphmine_tpu.parallel.ppr import sharded_personalized_pagerank as jppr
+
+    from graphmine_tpu_torch.ops.pagerank import parallel_personalized_pagerank
     from graphmine_tpu_torch.parallel import sharded_personalized_pagerank
 
-    with pytest.raises(NotImplementedError, match="A7b"):
-        sharded_personalized_pagerank(None, None, [0])
     src, dst, _ = _edges(1, 50, 200)
-    tg = tbuild(src, dst, num_vertices=50, device="cpu")
+    jg, tg = _pair(src, dst, 50, symmetric=False)
+    jm, tm = meshes(d)
+    sources = [0, 3, 3, 17, 49]
+    got = sharded_personalized_pagerank(tg, sources, tm)
+    assert got.shape == (50, 5) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(jppr(jg, sources, jm)), rtol=1e-5,
+                               atol=1e-7)
+    assert torch.equal(got, parallel_personalized_pagerank(tg, sources))
+    assert sharded_personalized_pagerank(tg, [], tm).shape == (50, 0)
+    with pytest.raises(ValueError, match="out of range"):
+        sharded_personalized_pagerank(tg, [50], tm)
     for kw in ({"build_blocked_plan": True}, {"build_plan2d": True}):
-        with pytest.raises(NotImplementedError, match="A7b"):
-            ts.partition_graph(tg, num_shards=2, **kw)
+        sg = ts.partition_graph(tg, num_shards=d, **kw)
+        assert sg.blk_row_idx and (sg.x2d_src_local is not None) == ("build_plan2d" in kw)
     with pytest.raises(ValueError, match="pass num_shards or mesh"):
         ts.partition_graph(tg)
     _, t4 = meshes(4)
