@@ -10,6 +10,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py --blocked-only   # phases 1-3, then phase 10
     python3 chip_smoke.py --mesh-only      # phases 1-3, then phase 11
     python3 chip_smoke.py --serve-mesh-only  # phases 1-3, then phase 12
+    python3 chip_smoke.py --dist-only      # phases 1-3, then phase 13
 
 In order, and failing on the first phase that fails:
 
@@ -282,12 +283,27 @@ In order, and failing on the first phase that fails:
    to its fixpoint equal to phase 5's, the median of 5 single LPA and CC
    supersteps after a warm-up, peak bytes beside the memory model's and
    the ``shard_exchange`` record's modeled bytes per superstep; prints the
-   ``serve_mesh`` line and the phase's seconds, then the ``kernels`` line
-   of phase 6, its
-   entries carrying phase 11c's launches (``mesh_launches``) and 12a's
-   (``serve_mesh_launches``). Every time on a virtual mesh is marked
-   ``virtual``;
-13. prints the smoke's total seconds, the card line again and the last
+   ``serve_mesh`` line and the phase's seconds. The ``kernels`` line of
+   phase 6 follows phase 13, its entries carrying phase 11c's launches
+   (``mesh_launches``) and 12a's (``serve_mesh_launches``; phase 13
+   launches no kernel: the ring kNN's hop is plain). Every time on a
+   virtual mesh is marked ``virtual``;
+13. the multi-process mesh (:func:`run_dist`): 13a runs the JAX
+   package's distributed example flow
+   (``graphmine_tpu_torch/parallel/distributed_flow.py``) on phase 11's
+   4,096-vertex graph in a 1-rank NCCL world and in 2- and 4-rank worlds
+   sharing the card (virtual, gloo), every rank's results equal to each
+   other's and to the in-process mesh of the same size on the card, and
+   that mesh's equal to the CPU's (a child process; PageRank and PPR
+   within L1 1e-5, LOF within phase 4's tolerance); on a host of several
+   cards a world (and an in-process mesh) takes a card a rank, over NCCL,
+   while the cards last; 13b runs phase 5's
+   graph on 2 ranks sharing the card: 5 LPA supersteps and CC equal to
+   phase 5's, the median of 5 single supersteps and of 5 all-gathers,
+   the partition's seconds and each rank's peak bytes. A world whose rank
+   fails or that times out is killed and fails the phase. Prints the
+   ``dist`` line and the phase's seconds, then the ``kernels`` line;
+14. prints the smoke's total seconds, the card line again and the last
    line, ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only`` skips the pipelines: after phase 3 it holds and times
@@ -305,6 +321,7 @@ port's package is not beside this file.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -379,6 +396,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     mode.add_argument("--serve-mesh-only", action="store_true",
                       help="phases 1-3, then phase 12 (the serving plane's sharded repair "
                            "on a virtual mesh)")
+    mode.add_argument("--dist-only", action="store_true",
+                      help="phases 1-3, then phase 13 (the multi-process mesh)")
     return ap.parse_args(argv)
 
 
@@ -823,7 +842,8 @@ def main(argv=None) -> int:
              else run_frames_only if args.frames_only
              else run_blocked_only if args.blocked_only
              else run_mesh_only if args.mesh_only
-             else run_serve_mesh_only if args.serve_mesh_only else run_main_path)(work)
+             else run_serve_mesh_only if args.serve_mesh_only
+             else run_dist_only if args.dist_only else run_main_path)(work)
         finally:
             shutil.rmtree(work, ignore_errors=True)
 
@@ -4774,6 +4794,336 @@ def with_serve_mesh_launches(entries: list, serve_mesh_launches: dict) -> list:
             for e in entries]
 
 
+# ---- 13. the multi-process mesh ------------------------------------------------
+
+# 13a's worlds, by ranks. A world with no more ranks than the host has
+# cards takes a card a rank, over NCCL; a larger one shares a card, a
+# virtual world over gloo (NCCL refuses two ranks on one card). On one
+# H100: one NCCL rank, then two and four virtual ranks.
+DIST_WORLDS = (1, 2, 4)
+DIST_FLOW = (4096, 60_000)  # 13a's graph: phase 11's (vertices, edges)
+DIST_SCALE_RANKS = 2      # 13b's virtual world on phase 5's graph
+DIST_REPS = 5
+DIST_KEYS = ("worlds", "scale", "seconds")
+DIST_SCALE_KEYS = ("ranks", "virtual", "backend", "num_vertices", "num_messages",
+                   "build_seconds", "partition_seconds", "lpa_ms", "exchange_ms",
+                   "cc_supersteps", "peak_bytes")
+
+
+def _cards(device) -> int:
+    """The distinct cards a world or mesh on ``device`` may take (0 on the
+    CPU)."""
+    import torch
+
+    return torch.cuda.device_count() if str(device).startswith("cuda") else 0
+
+
+def _world_kind(size: int, device) -> tuple:
+    """``(backend, virtual)`` of a ``size``-rank world on ``device``."""
+    if _cards(device) == 0:
+        return "gloo", False
+    return ("nccl", False) if size <= _cards(device) else ("gloo", True)
+
+
+def _dist_env(rank: int, size: int, port: int, shared: bool, **extra) -> dict:
+    """A rank's environment, as ``torchrun`` sets it on one host; ranks
+    that share a device ask for a virtual world."""
+    env = {**os.environ, "RANK": str(rank), "WORLD_SIZE": str(size), "LOCAL_RANK": str(rank),
+           "LOCAL_WORLD_SIZE": str(size), "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+           "OMP_NUM_THREADS": "1", **extra}
+    if shared:
+        env["GRAPHMINE_VIRTUAL_DEVICES"] = str(size)
+    else:
+        env.pop("GRAPHMINE_VIRTUAL_DEVICES", None)
+    return env
+
+
+def start_world(procs, cmd: list, size: int, out: Path, device: str = "cuda",
+                **extra) -> list:
+    """``size`` ranks of ``cmd`` (each in ``procs``, its log in ``out``),
+    meeting on a free port; a virtual world when they outnumber the cards."""
+    out.mkdir(parents=True, exist_ok=True)
+    (port,) = free_ports(1)
+    shared = size > max(1, _cards(device))
+    return [procs.spawn(cmd, out / f"rank{r}.log", env=_dist_env(r, size, port, shared, **extra))
+            for r in range(size)]
+
+
+def wait_worlds(jobs: dict, timeout: float | None = None) -> dict:
+    """Wait for every process of every job (``name -> (processes, log
+    directory)``; rank ``r``'s log is ``rank<r>.log`` there, a lone
+    process's ``<name>.log``) to exit 0, polling them all: a process that
+    fails, or a job past ``timeout``, kills every process and fails the
+    phase. ``timeout`` defaults to a minute past the worlds' own timeout.
+    Returns each job's seconds from this call to its last exit."""
+    if timeout is None:
+        from graphmine_tpu_torch.parallel.mesh import DEFAULT_TIMEOUT_S
+
+        timeout = DEFAULT_TIMEOUT_S + 60
+    t0 = time.perf_counter()
+    done = {}
+    while len(done) < len(jobs):
+        for name, (ranks, out) in jobs.items():
+            codes = [p.poll() for p in ranks]
+            bad = [(r, c) for r, c in enumerate(codes) if c not in (None, 0)]
+            late = time.perf_counter() - t0 > timeout
+            if bad or (late and name not in done):
+                for other, _ in jobs.values():
+                    for p in other:
+                        if p.poll() is None:
+                            p.kill()
+                r = bad[0][0] if bad else 0
+                logs = sorted(out.glob(f"rank{r}.log")) or sorted(out.glob(f"{name}.log"))
+                tail = logs[0].read_text()[-3000:] if logs else ""
+                require(False, f"{name}: " + (f"process {r} exited {bad[0][1]}" if bad else
+                                              f"timed out after {timeout:.0f} s") + f"\n{tail}")
+            if name not in done and all(c == 0 for c in codes):
+                done[name] = time.perf_counter() - t0
+        time.sleep(0.05)
+    return done
+
+
+def _rank_seconds(out: Path, size: int) -> dict:
+    """The slowest rank's join and flow seconds (``rank<r>.json``)."""
+    recs = [json.loads((out / f"rank{r}.json").read_text()) for r in range(size)]
+    return {k: max(rec[k] for rec in recs) for k in recs[0]}
+
+
+def flow_cmd(out: Path, device: str = "cuda") -> list:
+    """One rank of the port's distributed flow on phase 11's graph."""
+    return [sys.executable, "-m", "graphmine_tpu_torch.parallel.distributed_flow",
+            "--out", str(out), "--vertices", str(DIST_FLOW[0]), "--edges", str(DIST_FLOW[1]),
+            "--seed", str(SEED_MAIN), "--device", device]
+
+
+def flow_in_process(device, sizes, work: Path) -> dict:
+    """The same flow on in-process meshes of each size in ``sizes`` on
+    ``device`` (a card a shard while the cards last, else a virtual mesh):
+    ``{D: results}``."""
+    from graphmine_tpu_torch.device import visible_devices
+    from graphmine_tpu_torch.parallel import distributed_flow as flow
+    from graphmine_tpu_torch.parallel.mesh import make_mesh
+
+    src, dst, pts = flow.flow_inputs(*DIST_FLOW, SEED_MAIN)
+    out = {}
+    for d in sizes:
+        with _virtual_devices(d) if d > max(1, _cards(device)) else contextlib.nullcontext():
+            mesh = make_mesh(d, devices=visible_devices(device)[:d])
+            ck = work / f"ck_{str(device).replace(':', '_')}_{d}"
+            out[d] = flow.run_flow(mesh, src, dst, DIST_FLOW[0], pts, str(ck))
+    return out
+
+
+def _dist_same(got: dict, want: dict, what: str, keys=None) -> None:
+    for key in keys or sorted(set(want) - {"resumed"}):
+        require(key in got and np.array_equal(got[key], want[key]), f"{what}: {key} differs")
+
+
+def check_world(size: int, backend: str, virtual: bool, out: Path, card: dict,
+                cpu: dict) -> dict:
+    """One 13a world: every rank's results equal (``resumed`` on the ranks
+    of the smaller mesh only), the backend and ``virtual`` as asked, and
+    equal to the in-process mesh of the same size on the card; the card's
+    in-process results equal the CPU's (labels, CC, kNN indices), with
+    PageRank and PPR within L1 1e-5, kNN distances within rtol 1e-5 and
+    LOF within phase 4's tolerance."""
+    what = f"13a {size}-rank world"
+    res = [dict(np.load(out / f"rank{r}.npz")) for r in range(size)]
+    for r, got in enumerate(res):
+        require(str(got["backend"]) == backend and bool(got["virtual"]) == virtual,
+                f"{what}: rank {r} ran {got['backend']}, virtual {got['virtual']}")
+        _dist_same(got, res[0], f"{what} rank {r} vs rank 0")
+        require(("resumed" in got) == (r < min(2, size)), f"{what}: rank {r}'s resume")
+        _dist_same(got, card, f"{what} rank {r} vs the in-process mesh on the card",
+                   sorted(set(card) - {"resumed"}) + (["resumed"] if "resumed" in got else []))
+    for key in ("lpa_sort", "lpa_bucketed", "lpa_blocked", "lpa_2d", "cc", "cc_2d",
+                "ring_lpa", "ring_cc", "knn_idx", "resumed", "restored"):
+        require(np.array_equal(card[key], cpu[key]), f"{what}: in-process {key} card != CPU")
+    for key in ("pagerank", "ring_pagerank", "ppr"):
+        l1 = float(np.abs(card[key] - cpu[key]).sum())
+        require(l1 <= 1e-5, f"{what}: {key} card vs CPU L1 {l1:.3g}")
+    np.testing.assert_allclose(card["knn_d2"], cpu["knn_d2"], rtol=1e-5, atol=0)
+    _lof_close(card["lof"], cpu["lof"], f"{what} in-process LOF card vs CPU")
+    return {"ranks": size, "backend": backend, "virtual": virtual,
+            "communities": int(len(np.unique(res[0]["lpa_bucketed"]))),
+            "cc_supersteps": int(res[0]["cc_iterations"])}
+
+
+def dist_scale_rank(edges: str, out: str, device: str = "cuda", reps: int = DIST_REPS) -> None:
+    """One rank of 13b: join the world, build phase 5's graph on the card
+    from ``edges/{src,dst}.npy``, partition it with the bucket plan (the
+    partition's seconds), then, once ``edges/go`` exists (13a done), 5 LPA
+    supersteps and CC to its fixpoint, the median of ``reps`` single LPA
+    supersteps after a warm-up and of ``reps`` label all-gathers alone
+    (each ending in a synchronise), and this process's peak bytes, written
+    to ``out/rank<r>.npz``."""
+    import torch.distributed as dist
+
+    from graphmine_tpu_torch.graph.container import build_graph
+    from graphmine_tpu_torch.parallel import sharded
+    from graphmine_tpu_torch.parallel.mesh import (
+        DEFAULT_TIMEOUT_S,
+        all_gather,
+        initialize_distributed,
+        make_mesh,
+        world,
+    )
+
+    initialize_distributed(device=device)
+    try:
+        import torch
+
+        edges, w = Path(edges), world()
+        dev = w.device
+        cuda = dev.type == "cuda"
+        src, dst = np.load(edges / "src.npy"), np.load(edges / "dst.npy")
+        v = int(np.load(edges / "num_vertices.npy"))
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        graph = build_graph(src, dst, num_vertices=v, device=dev)
+        _sync(dev)
+        build_s = time.perf_counter() - t0
+        del src, dst
+        mesh = make_mesh()
+        t0 = time.perf_counter()
+        sg = sharded.shard_graph_arrays(
+            sharded.partition_graph(graph, mesh=mesh, build_bucket_plan=True), mesh)
+        _sync(dev)
+        part_s = time.perf_counter() - t0
+        wait_for(lambda: (edges / "go").exists(), "13b's go", DEFAULT_TIMEOUT_S, every=0.02)
+        labels = sharded.sharded_label_propagation(sg, mesh, max_iter=5)
+        cc, tele = sharded.sharded_connected_components(sg, mesh, telemetry=True)
+
+        def timed(fn):
+            fn()
+            _sync(dev)
+            runs = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn()
+                _sync(dev)
+                runs.append(1e3 * (time.perf_counter() - t0))
+            return runs
+
+        lpa_ms = timed(lambda: sharded.sharded_label_propagation(sg, mesh, max_iter=1,
+                                                                 init_labels=labels))
+        vc = sg.chunk_size
+        chunk = mesh.each(lambda s: labels.new_zeros(vc))
+        exchange_ms = timed(lambda: all_gather(mesh, chunk))
+        np.savez(Path(out) / f"rank{w.rank}.npz", labels=labels.cpu().numpy(),
+                 cc=cc.cpu().numpy(), cc_supersteps=np.asarray(tele.iterations),
+                 lpa_ms=np.asarray(lpa_ms), exchange_ms=np.asarray(exchange_ms),
+                 build_seconds=np.asarray(build_s), partition_seconds=np.asarray(part_s),
+                 peak_bytes=np.asarray(torch.cuda.max_memory_allocated(dev) if cuda else -1),
+                 num_messages=np.asarray(graph.num_messages), backend=np.asarray(w.backend),
+                 virtual=np.asarray(w.virtual))
+    finally:
+        dist.destroy_process_group()
+
+
+def start_scale_world(procs, work: Path, src, dst, num_vertices: int,
+                      device: str = "cuda") -> tuple:
+    """13b's ranks, started beside 13a: they build and partition the graph,
+    then wait for the go file. Returns ``(ranks, edges dir, out dir)``."""
+    edges, out = work / "dist13b_edges", work / "dist13b"
+    edges.mkdir()
+    np.save(edges / "src.npy", np.asarray(src, np.int32))
+    np.save(edges / "dst.npy", np.asarray(dst, np.int32))
+    np.save(edges / "num_vertices.npy", np.asarray(num_vertices))
+    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
+            f"chip_smoke.dist_scale_rank({str(edges)!r}, {str(out)!r}, {device!r})")
+    return (start_world(procs, [sys.executable, "-c", code], DIST_SCALE_RANKS, out, device),
+            edges, out)
+
+
+def check_scale(out: Path, ref: dict, backend: str = "gloo", virtual: bool = True) -> dict:
+    """13b: every rank's labels and CC equal phase 5's (``ref``) and each
+    other's; the line's medians, seconds and peaks per rank."""
+    res = [dict(np.load(out / f"rank{r}.npz")) for r in range(DIST_SCALE_RANKS)]
+    for r, got in enumerate(res):
+        require(np.array_equal(got["labels"], ref["labels"]),
+                f"13b rank {r}: 5 LPA supersteps != phase 5's labels")
+        require(np.array_equal(got["cc"], ref["cc_labels"]), f"13b rank {r}: CC != phase 5's")
+        require(str(got["backend"]) == backend and bool(got["virtual"]) == virtual,
+                f"13b rank {r}: {got['backend']}, virtual {got['virtual']}")
+    per = lambda key, f=float: [f(np.median(g[key])) for g in res]  # noqa: E731
+    return {"ranks": DIST_SCALE_RANKS, "virtual": virtual, "backend": backend,
+            "num_vertices": int(len(ref["labels"])), "num_messages": int(res[0]["num_messages"]),
+            "build_seconds": per("build_seconds"), "partition_seconds": per("partition_seconds"),
+            "lpa_ms": per("lpa_ms"), "exchange_ms": per("exchange_ms"),
+            "cc_supersteps": int(res[0]["cc_supersteps"]), "peak_bytes": per("peak_bytes", int)}
+
+
+def run_dist(work: Path, ref: dict, device: str = "cuda") -> dict:
+    """Phase 13: 13a's three worlds and 13b's world (preparing beside
+    them) start at once; 13a's in-process references run here meanwhile,
+    on the card, then on the CPU (two intra-op threads: the ranks share
+    the host's cores); 13b's timed part runs once 13a's worlds are done. ``ref`` holds phase 5's ``src``,
+    ``dst``, ``labels`` and ``cc_labels``. Prints the ``dist`` line and
+    the phase's seconds. ``device="cpu"`` rehearses the phase on the host
+    (every world gloo, none virtual)."""
+    t0 = time.perf_counter()
+    root = work / "dist"
+    root.mkdir()
+    with Processes() as procs:
+        scale, edges, scale_out = start_scale_world(procs, work, ref["src"], ref["dst"],
+                                                    len(ref["labels"]), device)
+        worlds = {size: start_world(procs, flow_cmd(root / f"w{size}", device), size,
+                                    root / f"w{size}", device) for size in DIST_WORLDS}
+        card = flow_in_process(device, DIST_WORLDS, root)
+        card_s = time.perf_counter() - t0
+        import torch
+
+        threads = torch.get_num_threads()
+        torch.set_num_threads(2)
+        try:
+            cpu = flow_in_process("cpu", DIST_WORLDS, root)
+        finally:
+            torch.set_num_threads(threads)
+        cpu_s = time.perf_counter() - t0
+        ends = wait_worlds({f"13a {size}-rank world": (ranks, root / f"w{size}")
+                            for size, ranks in worlds.items()})
+        lines = []
+        for size in DIST_WORLDS:
+            lines.append({**check_world(size, *_world_kind(size, device), root / f"w{size}",
+                                        card[size], cpu[size]),
+                          "seconds": cpu_s + ends[f"13a {size}-rank world"],
+                          **_rank_seconds(root / f"w{size}", size)})
+        t13a = time.perf_counter() - t0
+        log(f"13a: worlds {[w['ranks'] for w in lines]} held in {t13a:.1f} s")
+        (edges / "go").touch()
+        wait_worlds({"13b 2-rank world": (scale, scale_out)})
+    line = check_keys({"worlds": lines,
+                       "scale": check_keys(check_scale(scale_out, ref,
+                                                       *_world_kind(DIST_SCALE_RANKS, device)),
+                                           DIST_SCALE_KEYS, "dist scale"),
+                       "seconds": {"13a": t13a, "card_in_process": card_s,
+                                   "cpu_in_process": cpu_s - card_s,
+                                   "total": time.perf_counter() - t0}},
+                      DIST_KEYS, "dist")
+    print(json.dumps({"dist": line}), flush=True)
+    print(json.dumps({"dist_phase_seconds": time.perf_counter() - t0}), flush=True)
+    return line
+
+
+def run_dist_only(work: Path) -> None:
+    """``--dist-only``: phase 13, its 13b reference computed here: phase
+    5's graph (the generator's ids) with 5 LPA supersteps and CC on the
+    card."""
+    from graphmine_tpu_torch import datasets
+    from graphmine_tpu_torch.graph.container import build_graph
+    from graphmine_tpu_torch.ops.cc import connected_components
+    from graphmine_tpu_torch.ops.lpa import label_propagation
+
+    src, dst, _, _ = datasets.planted_anomaly_graph(V_MAIN, E_MAIN, seed=SEED_MAIN)
+    graph = build_graph(src, dst, num_vertices=V_MAIN, device="cuda")
+    ref = {"src": src, "dst": dst, "labels": label_propagation(graph, max_iter=5).cpu().numpy(),
+           "cc_labels": connected_components(graph).cpu().numpy()}
+    del graph
+    run_dist(work, ref)
+
+
 def run_main_path(work: Path) -> None:
     """Phases 4-7: small pipelines on the card against the CPU, the run
     harness on them, the main path, the main path under the harness,
@@ -4882,8 +5232,11 @@ def run_main_path(work: Path) -> None:
     # ---- 11. the multi-device pipeline on a virtual mesh ----------------
     mesh_launches = run_mesh(work, edges_pq, is_anomaly, phase5)
 
-    # ---- 12. the serving plane's sharded repair; then the kernels -------
+    # ---- 12. the serving plane's sharded repair --------------------------
     serve_mesh_launches = run_serve_mesh(work, phase5)
+
+    # ---- 13. the multi-process mesh; then the kernels --------------------
+    run_dist(work, phase5["store_arrays"])
     print_kernels(with_serve_mesh_launches(with_mesh_launches(entries, mesh_launches),
                                            serve_mesh_launches))
 

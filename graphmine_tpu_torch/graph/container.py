@@ -90,6 +90,28 @@ def _prepare_weights(edge_weights, src: np.ndarray):
     return w
 
 
+def message_ptr(src, dst, num_vertices: int, symmetric: bool = True,
+                recv=None) -> np.ndarray:
+    """CSR row pointers of the message layout (host int64 ``[V+1]``): the
+    receivers are ``concat(dst, src)`` when ``symmetric`` (both directions,
+    duplicates kept), else ``dst``, grouped by receiver. ``recv`` is that
+    concatenation when the caller already has it. The JAX package's
+    layout contract, on host arrays or tensors of any device."""
+    if recv is None:
+        src, dst = _host(src), _host(dst)
+        recv = np.concatenate([dst, src]) if symmetric else dst
+    counts = np.bincount(_host(recv), minlength=num_vertices)
+    ptr = np.zeros(num_vertices + 1, dtype=np.int64)
+    np.cumsum(counts, out=ptr[1:])
+    if ptr[-1] >= np.iinfo(np.int32).max:
+        raise ValueError("message count exceeds int32; shard the build")
+    return ptr
+
+
+def _host(values) -> np.ndarray:
+    return values.cpu().numpy() if isinstance(values, torch.Tensor) else np.asarray(values)
+
+
 def _message_csr(src: torch.Tensor, dst: torch.Tensor, num_vertices: int,
                  symmetric: bool, weights: torch.Tensor | None = None):
     """``(ptr int64 [V+1], recv_sorted, send_sorted int32 [M], w_sorted

@@ -1,4 +1,4 @@
-"""Carry the JAX package's graph state into the port.
+"""Carry graphs between the port and other libraries.
 
 This system has no model weights: its state is the graph (the message
 CSR, with edge weights on a weighted graph) and the LPA plan. :func:`reference_arrays` flattens a graph and fused plan of
@@ -7,6 +7,12 @@ them by attribute with ``np.asarray`` and importing neither package;
 :func:`graph_from_reference_arrays` builds the port's :class:`Graph` and
 :class:`BucketedModePlan` from such a dict on a device. The parity tests
 use the pair to run the port's ops on exactly the CSR and plan JAX built.
+
+The NetworkX bridges (:func:`to_networkx`, :func:`from_networkx`,
+:func:`graph_from_networkx`) are the JAX package's
+(``graphmine_tpu/interop.py``): validation-scale conversions to and from
+a single-threaded host library. NetworkX is imported inside them, so the
+port imports nothing beyond PyTorch, NumPy and SciPy when it loads.
 """
 
 from __future__ import annotations
@@ -15,7 +21,8 @@ import numpy as np
 import torch
 
 from graphmine_tpu_torch.device import resolve_device
-from graphmine_tpu_torch.graph.container import Graph
+from graphmine_tpu_torch.graph.container import Graph, _host, build_graph
+from graphmine_tpu_torch.io.edges import EdgeTable, from_arrays
 from graphmine_tpu_torch.ops.bucketed_mode import BucketedModePlan
 
 _GRAPH_KEYS = ("src", "dst", "msg_recv", "msg_send", "msg_ptr")
@@ -73,3 +80,62 @@ def graph_from_reference_arrays(arrays: dict[str, np.ndarray], device=None):
         hist_weight=to_f(arrays["plan_hist_weight"]) if "plan_hist_weight" in arrays else None,
     )
     return graph, plan
+
+
+# ---- NetworkX ------------------------------------------------------------------
+
+
+def to_networkx(obj, labels=None, directed: bool = True, multigraph: bool = False):
+    """An :class:`EdgeTable` or :class:`Graph` (on any device) as a
+    NetworkX graph, vertices ``0..V-1``. ``multigraph=True`` keeps
+    duplicate edges (Multi(Di)Graph), as this engine does (LPA counts
+    them); the default (Di)Graph collapses them. ``labels`` (per vertex,
+    array or tensor) become a ``"community"`` node attribute; an
+    EdgeTable's names become ``"name"`` attributes."""
+    import networkx as nx
+
+    cls = {
+        (True, True): nx.MultiDiGraph,
+        (True, False): nx.MultiGraph,
+        (False, True): nx.DiGraph,
+        (False, False): nx.Graph,
+    }[(multigraph, directed)]
+    if isinstance(obj, EdgeTable):
+        names = obj.names
+    elif isinstance(obj, Graph):
+        names = None
+    else:
+        raise TypeError(f"expected EdgeTable or Graph, got {type(obj).__name__}")
+    src, dst, n = _host(obj.src), _host(obj.dst), obj.num_vertices
+    g = cls()
+    g.add_nodes_from(range(n))
+    g.add_edges_from(zip(src.tolist(), dst.tolist()))
+    if names is not None:
+        nx.set_node_attributes(g, {i: str(names[i]) for i in range(n)}, "name")
+    if labels is not None:
+        lab = _host(labels)
+        nx.set_node_attributes(g, {i: int(lab[i]) for i in range(n)}, "community")
+    return g
+
+
+def from_networkx(nxg) -> EdgeTable:
+    """A NetworkX graph as the port's :class:`EdgeTable` (dense int32 ids
+    in node insertion order). A ``"name"`` node attribute (what
+    :func:`to_networkx` writes) becomes the vertex name, else
+    ``str(node)``, so EdgeTable -> NetworkX -> EdgeTable keeps the names.
+    An undirected graph gives each edge once (the symmetric message CSR
+    carries both directions anyway)."""
+    nodes = list(nxg.nodes())
+    index = {u: i for i, u in enumerate(nodes)}
+    edges = np.asarray([(index[u], index[v]) for u, v in nxg.edges()],
+                       dtype=np.int32).reshape(-1, 2)
+    names = np.asarray([str(nxg.nodes[u].get("name", u)) for u in nodes])
+    return from_arrays(np.ascontiguousarray(edges[:, 0]), np.ascontiguousarray(edges[:, 1]),
+                       names=names)
+
+
+def graph_from_networkx(nxg, device=None) -> Graph:
+    """A NetworkX graph as the port's message-CSR :class:`Graph` on
+    ``device`` (CUDA unless the caller names another)."""
+    et = from_networkx(nxg)
+    return build_graph(et.src, et.dst, num_vertices=et.num_vertices, device=device)

@@ -362,17 +362,19 @@ def sharded_superstep_cost(op: str, sg, num_edges: int, num_messages: int | None
     )
 
 
-def emit_shard_exchange(sink, op: str, sg, **kv) -> dict | None:
+def emit_shard_exchange(sink, op: str, sg, family: str | None = None, **kv) -> dict | None:
     """Emit one ``shard_exchange`` record: the modeled per-shard exchange
     bytes of the family that ran (the 2-D family's padded per-peer
     buffers, ``exchange_bytes``, and their unpadded content,
     ``frontier_bytes``) beside the one-all-gather model (``4*Vc*(D-1)``,
     ``ladder_bytes``), with ``frontier_frac`` the content's share of the
-    ladder (1.0 for the one-all-gather families). ``kv`` may add
+    ladder (1.0 for the one-all-gather families). ``family`` names the
+    family the caller planned (default the one the partition runs; the
+    one-all-gather families exchange the same bytes). ``kv`` may add
     ``virtual=True``. No-op without a sink."""
     if sink is None:
         return None
-    family = _sharded_family(sg)
+    family = family or _sharded_family(sg)
     d = int(sg.num_shards)
     ladder = allgather_exchange_bytes(sg)
     if family == "sharded_2d":

@@ -110,8 +110,8 @@ def betweenness_centrality(graph: Graph, sources=None, normalized: bool = True,
     whole tiles, padded lanes masked), each shard sweeping its tiles on a
     copy of the graph on its device; the partial sums meet in one
     :func:`~graphmine_tpu_torch.parallel.mesh.psum` and come back on the
-    mesh's first device, equal to the single-device result up to float32
-    summation order."""
+    mesh's home device (every process's own on a process mesh), equal to
+    the single-device result up to float32 summation order."""
     v = graph.num_vertices
     if directed is None:
         directed = not graph.symmetric
@@ -127,8 +127,9 @@ def betweenness_centrality(graph: Graph, sources=None, normalized: bool = True,
     tiles = np.concatenate([src_ids, np.zeros(pad, np.int64)]).reshape(-1, b)
     valid = (np.arange(k + pad) < k).reshape(-1, b)
     per = tiles.shape[0] // n_dev
-    parts = []
-    for i, dev in enumerate(devs):
+
+    def shard(i):
+        dev = devs[i]
         src, dst = graph.src.to(dev, torch.int64), graph.dst.to(dev, torch.int64)
         send, recv = (src, dst) if directed else (torch.cat([src, dst]), torch.cat([dst, src]))
         fwd, bwd = SegmentSums(recv, v), SegmentSums(send, v)
@@ -137,13 +138,14 @@ def betweenness_centrality(graph: Graph, sources=None, normalized: bool = True,
         ok_dev = torch.from_numpy(valid[i * per:(i + 1) * per]).to(dev)
         for srcs, ok in zip(t_dev, ok_dev):
             acc = acc + _brandes_tile(srcs, ok, send, recv, fwd, bwd, v)
-        parts.append(acc)
+        return acc
+
     if mesh is None:
-        bc = parts[0]
+        bc = shard(0)
     else:
         from graphmine_tpu_torch.parallel.mesh import psum
 
-        bc = psum(mesh, parts)[0]
+        bc = psum(mesh, mesh.each(shard))[mesh.local[0]]
     if not directed:
         bc = bc / 2.0
     if sources is not None and k and k < v:

@@ -1,7 +1,9 @@
-"""The multi-device layer, inside one process: the mesh and its
-collectives, the replicated, blocked, 2-D and ring supersteps, the
-ring-sharded kNN/LOF and the source-sharded PPR, under the JAX package's
-names (``graphmine_tpu/parallel``)."""
+"""The multi-device layer: the mesh (in one process, or across the
+processes of a ``torch.distributed`` world after
+:func:`initialize_distributed`) and its collectives, the replicated,
+blocked, 2-D and ring supersteps, the ring-sharded kNN/LOF and the
+source-sharded PPR, under the JAX package's names
+(``graphmine_tpu/parallel``)."""
 
 from graphmine_tpu_torch.parallel.knn import sharded_knn, sharded_lof
 from graphmine_tpu_torch.parallel.mesh import (

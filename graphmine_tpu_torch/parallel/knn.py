@@ -13,7 +13,9 @@ Semantics match :func:`graphmine_tpu_torch.ops.knn.knn` (self excluded by
 global id, duplicates kept, squared Euclidean, ascending), with the JAX
 package's one scoped difference: among exactly tied distances the
 neighbour order follows the ring's visit order, not the ascending global
-index, so tied id lists may differ while the distance lists agree.
+index, so tied id lists may differ while the distance lists agree. On a
+process mesh each process folds its own rows and the results come back
+whole on every process.
 """
 
 from __future__ import annotations
@@ -40,10 +42,10 @@ def can_shard(n: int, num_devices: int, k: int) -> bool:
 
 def sharded_knn(points, mesh: Mesh, k: int, row_tile: int = 1024):
     """k nearest neighbours with the points sharded over a 1-D mesh:
-    ``(d2 float32 [N, k], idx int32 [N, k])`` on the mesh's first device,
+    ``(d2 float32 [N, k], idx int32 [N, k])`` on the mesh's home device,
     the contract of :func:`graphmine_tpu_torch.ops.knn.knn`."""
-    dev0, d = mesh.devices[0], mesh.size
-    pts = _as_points(points, dev0)
+    home, d, devs = mesh.home, mesh.size, mesh.devices
+    pts = _as_points(points, home)
     n, f = pts.shape
     chunk = -(-n // d)
     if not can_shard(n, d, k):
@@ -53,18 +55,17 @@ def sharded_knn(points, mesh: Mesh, k: int, row_tile: int = 1024):
             f"k={k} exceeds the per-device chunk {chunk} (= ceil(N/D)); "
             "use fewer devices or the single-device ops.knn path"
         )
-    padded = torch.zeros((d * chunk, f), dtype=torch.float32, device=dev0)
+    padded = torch.zeros((d * chunk, f), dtype=torch.float32, device=home)
     padded[:n] = pts
-    own = [padded[s * chunk:(s + 1) * chunk].to(dev, copy=True)
-           for s, dev in enumerate(mesh.devices)]
-    span = [torch.arange(chunk, dtype=torch.int32, device=dev) for dev in mesh.devices]
-    local_gid = [s * chunk + span[s] for s in range(d)]
-    best_d = [torch.full((chunk, k), float("inf"), dtype=torch.float32, device=dev)
-              for dev in mesh.devices]
-    best_g = [torch.zeros((chunk, k), dtype=torch.int32, device=dev) for dev in mesh.devices]
+    own = mesh.each(lambda s: padded[s * chunk:(s + 1) * chunk].to(devs[s], copy=True))
+    span = mesh.each(lambda s: torch.arange(chunk, dtype=torch.int32, device=devs[s]))
+    local_gid = mesh.each(lambda s: s * chunk + span[s])
+    best_d = mesh.each(lambda s: torch.full((chunk, k), float("inf"), dtype=torch.float32,
+                                            device=devs[s]))
+    best_g = mesh.each(lambda s: torch.zeros((chunk, k), dtype=torch.int32, device=devs[s]))
     visit = list(own)
     for r in range(d):
-        for s in range(d):
+        for s in mesh.local:
             visit_gid = ((s - r) % d) * chunk + span[s]
             d2, idx = cross_knn(own[s], visit[s], k, ref_mask=visit_gid < n, row_tile=row_tile,
                                 query_ids=local_gid[s], ref_ids=visit_gid)
@@ -74,7 +75,7 @@ def sharded_knn(points, mesh: Mesh, k: int, row_tile: int = 1024):
             best_g[s] = torch.gather(cat_g, 1, pos)
         if r != d - 1:
             visit = ppermute(mesh, visit)
-    return gather_to(best_d, dev0)[:n], gather_to(best_g, dev0)[:n]
+    return gather_to(best_d, home, mesh)[:n], gather_to(best_g, home, mesh)[:n]
 
 
 def mesh_ivf_search_exec(mesh: Mesh):
@@ -84,7 +85,8 @@ def mesh_ivf_search_exec(mesh: Mesh):
     which ``ivf_knn`` cuts off) and shard ``s`` searches the ``s``-th
     contiguous block on its device, the points and member tables
     replicated there. Each chunk row's result is that of the one-device
-    search, bit for bit."""
+    search, bit for bit; on a process mesh each process searches its own
+    block and every process reads all of them."""
     from graphmine_tpu_torch.ops.ann import _search_chunks
 
     def exec_fn(pts, m_gid, m_valid, q_gid, row_sub, k):
@@ -96,21 +98,23 @@ def mesh_ivf_search_exec(mesh: Mesh):
         # padded rows search sublist 0 for query 0: never read back
         rs = torch.zeros(per * d, dtype=row_sub.dtype, device=row_sub.device)
         rs[:r] = row_sub
-        outs_d, outs_g = [], []
-        for s, dev in enumerate(mesh.devices):
-            sl = slice(s * per, (s + 1) * per)
-            d2, gid = _search_chunks(pts.to(dev), m_gid.to(dev), m_valid.to(dev),
-                                     qg[sl].to(dev), rs[sl].to(dev), k)
-            outs_d.append(d2)
-            outs_g.append(gid)
-        return gather_to(outs_d, pts.device), gather_to(outs_g, pts.device)
+
+        def search(s):
+            dev, sl = mesh.devices[s], slice(s * per, (s + 1) * per)
+            return _search_chunks(pts.to(dev), m_gid.to(dev), m_valid.to(dev),
+                                  qg[sl].to(dev), rs[sl].to(dev), k)
+
+        outs = mesh.each(search)
+        outs_d = [None if o is None else o[0] for o in outs]
+        outs_g = [None if o is None else o[1] for o in outs]
+        return gather_to(outs_d, pts.device, mesh), gather_to(outs_g, pts.device, mesh)
 
     return exec_fn
 
 
 def sharded_lof(points, mesh: Mesh, k: int = 128, row_tile: int = 1024, impl: str = "auto",
                 sink=None) -> torch.Tensor:
-    """LOF scores over a mesh, float32 ``[N]`` on the mesh's first device.
+    """LOF scores over a mesh, float32 ``[N]`` on the mesh's home device.
 
     ``impl``: ``"exact"`` runs the ring-sharded kNN; ``"ivf"`` the IVF
     index with its search split over the mesh
@@ -123,7 +127,7 @@ def sharded_lof(points, mesh: Mesh, k: int = 128, row_tile: int = 1024, impl: st
 
     if impl not in ("auto", "ivf", "exact"):
         raise ValueError(f"unknown sharded LOF impl {impl!r}; use 'auto', 'ivf' or 'exact'")
-    pts = _as_points(points, mesh.devices[0])
+    pts = _as_points(points, mesh.home)
     n, f = int(pts.shape[0]), int(pts.shape[1])
     family, reason = select_lof_impl(n, k, impl=impl)
     if sink is not None:

@@ -9,7 +9,8 @@ and ``ceil(S/D)`` teleport columns, and runs the same iteration on them.
 The only exchange is one scalar a superstep, the largest column delta
 (:func:`~graphmine_tpu_torch.parallel.mesh.pmax`), so every column stops
 when the slowest one meets ``tol``, the batch's own rule; the columns are
-gathered onto the mesh's first device at the end.
+gathered onto the mesh's home device at the end (onto every process's
+own on a process mesh).
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ def _on_device(graph: Graph, device: torch.device) -> Graph:
 def sharded_personalized_pagerank(graph: Graph, sources, mesh: Mesh, alpha: float = 0.85,
                                   max_iter: int = 100, tol: float = 1e-6) -> torch.Tensor:
     """``parallel_personalized_pagerank`` with the sources split over
-    ``mesh``: ``[V, S]`` on the mesh's first device, within float noise of
+    ``mesh``: ``[V, S]`` on the mesh's home device, within float noise of
     the single-device batch (the same iterations; the columns are the
     same arithmetic). Padding columns recompute ``sources[0]`` and are cut
     off."""
@@ -44,20 +45,23 @@ def sharded_personalized_pagerank(graph: Graph, sources, mesh: Mesh, alpha: floa
 
     v, d = graph.num_vertices, mesh.size
     sources = _validate_sources(sources, v)
+    home = mesh.home
     if sources.size == 0:
-        return torch.zeros((v, 0), dtype=torch.float32, device=mesh.devices[0])
+        return torch.zeros((v, 0), dtype=torch.float32, device=home)
     s = len(sources)
     chunk = -(-s // d)
     padded = np.full(d * chunk, sources[0], np.int32)
     padded[:s] = sources
-    runs = [_BatchedPPR(_on_device(graph, dev), padded[i * chunk:(i + 1) * chunk], alpha)
-            for i, dev in enumerate(mesh.devices)]
-    prs = [r.pr for r in runs]
+    runs = mesh.each(lambda i: _BatchedPPR(_on_device(graph, mesh.devices[i]),
+                                           padded[i * chunk:(i + 1) * chunk], alpha))
+    prs = [None if r is None else r.pr for r in runs]
     tol = float(np.float32(tol))
     it, delta = 0, 1.0
     while delta > tol and it < max_iter:
-        steps = [r.step(p) for r, p in zip(runs, prs)]
-        prs = [p for p, _ in steps]
-        delta = float(pmax(mesh, [dl for _, dl in steps])[0])
+        steps = mesh.each(lambda i: runs[i].step(prs[i]))
+        prs = [None if st is None else st[0] for st in steps]
+        delta = float(pmax(mesh, [None if st is None else st[1] for st in steps])
+                      [mesh.local[0]])
         it += 1
-    return gather_to([p.T for p in prs], mesh.devices[0]).T[:, :s].contiguous()
+    cols = [None if p is None else p.T for p in prs]
+    return gather_to(cols, home, mesh).T[:, :s].contiguous()

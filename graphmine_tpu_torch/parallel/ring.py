@@ -9,7 +9,9 @@ hops, each shard filling the positions owned by the chunk in hand). Per
 shard the memory is the O(M/D) messages and two chunks, with no
 replicated O(V) term; the bytes moved equal one all-gather. The answers
 are those of the single-device ops: labels bit for bit, PageRank within
-its float tolerance.
+its float tolerance. On a process mesh each process holds its own chunk
+and the hops are point-to-point sends; the result comes back whole on
+every process.
 """
 
 from __future__ import annotations
@@ -51,12 +53,12 @@ def _ring_gather(mesh: Mesh, chunks, global_idx, chunk_size: int) -> list:
     shard ``(s - r) % D`` and fills the positions that chunk owns. The
     last owner's chunk is used in hand, so D - 1 hops suffice."""
     d = mesh.size
-    out = [torch.zeros(i.shape, dtype=c.dtype, device=c.device)
-           for c, i in zip(chunks, global_idx)]
-    owner_of = [torch.div(i, chunk_size, rounding_mode="floor") for i in global_idx]
+    out = mesh.each(lambda s: torch.zeros(global_idx[s].shape, dtype=chunks[s].dtype,
+                                          device=chunks[s].device))
+    owner_of = mesh.each(lambda s: torch.div(global_idx[s], chunk_size, rounding_mode="floor"))
     hand = list(chunks)
     for r in range(d):
-        for s in range(d):
+        for s in mesh.local:
             owner = (s - r) % d
             sel = owner_of[s] == owner
             local = torch.clamp(global_idx[s] - owner * chunk_size, 0, chunk_size - 1)
@@ -68,27 +70,27 @@ def _ring_gather(mesh: Mesh, chunks, global_idx, chunk_size: int) -> list:
 
 def _ring_init(sg: ShardedGraph, mesh: Mesh, init_labels) -> list:
     """The sharded initial state: shard ``s`` holds chunk ``s``."""
-    dev0, vc = mesh.devices[0], sg.chunk_size
-    full = (_padded_init_labels(sg, dev0) if init_labels is None
-            else _pad_labels(init_labels, sg, dev0))
-    return [full[s * vc:(s + 1) * vc].to(dev, copy=True) for s, dev in enumerate(mesh.devices)]
+    home, vc = mesh.home, sg.chunk_size
+    full = (_padded_init_labels(sg, home) if init_labels is None
+            else _pad_labels(init_labels, sg, home))
+    return mesh.each(lambda s: full[s * vc:(s + 1) * vc].to(mesh.devices[s], copy=True))
 
 
 def _lpa_ring_step(sg: ShardedGraph, mesh: Mesh):
     """Ring LPA superstep: ring-gather sender labels, shard-local segment
     mode (weighted when the partition carries weights; only labels travel
     the ring), keep the own label where no message arrives."""
-    vc, d = sg.chunk_size, sg.num_shards
+    vc = sg.chunk_size
     recv, send, deg = _need(sg.msg_recv_local, "message CSR"), sg.msg_send, sg.degrees
     w = sg.msg_weight
 
+    def body(s, own, msg):
+        mode, _ = segment_mode(recv[s], msg[s], vc, weights=None if w is None else w[s])
+        return torch.where(deg[s] > 0, mode, own[s]).to(torch.int32)
+
     def step(own):
         msg = _ring_gather(mesh, own, send, vc)
-        out = []
-        for s in range(d):
-            mode, _ = segment_mode(recv[s], msg[s], vc, weights=None if w is None else w[s])
-            out.append(torch.where(deg[s] > 0, mode, own[s]).to(torch.int32))
-        return out
+        return mesh.each(lambda s: body(s, own, msg))
 
     return step
 
@@ -96,15 +98,16 @@ def _lpa_ring_step(sg: ShardedGraph, mesh: Mesh):
 def _cc_ring_step(sg: ShardedGraph, mesh: Mesh):
     """Ring CC superstep: min-propagation, then pointer jumping, whose
     gather at arbitrary label ids is one more ring pass."""
-    vc, d = sg.chunk_size, sg.num_shards
+    vc = sg.chunk_size
     recv, send, deg = _need(sg.msg_recv_local, "message CSR"), sg.msg_send, sg.degrees
 
     def step(own):
         msg = _ring_gather(mesh, own, send, vc)
-        new = [torch.where(deg[s] > 0, torch.minimum(own[s], segment_min(msg[s], recv[s], vc)),
-                           own[s]).to(torch.int32) for s in range(d)]
+        new = mesh.each(lambda s: torch.where(
+            deg[s] > 0, torch.minimum(own[s], segment_min(msg[s], recv[s], vc)),
+            own[s]).to(torch.int32))
         rep = _ring_gather(mesh, new, new, vc)
-        return [torch.minimum(n, r).to(torch.int32) for n, r in zip(new, rep)]
+        return mesh.each(lambda s: torch.minimum(new[s], rep[s]).to(torch.int32))
 
     return step
 
@@ -113,11 +116,12 @@ def ring_label_propagation(sg: ShardedGraph, mesh: Mesh, max_iter: int = 5,
                            init_labels=None) -> torch.Tensor:
     """Distributed synchronous LPA with sharded labels; labels identical
     to :func:`graphmine_tpu_torch.ops.lpa.label_propagation`. Returns int32
-    labels ``[V]`` on the mesh's first device."""
+    labels ``[V]`` on the mesh's home device (every process's own on a
+    process mesh)."""
     sg = _check_ring_mesh(sg, mesh)
     state = _scan_supersteps(_lpa_ring_step(sg, mesh), _ring_init(sg, mesh, init_labels),
-                             max_iter, lambda st: st, mesh.devices[0])
-    return gather_to(state, mesh.devices[0])[: sg.num_vertices]
+                             max_iter, lambda st: st, mesh)
+    return gather_to(state, mesh.home, mesh)[: sg.num_vertices]
 
 
 def ring_connected_components(sg: ShardedGraph, mesh: Mesh, max_iter: int = 0) -> torch.Tensor:
@@ -125,8 +129,8 @@ def ring_connected_components(sg: ShardedGraph, mesh: Mesh, max_iter: int = 0) -
     to :func:`graphmine_tpu_torch.ops.cc.connected_components`."""
     sg = _check_ring_mesh(sg, mesh)
     state = _fixpoint_supersteps(_cc_ring_step(sg, mesh), _ring_init(sg, mesh, None), sg,
-                                 max_iter, lambda st: st, mesh.devices[0])
-    return gather_to(state, mesh.devices[0])[: sg.num_vertices]
+                                 max_iter, lambda st: st, mesh)
+    return gather_to(state, mesh.home, mesh)[: sg.num_vertices]
 
 
 def ring_pagerank(sg: ShardedGraph, mesh: Mesh, out_degrees, alpha: float = 0.85,
@@ -140,29 +144,32 @@ def ring_pagerank(sg: ShardedGraph, mesh: Mesh, out_degrees, alpha: float = 0.85
     ``out_degrees``. Returns float32 ranks ``[V]`` summing to 1."""
     sg = _check_ring_mesh(sg, mesh)
     weighted = _check_pagerank_weighted(sg, out_degrees, weighted)
-    dev0, vc, d = mesh.devices[0], sg.chunk_size, sg.num_shards
+    home, vc = mesh.home, sg.chunk_size
     inv_out, reset, dangling = _pagerank_terms(out_degrees, sg.num_vertices,
-                                               sg.padded_vertices, dev0)
+                                               sg.padded_vertices, home)
 
     def chunked(x):
-        return [x[s * vc:(s + 1) * vc].to(dev, copy=True) for s, dev in enumerate(mesh.devices)]
+        return mesh.each(lambda s: x[s * vc:(s + 1) * vc].to(mesh.devices[s], copy=True))
 
     inv_o, res, dang = chunked(inv_out), chunked(reset), chunked(dangling)
     recv, send = _need(sg.msg_recv_local, "message CSR"), sg.msg_send
-    sums = [SegmentSums(recv[s], vc) for s in range(d)]
-    pr = [r.clone() for r in res]
+    sums = mesh.each(lambda s: SegmentSums(recv[s], vc))
+    pr = mesh.each(lambda s: res[s].clone())
+
+    def inflow(s, msg):
+        m = msg[s] * (recv[s] < vc)
+        if weighted:
+            m = m * sg.msg_weight[s]
+        return sums[s].sum(m)
+
     delta, it = 1.0, 0
     while delta > tol and it < max_iter:
-        msg = _ring_gather(mesh, [p * i for p, i in zip(pr, inv_o)], send, vc)
-        inflow = []
-        for s in range(d):
-            m = msg[s] * (recv[s] < vc)
-            if weighted:
-                m = m * sg.msg_weight[s]
-            inflow.append(sums[s].sum(m))
-        dm = psum(mesh, [torch.where(dg, p, 0.0).sum() for dg, p in zip(dang, pr)])
-        new = [alpha * (inflow[s] + dm[s] * res[s]) + (1.0 - alpha) * res[s] for s in range(d)]
-        delta = float(psum(mesh, [(n - p).abs().sum() for n, p in zip(new, pr)])[0])
+        msg = _ring_gather(mesh, mesh.each(lambda s: pr[s] * inv_o[s]), send, vc)
+        dm = psum(mesh, mesh.each(lambda s: torch.where(dang[s], pr[s], 0.0).sum()))
+        new = mesh.each(lambda s: alpha * (inflow(s, msg) + dm[s] * res[s])
+                        + (1.0 - alpha) * res[s])
+        delta = float(psum(mesh, mesh.each(
+            lambda s: (new[s] - pr[s]).abs().sum()))[mesh.local[0]])
         pr = new
         it += 1
-    return gather_to(pr, dev0)[: sg.num_vertices]
+    return gather_to(pr, home, mesh)[: sg.num_vertices]

@@ -11,8 +11,11 @@ shard's count. One superstep of the replicated schedule is:
       -> all-gather of the updated chunks onto every shard
 
 (:func:`~graphmine_tpu_torch.parallel.mesh.all_gather`). Each shard body
-runs on its own device, one after the other in this process; the answers
-are those of the single-device supersteps, bit for bit for labels.
+runs on its own device: one after the other in this process on an
+in-process mesh, each process its own shard on a process mesh
+(:func:`~graphmine_tpu_torch.parallel.mesh.initialize_distributed`). The
+answers are those of the single-device supersteps, bit for bit for
+labels, and on a process mesh they come back whole on every process.
 
 :func:`partition_graph` is host NumPy, array for array the JAX package's
 (the message CSR slices, the degrees and the stacked degree-bucket plan of
@@ -32,7 +35,11 @@ at the armed cadence and keep the first firing there; the result is read
 once, when the run has finished, and a firing raises
 :class:`~graphmine_tpu_torch.pipeline.resilience.DivergenceError`. The CC
 and PageRank loops read one scalar a superstep (their stopping test); the
-LPA loop reads nothing until it returns.
+LPA loop reads nothing until it returns. Every value that decides a branch
+(the stopping test, the tripwire state, the telemetry rows) is built from
+every shard's value gathered in shard order, so on a process mesh every
+process takes the same branch: one that stopped or raised alone would
+leave the others waiting in their next collective.
 """
 
 from __future__ import annotations
@@ -45,7 +52,15 @@ import torch
 
 from graphmine_tpu_torch.graph.container import Graph
 from graphmine_tpu_torch.ops.segment import SegmentSums, segment_min, segment_mode
-from graphmine_tpu_torch.parallel.mesh import Mesh, all_gather, gather_to, place, ppermute
+from graphmine_tpu_torch.parallel.mesh import (
+    Mesh,
+    agree,
+    all_gather,
+    gather_to,
+    place,
+    ppermute,
+    stack,
+)
 
 _SENTINEL = (1 << 31) - 1
 
@@ -81,9 +96,11 @@ class _Trip:
             raise DivergenceError(_TRIP_KINDS[code], shard, it)
 
 
-def _stack0(parts, device) -> torch.Tensor:
-    """One value per shard, stacked in shard order on ``device``."""
-    return torch.stack([p.to(device) for p in parts])
+def _per_shard(mesh: Mesh, fn, *lists) -> torch.Tensor:
+    """``fn`` of each shard's entries of ``lists``, every shard's result
+    stacked in shard order on the mesh's home device (one gather on a
+    process mesh)."""
+    return stack(mesh, mesh.each(lambda s: fn(*(lst[s] for lst in lists))))
 
 
 def _first_shard(flags: torch.Tensor) -> torch.Tensor:
@@ -92,36 +109,42 @@ def _first_shard(flags: torch.Tensor) -> torch.Tensor:
     return torch.argmax(flags.to(torch.int32))
 
 
-def _label_tripwire(trip: _Trip, new, cur, prev, it: int, v_pad: int, dev) -> None:
+def _out_of_range(n, v_pad: int) -> torch.Tensor:
+    return ((n < 0) | (n >= v_pad)).any()
+
+
+def _label_tripwire(trip: _Trip, mesh: Mesh, new, cur, prev, it: int, v_pad: int) -> None:
     """LPA guards over per-shard chunks: labels outside ``[0, v_pad)``,
     and period-2 oscillation (state t+1 == state t-1 while != state t)."""
-    bad = _stack0([((n < 0) | (n >= v_pad)).any() for n in new], dev)
-    osc = (_stack0([(n == p).all() for n, p in zip(new, prev)], dev).all()
-           & _stack0([(n != c).any() for n, c in zip(new, cur)], dev).any())
+    rows = _per_shard(mesh, lambda n, c, p: torch.stack(
+        [_out_of_range(n, v_pad), (n == p).all(), (n != c).any()]), new, cur, prev)
+    bad = rows[:, 0]
+    osc = rows[:, 1].all() & rows[:, 2].any()
     kind = torch.where(bad.any(), 1, torch.where(osc, 2, 0))
     trip.fire(kind, _first_shard(bad), it + 1)
 
 
-def _cc_tripwire(trip: _Trip, new, cur, it: int, v_pad: int, dev) -> None:
+def _cc_tripwire(trip: _Trip, mesh: Mesh, new, cur, it: int, v_pad: int) -> None:
     """CC guards: label range, then monotonicity (min-propagation labels
     never rise); the shard is attributed by the reported kind."""
-    bad = _stack0([((n < 0) | (n >= v_pad)).any() for n in new], dev)
-    mono = _stack0([(n > c).any() for n, c in zip(new, cur)], dev)
+    rows = _per_shard(mesh, lambda n, c: torch.stack(
+        [_out_of_range(n, v_pad), (n > c).any()]), new, cur)
+    bad, mono = rows[:, 0], rows[:, 1]
     any_bad = bad.any()
     kind = torch.where(any_bad, 1, torch.where(mono.any(), 4, 0))
     trip.fire(kind, _first_shard(torch.where(any_bad, bad, mono)), it + 1)
 
 
-def _lpa_range_tripwire(trip: _Trip, new, cur, it: int, v_pad: int, dev) -> None:
+def _lpa_range_tripwire(trip: _Trip, mesh: Mesh, new, cur, it: int, v_pad: int) -> None:
     """Range-only LPA guard of the fixpoint runner (no previous iterate
     to test oscillation against)."""
-    bad = _stack0([((n < 0) | (n >= v_pad)).any() for n in new], dev)
+    bad = _per_shard(mesh, lambda n: _out_of_range(n, v_pad), new)
     trip.fire(torch.where(bad.any(), 1, 0), _first_shard(bad), it + 1)
 
 
-def _rank_tripwire(trip: _Trip, new, it: int, dev) -> None:
+def _rank_tripwire(trip: _Trip, mesh: Mesh, new, it: int) -> None:
     """PageRank guard: NaN or Inf anywhere in the ranks."""
-    bad = _stack0([(~torch.isfinite(n)).any() for n in new], dev)
+    bad = _per_shard(mesh, lambda n: (~torch.isfinite(n)).any(), new)
     trip.fire(torch.where(bad.any(), 3, 0), _first_shard(bad), it + 1)
 
 
@@ -160,16 +183,16 @@ class PowerIterTelemetry:
     iterations: int
 
 
-def _telemetry_row(new, cur, dev):
+def _telemetry_row(mesh: Mesh, new, cur):
     """One superstep's counters: (changed total, per-shard changed), on
-    ``dev``. Padding vertices never change."""
-    per = _stack0([(n != c).sum(dtype=torch.int32) for n, c in zip(new, cur)], dev)
+    the mesh's home device. Padding vertices never change."""
+    per = _per_shard(mesh, lambda n, c: (n != c).sum(dtype=torch.int32), new, cur)
     return per.sum(dtype=torch.int32), per
 
 
-def _residual_row(new, pr, dev):
+def _residual_row(mesh: Mesh, new, pr):
     """One power iteration's residuals: (L1 delta, per-shard L1)."""
-    per = _stack0([(n - p).abs().sum() for n, p in zip(new, pr)], dev)
+    per = _per_shard(mesh, lambda n, p: (n - p).abs().sum(), new, pr)
     return per.sum(), per
 
 
@@ -570,9 +593,11 @@ def _check_mesh(sg: ShardedGraph, mesh: Mesh) -> None:
 def _on_mesh(sg: ShardedGraph, mesh: Mesh) -> ShardedGraph:
     """``sg`` placed on ``mesh`` (a host partition is placed here)."""
     _check_mesh(sg, mesh)
+    if not mesh.local:
+        raise ValueError(f"this process holds no shard of {mesh!r}")
     if sg.mesh is None:
         return shard_graph_arrays(sg, mesh)
-    if sg.mesh.devices != mesh.devices:
+    if sg.mesh.devices != mesh.devices or sg.mesh.ranks != mesh.ranks:
         raise ValueError(f"graph is placed on {sg.mesh}, not on {mesh}")
     return sg
 
@@ -698,7 +723,7 @@ def _exchange_2d(mesh: Mesh, own, send_tab) -> list:
     slots its peer's bins read). Returns, per shard, its D - 1 received
     buffers in distance order (the compact table's layout)."""
     d = mesh.size
-    got = [ppermute(mesh, [own[i][send_tab[i][r - 1]] for i in range(d)], r)
+    got = [ppermute(mesh, mesh.each(lambda i, r=r: own[i][send_tab[i][r - 1]]), r)
            for r in range(1, d)]
     return [[got[r][s] for r in range(d - 1)] for s in range(d)]
 
@@ -741,34 +766,35 @@ def _pointer_jump(full: torch.Tensor) -> torch.Tensor:
 def _replicated_chunks(sg: ShardedGraph):
     """Per-shard chunks of a replicated state (one full vector per shard)."""
     vc = sg.chunk_size
-    return lambda state: [_own(f, s, vc) for s, f in enumerate(state)]
+    return lambda state: [None if f is None else _own(f, s, vc) for s, f in enumerate(state)]
 
 
-def _scan_supersteps(step_fn, state, max_iter: int, chunks, dev, tripwire_every: int = 0,
-                     v_pad: int = 0, collect: bool = False):
+def _scan_supersteps(step_fn, state, max_iter: int, chunks, mesh: Mesh,
+                     tripwire_every: int = 0, v_pad: int = 0, collect: bool = False):
     """Exactly ``max_iter`` supersteps (LPA). ``chunks(state)`` gives the
     per-shard chunks the guards and counters read. Returns ``state`` or,
     with ``collect``, ``(state, (changed [T], shard_changed [T, D]))``;
     an armed tripwire raises after the loop."""
+    dev = mesh.home
     trip = _Trip(dev) if tripwire_every else None
     rows = []
     prev = state
     for it in range(max_iter):
         new = step_fn(state)
         if trip is not None and (it + 1) % tripwire_every == 0:
-            _label_tripwire(trip, chunks(new), chunks(state), chunks(prev), it, v_pad, dev)
+            _label_tripwire(trip, mesh, chunks(new), chunks(state), chunks(prev), it, v_pad)
         if collect:
-            rows.append(_telemetry_row(chunks(new), chunks(state), dev))
+            rows.append(_telemetry_row(mesh, chunks(new), chunks(state)))
         prev, state = state, new
     if trip is not None:
         # unconditional exit check: the last supersteps may fall between
         # two armed ones
         last = chunks(state)
-        _label_tripwire(trip, last, chunks(prev), chunks(prev), max_iter - 1, v_pad, dev)
+        _label_tripwire(trip, mesh, last, chunks(prev), chunks(prev), max_iter - 1, v_pad)
         trip.raise_if_tripped()
     if not collect:
         return state
-    d = len(chunks(state))
+    d = mesh.size
     changed = (torch.stack([r[0] for r in rows]) if rows
                else torch.zeros(0, dtype=torch.int32, device=dev))
     per = (torch.stack([r[1] for r in rows]) if rows
@@ -781,7 +807,7 @@ def _scan_supersteps(step_fn, state, max_iter: int, chunks, dev, tripwire_every:
 _FIXPOINT_TELEMETRY_CAP = 4096
 
 
-def _fixpoint_supersteps(step_fn, state, sg: ShardedGraph, max_iter: int, chunks, dev,
+def _fixpoint_supersteps(step_fn, state, sg: ShardedGraph, max_iter: int, chunks, mesh: Mesh,
                          tripwire_every: int = 0, collect: bool = False, guard=_cc_tripwire):
     """Supersteps until no label changes (CC semantics), bounded by
     ``max_iter`` when nonzero: one host read a superstep, the changed
@@ -791,6 +817,7 @@ def _fixpoint_supersteps(step_fn, state, sg: ShardedGraph, max_iter: int, chunks
     limit = max_iter if max_iter > 0 else sg.num_vertices + 2
     cap = min(limit, _FIXPOINT_TELEMETRY_CAP)
     v_pad = sg.padded_vertices
+    dev = mesh.home
     trip = _Trip(dev) if tripwire_every else None
     if collect:
         buf_c = torch.zeros(cap, dtype=torch.int32, device=dev)
@@ -799,8 +826,8 @@ def _fixpoint_supersteps(step_fn, state, sg: ShardedGraph, max_iter: int, chunks
     while changed > 0 and it < limit:
         new = step_fn(state)
         if trip is not None and (it + 1) % tripwire_every == 0:
-            guard(trip, chunks(new), chunks(state), it, v_pad, dev)
-        total, per = _telemetry_row(chunks(new), chunks(state), dev)
+            guard(trip, mesh, chunks(new), chunks(state), it, v_pad)
+        total, per = _telemetry_row(mesh, chunks(new), chunks(state))
         if collect:
             row = min(it, cap - 1)
             buf_c[row] = total
@@ -810,7 +837,7 @@ def _fixpoint_supersteps(step_fn, state, sg: ShardedGraph, max_iter: int, chunks
         it += 1
     if trip is not None:
         last = chunks(state)
-        guard(trip, last, last, it - 1, v_pad, dev)
+        guard(trip, mesh, last, last, it - 1, v_pad)
         trip.raise_if_tripped()
     if collect:
         return state, (buf_c, buf_s, it)
@@ -832,13 +859,13 @@ def _pad_labels(labels, sg: ShardedGraph, device) -> torch.Tensor:
 def _init_full(sg, mesh, init_labels) -> list:
     """The initial state: one padded label vector per shard, or for a 2-D
     partition (labels sharded) each shard's own chunk."""
-    dev0 = mesh.devices[0]
-    full = (_padded_init_labels(sg, dev0) if init_labels is None
-            else _pad_labels(init_labels, sg, dev0))
+    home = mesh.home
+    full = (_padded_init_labels(sg, home) if init_labels is None
+            else _pad_labels(init_labels, sg, home))
     if _is_2d(sg):
         vc = sg.chunk_size
-        return [_own(full, s, vc).to(dev, copy=True) for s, dev in enumerate(mesh.devices)]
-    return [full.to(dev, copy=True) for dev in mesh.devices]
+        return mesh.each(lambda s: _own(full, s, vc).to(mesh.devices[s], copy=True))
+    return mesh.each(lambda s: full.to(mesh.devices[s], copy=True))
 
 
 def _is_2d(sg: ShardedGraph) -> bool:
@@ -851,8 +878,9 @@ def _state_chunks(sg: ShardedGraph):
 
 
 def _labels_of(sg: ShardedGraph, mesh: Mesh, state) -> torch.Tensor:
-    """The ``[V]`` labels of a state, on the mesh's first device."""
-    full = gather_to(state, mesh.devices[0]) if _is_2d(sg) else state[0]
+    """The ``[V]`` labels of a state, on the mesh's home device (on every
+    process of a process mesh)."""
+    full = gather_to(state, mesh.home, mesh) if _is_2d(sg) else state[mesh.local[0]]
     return full[: sg.num_vertices]
 
 
@@ -860,48 +888,44 @@ def _build_lpa_step(sg: ShardedGraph, mesh: Mesh):
     """The LPA superstep over the state of :func:`_init_full`: the 2-D body
     on a 2-D partition (its exchange inside the step), else the blocked,
     bucketed or sort body followed by one all-gather."""
-    vc, d = sg.chunk_size, sg.num_shards
+    vc = sg.chunk_size
     if _is_2d(sg):
         _check_2d_mesh(mesh)
         wts = sg.blk_row_weight or None
 
         def step(own):
             bufs = _exchange_2d(mesh, own, sg.x2d_send_tab)
-            return [_lpa_shard_body_2d(
+            return mesh.each(lambda s: _lpa_shard_body_2d(
                 own[s], bufs[s], sg.x2d_src_local[s], sg.blk_pos[s],
                 [r[s] for r in sg.blk_row_idx], [t[s] for t in sg.blk_row_target],
-                None if wts is None else [w[s] for w in wts], vc, sg.blk_tile_alloc)
-                for s in range(d)]
+                None if wts is None else [w[s] for w in wts], vc, sg.blk_tile_alloc))
 
         return step
     if sg.blk_src is not None:
         wts = sg.blk_row_weight or None
 
         def step(full):
-            return all_gather(mesh, [_lpa_shard_body_blocked(
+            return all_gather(mesh, mesh.each(lambda s: _lpa_shard_body_blocked(
                 full[s], sg.blk_src[s], sg.blk_pos[s], [r[s] for r in sg.blk_row_idx],
                 [t[s] for t in sg.blk_row_target],
-                None if wts is None else [w[s] for w in wts], s, vc, sg.blk_tile_alloc)
-                for s in range(d)])
+                None if wts is None else [w[s] for w in wts], s, vc, sg.blk_tile_alloc)))
 
         return step
     if sg.bucket_send:
         weights = sg.bucket_weight or None
 
         def step(full):
-            return all_gather(mesh, [_lpa_shard_body_bucketed(
+            return all_gather(mesh, mesh.each(lambda s: _lpa_shard_body_bucketed(
                 full[s], [b[s] for b in sg.bucket_send], [t[s] for t in sg.bucket_target],
-                None if weights is None else [w[s] for w in weights], s, vc)
-                for s in range(d)])
+                None if weights is None else [w[s] for w in weights], s, vc)))
 
         return step
     recv, send, deg = (_need(sg.msg_recv_local, "message CSR"), sg.msg_send, sg.degrees)
     w = sg.msg_weight
 
     def step(full):
-        return all_gather(mesh, [_lpa_shard_body(
-            full[s], recv[s], send[s], deg[s], None if w is None else w[s], s, vc)
-            for s in range(d)])
+        return all_gather(mesh, mesh.each(lambda s: _lpa_shard_body(
+            full[s], recv[s], send[s], deg[s], None if w is None else w[s], s, vc)))
 
     return step
 
@@ -911,15 +935,15 @@ def sharded_label_propagation(sg: ShardedGraph, mesh: Mesh, max_iter: int = 5,
                               telemetry: bool = False):
     """Distributed synchronous LPA, semantics identical to
     :func:`graphmine_tpu_torch.ops.lpa.label_propagation`. Returns int32
-    labels ``[V]`` on the mesh's first device, or ``(labels,
+    labels ``[V]`` on the mesh's home device (every process's own on a
+    process mesh), or ``(labels,
     SuperstepTelemetry)`` with ``telemetry``. ``tripwire_every`` arms the
     label-range and oscillation guards every K supersteps; a firing raises
     ``DivergenceError`` with the offending shard."""
     sg = _on_mesh(sg, mesh)
-    dev0 = mesh.devices[0]
     out = _scan_supersteps(
         _build_lpa_step(sg, mesh), _init_full(sg, mesh, init_labels), max_iter,
-        _state_chunks(sg), dev0, tripwire_every=tripwire_every,
+        _state_chunks(sg), mesh, tripwire_every=tripwire_every,
         v_pad=sg.padded_vertices, collect=telemetry)
     if not telemetry:
         return _labels_of(sg, mesh, out)
@@ -937,7 +961,7 @@ def sharded_lpa_fixpoint(sg: ShardedGraph, mesh: Mesh, max_iter: int = 0, init_l
     sg = _on_mesh(sg, mesh)
     state, (changed, _per, it) = _fixpoint_supersteps(
         _build_lpa_step(sg, mesh), _init_full(sg, mesh, init_labels), sg, max_iter,
-        _state_chunks(sg), mesh.devices[0], tripwire_every=tripwire_every,
+        _state_chunks(sg), mesh, tripwire_every=tripwire_every,
         collect=True, guard=_lpa_range_tripwire)
     row = min(it, changed.shape[0]) - 1
     converged = it == 0 or int(changed[row]) == 0
@@ -948,16 +972,16 @@ def _build_cc_step(sg: ShardedGraph, mesh: Mesh):
     """The CC superstep: the 2-D body (its exchange and a chunk-local
     pointer jump inside it), else the blocked or sort body, one
     all-gather and the pointer jump on every shard's full vector."""
-    vc, d = sg.chunk_size, sg.num_shards
+    vc = sg.chunk_size
     if _is_2d(sg):
         _check_2d_mesh(mesh)
 
         def step(own):
             bufs = _exchange_2d(mesh, own, sg.x2d_send_tab)
-            return [_cc_shard_body_2d(
+            return mesh.each(lambda s: _cc_shard_body_2d(
                 own[s], bufs[s], sg.x2d_src_local[s], sg.blk_pos[s],
                 [r[s] for r in sg.blk_row_idx], [t[s] for t in sg.blk_row_target], s, vc,
-                sg.blk_tile_alloc) for s in range(d)]
+                sg.blk_tile_alloc))
 
         return step
     if sg.blk_src is not None:
@@ -972,9 +996,9 @@ def _build_cc_step(sg: ShardedGraph, mesh: Mesh):
             return _cc_shard_body(full[s], recv[s], send[s], deg[s], s, vc)
 
     def step(full):
-        gathered = all_gather(mesh, [body(full, s) for s in range(d)])
+        gathered = all_gather(mesh, mesh.each(lambda s: body(full, s)))
         # pointer jumping on each shard's full vector: no extra exchange
-        return [_pointer_jump(f) for f in gathered]
+        return mesh.each(lambda s: _pointer_jump(gathered[s]))
 
     return step
 
@@ -990,7 +1014,7 @@ def sharded_connected_components(sg: ShardedGraph, mesh: Mesh, max_iter: int = 0
     sg = _on_mesh(sg, mesh)
     out = _fixpoint_supersteps(
         _build_cc_step(sg, mesh), _init_full(sg, mesh, init_labels), sg, max_iter,
-        _state_chunks(sg), mesh.devices[0], tripwire_every=tripwire_every,
+        _state_chunks(sg), mesh, tripwire_every=tripwire_every,
         collect=telemetry)
     if not telemetry:
         return _labels_of(sg, mesh, out)
@@ -1065,46 +1089,47 @@ def sharded_pagerank(sg: ShardedGraph, mesh: Mesh, out_degrees, alpha: float = 0
     ``init_ranks`` resumes a power iteration."""
     sg = _on_mesh(sg, mesh)
     weighted = _check_pagerank_weighted(sg, out_degrees, weighted)
-    dev0, vc, d = mesh.devices[0], sg.chunk_size, sg.num_shards
+    home, h, vc, d = mesh.home, mesh.local[0], sg.chunk_size, sg.num_shards
     v, v_pad = sg.num_vertices, sg.padded_vertices
-    inv_out, reset, dangling = _pagerank_terms(out_degrees, v, v_pad, dev0)
+    inv_out, reset, dangling = _pagerank_terms(out_degrees, v, v_pad, home)
     recv, send = _need(sg.msg_recv_local, "message CSR"), sg.msg_send
     devs = mesh.devices
-    inv_r = [inv_out.to(x, copy=True) for x in devs]
-    dang_r = [dangling.to(x, copy=True) for x in devs]
-    reset_own = [_own(reset, s, vc).to(x, copy=True) for s, x in enumerate(devs)]
-    sums = [SegmentSums(recv[s], vc) for s in range(d)]
-    wts = [sg.msg_weight[s] if weighted else None for s in range(d)]
+    inv_r = mesh.each(lambda s: inv_out.to(devs[s], copy=True))
+    dang_r = mesh.each(lambda s: dangling.to(devs[s], copy=True))
+    reset_own = mesh.each(lambda s: _own(reset, s, vc).to(devs[s], copy=True))
+    sums = mesh.each(lambda s: SegmentSums(recv[s], vc))
+    wts = mesh.each(lambda s: sg.msg_weight[s] if weighted else None)
     if init_ranks is None:
         pr0 = reset
     else:
-        pr0 = torch.zeros(v_pad, dtype=torch.float32, device=dev0)
+        pr0 = torch.zeros(v_pad, dtype=torch.float32, device=home)
         pr0[:v] = torch.as_tensor(np.asarray(init_ranks) if not isinstance(
-            init_ranks, torch.Tensor) else init_ranks).to(dev0, torch.float32)
-    pr = [pr0.to(x, copy=True) for x in devs]
+            init_ranks, torch.Tensor) else init_ranks).to(home, torch.float32)
+    pr = mesh.each(lambda s: pr0.to(devs[s], copy=True))
     chunks = _replicated_chunks(sg)
-    trip = _Trip(dev0) if tripwire_every else None
+    trip = _Trip(home) if tripwire_every else None
     res_rows, shard_rows = [], []
     delta, it = 1.0, 0
     while delta > tol and it < max_iter:
-        new = all_gather(mesh, [_pagerank_shard_body(
+        new = all_gather(mesh, mesh.each(lambda s: _pagerank_shard_body(
             pr[s], inv_r[s], reset_own[s], dang_r[s], recv[s], send[s], sums[s], wts[s],
-            vc, alpha) for s in range(d)])
+            vc, alpha)))
         if trip is not None and (it + 1) % tripwire_every == 0:
-            _rank_tripwire(trip, chunks(new), it, dev0)
+            _rank_tripwire(trip, mesh, chunks(new), it)
         if telemetry:
-            dl, per = _residual_row(chunks(new), chunks(pr), dev0)
+            dl, per = _residual_row(mesh, chunks(new), chunks(pr))
             res_rows.append(dl)
             shard_rows.append(per)
         else:
-            dl = (new[0] - pr[0]).abs().sum()
+            # the full vector is the same on every shard: shard 0's delta
+            dl = agree(mesh, (new[h] - pr[h]).abs().sum())
         delta = float(dl)
         pr = new
         it += 1
     if trip is not None:
-        _rank_tripwire(trip, chunks(pr), it - 1, dev0)
+        _rank_tripwire(trip, mesh, chunks(pr), it - 1)
         trip.raise_if_tripped()
-    ranks = pr[0][:v]
+    ranks = pr[h][:v]
     if not telemetry:
         return ranks
     res = (torch.stack(res_rows).cpu().numpy() if res_rows

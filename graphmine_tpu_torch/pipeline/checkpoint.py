@@ -13,7 +13,9 @@ Counterpart of ``graphmine_tpu/pipeline/checkpoint.py`` on one device:
   two generations and rollback; the loader returns the whole label
   vector, so a checkpoint written on D shards resumes on D' (re-shard on
   restore). The manifest has the JAX package's fields, so either package
-  loads the other's;
+  loads the other's. From a process mesh each process writes its own
+  shard files, and the first shard's process writes the manifest once
+  every file is down;
 - :func:`load_newest`: the resume entry point, the newer of the two
   formats (one corrupt beyond its rollback does not veto the other);
 - the graph fingerprint, file and manifest hashes, fsync helpers and the
@@ -284,45 +286,127 @@ def _sharded_prev_dir(gen_dir: str) -> str:
 
 def save_sharded(checkpoint_dir: str, labels, iteration: int, tag: str = "lpa",
                  fingerprint: str | None = None, num_shards: int | None = None,
-                 sink=None) -> str:
+                 sink=None, mesh=None) -> str:
     """Durably save (labels, iteration) as a manifest of ``num_shards``
-    per-shard files (default 1; the driver passes its mesh size): every
-    shard and the manifest land in a tmp generation directory, each file
-    fsync'd, the manifest last; the current generation rotates to
-    ``*.prev`` and one directory rename publishes the new one, so a kill
-    at any point leaves the old or the new generation whole. Stale tmp
-    generations of killed saves are swept first. ``sink`` gets a
-    ``checkpoint_save`` record. Returns the generation directory."""
+    per-shard files (default the ``mesh``'s size, else 1; the driver
+    passes its mesh size): every shard and the manifest land in a tmp
+    generation directory, each file fsync'd, the manifest last; the
+    current generation rotates to ``*.prev`` and one directory rename
+    publishes the new one, so a kill at any point leaves the old or the
+    new generation whole. Stale tmp generations of killed saves are swept
+    first. ``sink`` gets a ``checkpoint_save`` record. Returns the
+    generation directory.
+
+    From a process ``mesh`` (every process holding the whole ``labels``,
+    as the sharded entries return them) each process writes the shard
+    files of its own shards (file ``s`` by shard ``s % D``), and the
+    first shard's process writes the manifest behind a barrier once every
+    file is down, then publishes; every process returns after the
+    publish. The files on disk are those of a one-process save."""
+    t0 = time.perf_counter()
+    labels_np = _host_array(labels)
+    if num_shards is None:
+        num_shards = 1 if mesh is None else mesh.size
+    num_shards = int(num_shards)
+    if num_shards < 1:
+        raise ValueError("num_shards must be >= 1")
+    gen = sharded_dir(checkpoint_dir, tag)
+    v = len(labels_np)
+    # even chunks, the last takes the remainder; the manifest records them
+    chunk = -(-v // num_shards) if v else 0
+    if mesh is None or not mesh.process:
+        tmp = _fresh_tmp_generation(checkpoint_dir, gen)
+        written = _write_shards(tmp, labels_np, chunk, range(num_shards))
+        _publish_sharded(checkpoint_dir, gen, tmp, written, tag, iteration, fingerprint,
+                         num_shards, v, labels_np.dtype)
+    else:
+        home = _process_home(mesh)
+        lead = home == 0
+        tmp = _on_every_process(
+            mesh, lambda: _fresh_tmp_generation(checkpoint_dir, gen) if lead else None)[0]
+        parts = _on_every_process(
+            mesh, lambda: _write_shards(tmp, labels_np, chunk,
+                                        range(home, num_shards, mesh.size)))
+        written = {s: entry for part in parts for s, entry in part.items()}
+        # every file is down; the lead publishes, and every process
+        # returns once it has
+        _on_every_process(mesh, lambda: _publish_sharded(
+            checkpoint_dir, gen, tmp, written, tag, iteration, fingerprint, num_shards, v,
+            labels_np.dtype) if lead else None)
+    if sink is not None:
+        sink.emit("checkpoint_save", path=gen, iteration=int(iteration), format="sharded",
+                  shards=int(num_shards), bytes=_tree_bytes(gen),
+                  seconds=round(time.perf_counter() - t0, 6))
+    return gen
+
+
+def _process_home(mesh) -> int:
+    """The shard of this process on a process mesh (raises outside it)."""
+    if not mesh.local:
+        raise ValueError(f"this process holds no shard of {mesh!r}")
+    return mesh.local[0]
+
+
+def _on_every_process(mesh, fn) -> list:
+    """``fn()`` on this process, then every process's result in shard
+    order on each; when one process's ``fn`` raised, every process raises
+    (its own error, or one naming the failed shard), so none is left
+    waiting in a later collective."""
+    import torch.distributed as dist
+
+    try:
+        mine, error = (None, fn()), None
+    except Exception as e:  # made global below, then re-raised
+        mine, error = (f"{type(e).__name__}: {e}", None), e
+    every = [None] * mesh.size
+    dist.all_gather_object(every, mine, group=mesh.group)
+    if error is not None:
+        raise error
+    failed = [(s, msg) for s, (msg, _) in enumerate(every) if msg]
+    if failed:
+        raise RuntimeError(f"shard {failed[0][0]}'s process failed: {failed[0][1]}")
+    return [out for _, out in every]
+
+
+def _fresh_tmp_generation(checkpoint_dir: str, gen: str) -> str:
+    """A new tmp generation directory, stale ones of killed saves swept."""
     import glob
     import shutil
 
-    t0 = time.perf_counter()
-    labels_np = _host_array(labels)
-    num_shards = 1 if num_shards is None else int(num_shards)
-    if num_shards < 1:
-        raise ValueError("num_shards must be >= 1")
     os.makedirs(checkpoint_dir, exist_ok=True)
-    gen = sharded_dir(checkpoint_dir, tag)
     tmp = f"{gen}.tmp.{os.getpid()}"
     for stale in glob.glob(gen + ".tmp.*"):
         shutil.rmtree(stale, ignore_errors=True)
     os.makedirs(tmp)
-    # even chunks, the last takes the remainder; the manifest records them
-    v = len(labels_np)
-    chunk = -(-v // num_shards) if v else 0
-    sizes, shas = [], []
-    for s in range(num_shards):
+    return tmp
+
+
+def _write_shards(tmp: str, labels_np: np.ndarray, chunk: int, shards) -> dict:
+    """Write shard files ``shards`` of the label vector into ``tmp``,
+    each fsync'd: ``{shard: (rows, sha256)}``."""
+    out = {}
+    for s in shards:
         part = labels_np[s * chunk: (s + 1) * chunk]
         path = shard_file(tmp, s)
         np.save(path, part)
         _fsync_file(path)
-        sizes.append(int(len(part)))
-        shas.append(_file_sha256(path))
+        out[s] = (int(len(part)), _file_sha256(path))
+    return out
+
+
+def _publish_sharded(checkpoint_dir, gen, tmp, written, tag, iteration, fingerprint,
+                     num_shards, v, dtype) -> None:
+    """The manifest (last, fsync'd) into ``tmp``, then the rotation of the
+    current generation to ``*.prev`` and the rename that publishes."""
+    import shutil
+
+    sizes = [written[s][0] for s in range(num_shards)]
+    shas = [written[s][1] for s in range(num_shards)]
     body = {
         "version": _MANIFEST_VERSION, "tag": tag, "iteration": int(iteration),
         "fingerprint": fingerprint or "", "num_shards": int(num_shards),
         "mesh_shape": [int(num_shards)], "num_vertices": int(v),
-        "dtype": str(labels_np.dtype), "shard_sizes": sizes, "shard_sha256": shas,
+        "dtype": str(dtype), "shard_sizes": sizes, "shard_sha256": shas,
     }
     body["checksum"] = _manifest_checksum(body)
     man_tmp = os.path.join(tmp, MANIFEST_NAME + ".tmp")
@@ -339,11 +423,6 @@ def save_sharded(checkpoint_dir: str, labels, iteration: int, tag: str = "lpa",
         os.replace(gen, prev)
     os.replace(tmp, gen)
     _fsync_dir(checkpoint_dir)
-    if sink is not None:
-        sink.emit("checkpoint_save", path=gen, iteration=int(iteration), format="sharded",
-                  shards=int(num_shards), bytes=_tree_bytes(gen),
-                  seconds=round(time.perf_counter() - t0, 6))
-    return gen
 
 
 def _read_sharded_verified(gen_dir: str, fingerprint: str | None):
@@ -407,14 +486,21 @@ def _read_sharded_confirmed(gen_dir: str, fingerprint: str | None):
 
 
 def load_sharded(checkpoint_dir: str, tag: str = "lpa", fingerprint: str | None = None,
-                 sink=None):
+                 sink=None, mesh=None):
     """``(labels int32 array [V], iteration)`` of the sharded generation,
     or None when none exists, whatever shard count wrote it. A corrupt
     current generation rolls back to ``*.prev`` (the condemned directory
     kept at ``*.corrupt``, ``checkpoint_rollback`` records on ``sink``); a
     wrong ``fingerprint`` raises :class:`FingerprintMismatch` without
     rollback. The JAX package's removed orbax format raises
-    :class:`CheckpointCorruptionError`, as there."""
+    :class:`CheckpointCorruptionError`, as there. From a process ``mesh``
+    the first shard's process loads (and alone rolls back), and every
+    process gets what it read."""
+    if mesh is not None and mesh.process:
+        lead = _process_home(mesh) == 0
+        return _on_every_process(
+            mesh, lambda: load_sharded(checkpoint_dir, tag, fingerprint, sink) if lead
+            else None)[0]
     gen = sharded_dir(checkpoint_dir, tag)
     if not os.path.exists(gen) and not os.path.exists(_sharded_prev_dir(gen)):
         legacy = os.path.join(checkpoint_dir, f"{tag}_orbax")

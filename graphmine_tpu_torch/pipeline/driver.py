@@ -317,11 +317,17 @@ def _mesh_devices(config: PipelineConfig, device: torch.device) -> list:
     :func:`~graphmine_tpu_torch.device.visible_devices` of ``device``'s
     kind, ``device`` first
     (:func:`~graphmine_tpu_torch.parallel.mesh.device_mesh`); more than
-    are visible raises, as the JAX pipeline's mesh does."""
+    are visible raises, as the JAX pipeline's mesh does. The driver's
+    mesh lives in one process, as the JAX driver's does: inside a
+    ``torch.distributed`` world (whose meshes span processes) it raises."""
     from graphmine_tpu_torch.parallel.mesh import device_mesh
 
     n = config.num_devices or len(visible_devices(device))
-    return list(device_mesh(n, device).devices)
+    mesh = device_mesh(n, device)
+    if mesh.process:
+        raise ValueError("the pipeline driver runs its mesh inside one process, as the JAX "
+                         "package's driver does; run it outside a torch.distributed world")
+    return list(mesh.devices)
 
 
 def _virtual(devices) -> dict:

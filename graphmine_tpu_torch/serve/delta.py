@@ -10,10 +10,12 @@ Counterpart of ``graphmine_tpu/serve/delta.py``:
    keep LPA multiplicity), each delete removes one matching directed
    occurrence (multiset semantics, earliest position first);
 3. **repair**: the previous snapshot's labels seed the new graph's LPA and
-   CC on the ingestor's device (``_warm_lpa``: the sort-based
-   ``lpa_superstep`` to a fixpoint, period-2 cycles exit early;
-   ``_warm_cc``: min-propagation from valid upper bounds) under a
-   frontier-derived superstep budget;
+   CC on the ingestor's device (``_warm_lpa``: LPA supersteps to a
+   fixpoint, period-2 cycles exit early; ``_warm_cc``: min-propagation
+   from valid upper bounds) under a frontier-derived superstep budget.
+   The supersteps, the check's and the cold fallback's run on the new
+   graph's degree-bucketed plan, built once an apply, whose labels are
+   the sort-based supersteps' (the JAX package's) bit for bit;
 4. **verify**: one exact superstep of the new graph at sampled vertices
    (every delta-affected vertex plus ``np.random.default_rng(version)``
    draws, the JAX package's samples) must leave the repaired labels
@@ -35,7 +37,9 @@ on the ingestor's device (the distinct cards, or a virtual mesh with
 the cold fallback go through the sharded entries of
 :mod:`graphmine_tpu_torch.parallel.sharded`, on the ``sharded_2d``
 partition past the planner's crossover (the per-peer boundary exchange)
-and on the plain one-all-gather partition otherwise. Labels, CC labels,
+and on the one-all-gather partition with its bucket plan otherwise (the
+``sort`` family: the bucketed LPA body, whose labels are the sort
+body's). Labels, CC labels,
 methods and versions equal the single-shard ingestor's, and with the
 iterations and the family the JAX package's sharded ingestor's (the 2-D
 CC jumps pointers only inside a shard's chunk, so its superstep count may
@@ -329,22 +333,45 @@ def _device_labels(labels, graph) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(labels, dtype=np.int32)).to(graph.device)
 
 
+def _superstep(graph, kind: str, labels: np.ndarray):
+    """The exact LPA (``kind="lpa"``) or CC superstep of ``graph`` for a
+    run from ``labels``: on the graph's degree-bucketed plan, built once
+    per graph (so once an apply, which builds a new graph) and shared by
+    the warm repair, the sampled check and the cold fallback, its labels
+    the sort-based superstep's bit for bit; on the sort-based superstep
+    when ``labels`` leave ``[0, V)``, which the plan's hub histogram
+    indexes by (the supersteps keep labels within the range they start
+    in)."""
+    from graphmine_tpu_torch.ops.bucketed_mode import lpa_superstep_bucketed
+    from graphmine_tpu_torch.ops.cc import cc_superstep, cc_superstep_bucketed
+    from graphmine_tpu_torch.ops.lpa import _cached_auto_plan, lpa_superstep
+
+    lbl = np.asarray(labels)
+    if lbl.size and (lbl.min() < 0 or lbl.max() >= graph.num_vertices):
+        if kind == "lpa":
+            return lambda x: lpa_superstep(x, graph)
+        return lambda x: cc_superstep(x, graph)
+    plan, _, _ = _cached_auto_plan(graph, "bucketed")
+    if kind == "lpa":
+        return lambda x: lpa_superstep_bucketed(x, graph, plan)
+    return lambda x: cc_superstep_bucketed(x, plan)
+
+
 def _warm_lpa(graph, init_labels: np.ndarray, budget: int):
     """Warm-start synchronous LPA to a fixpoint, bounded by ``budget``:
-    one sort-based superstep (:func:`~graphmine_tpu_torch.ops.lpa.lpa_superstep`)
-    per iteration on the graph's device. Returns ``(labels, iterations,
-    converged)``.
+    one superstep (:func:`_superstep`, the labels of the sort-based
+    :func:`~graphmine_tpu_torch.ops.lpa.lpa_superstep`) per iteration on
+    the graph's device. Returns ``(labels, iterations, converged)``.
 
     Period-2 cycles (synchronous LPA's livelock on e.g. bipartite hub
     structures) are detected (state t+1 == state t-1) and exit early as
     ``converged=False``. Each superstep reads two booleans on the host,
     as the JAX package does."""
-    from graphmine_tpu_torch.ops.lpa import lpa_superstep
-
+    step = _superstep(graph, "lpa", init_labels)
     labels = _device_labels(init_labels, graph)
     prev = None
     for it in range(budget):
-        new = lpa_superstep(labels, graph)
+        new = step(labels)
         if not bool(torch.any(new != labels)):
             return new.cpu().numpy(), it + 1, True
         if prev is not None and not bool(torch.any(new != prev)):
@@ -379,11 +406,10 @@ def _warm_cc(graph, init_labels: np.ndarray, budget: int):
     """Warm-start min-propagation CC to a fixpoint (monotone, so any valid
     upper-bound init converges to THE fixpoint). Returns ``(labels,
     iterations, converged)``."""
-    from graphmine_tpu_torch.ops.cc import cc_superstep
-
+    step = _superstep(graph, "cc", init_labels)
     labels = _device_labels(init_labels, graph)
     for it in range(budget):
-        new = cc_superstep(labels, graph)
+        new = step(labels)
         if not bool(torch.any(new != labels)):
             return new.cpu().numpy(), it + 1, True
         labels = new
@@ -452,11 +478,7 @@ def sampled_exact_check(
     if shards is not None:
         nxt = _sharded_exact_step(shards, lbl, kind)
     else:
-        from graphmine_tpu_torch.ops.cc import cc_superstep
-        from graphmine_tpu_torch.ops.lpa import lpa_superstep
-
-        step = lpa_superstep if kind == "lpa" else cc_superstep
-        nxt = step(_device_labels(lbl, graph), graph).cpu().numpy()
+        nxt = _superstep(graph, kind, lbl)(_device_labels(lbl, graph)).cpu().numpy()
     samples = np.asarray(samples, np.int64)
     samples = samples[(samples >= 0) & (samples < v)]
     bad = int((nxt[samples] != lbl[samples]).sum())
@@ -652,35 +674,26 @@ def cold_recompute(graph, budget: int = 0, shards=None):
     cycle-stopped bounded recompute, and every delta on such a graph
     routes here through the repair fallback.
 
-    ``shards``, a ``(sharded_graph, mesh)`` pair, runs it through
-    ``sharded_lpa_fixpoint`` and ``sharded_connected_components``. A run
-    that does not converge is probed with two more supersteps: back at
-    its start means it ended inside a 2-cycle, and it is replayed one
-    superstep at a time with :func:`_warm_lpa`'s exit, so the labels are
-    the single-device oracle's cycle-stopped state (not a phase that the
-    budget's parity picks); a run still converging is left as it is."""
+    ``shards``, a ``(sharded_graph, mesh)`` pair, runs the same loop
+    through the sharded entries (:func:`_warm_lpa_sharded`: one superstep
+    at a time with :func:`_warm_lpa`'s exits, so a 2-cycle stops where the
+    single-device oracle stops, never at a phase the budget's parity
+    picks) and ``sharded_connected_components``."""
     v = graph.num_vertices
     budget = budget or frontier_budget(v, v)
     if shards is not None:
-        from graphmine_tpu_torch.parallel.sharded import (
-            sharded_connected_components,
-            sharded_lpa_fixpoint,
-        )
+        from graphmine_tpu_torch.parallel.sharded import sharded_connected_components
 
         sg, mesh = shards
-        labels, it_l, conv = sharded_lpa_fixpoint(sg, mesh, max_iter=budget)
-        labels = labels.cpu().numpy()
-        if not conv:
-            probe, _, _ = sharded_lpa_fixpoint(sg, mesh, max_iter=2, init_labels=labels)
-            if np.array_equal(probe.cpu().numpy(), labels):
-                labels, it_l, _ = _warm_lpa_sharded(
-                    shards, np.arange(v, dtype=np.int32), budget)
+        labels, it_l, _ = _warm_lpa_sharded(shards, np.arange(v, dtype=np.int32), budget)
         cc = sharded_connected_components(sg, mesh).cpu().numpy()
         return labels, cc, int(it_l)
     from graphmine_tpu_torch.ops.cc import connected_components
+    from graphmine_tpu_torch.ops.lpa import _cached_auto_plan
 
     labels, it_l, _ = _warm_lpa(graph, np.arange(v, dtype=np.int32), budget)
-    cc = connected_components(graph).cpu().numpy()
+    plan, _, _ = _cached_auto_plan(graph, "bucketed")
+    cc = connected_components(graph, plan=plan).cpu().numpy()
     return labels, cc, it_l
 
 
@@ -821,6 +834,10 @@ class DeltaIngestor:
             from graphmine_tpu_torch.parallel.mesh import device_mesh
 
             self.mesh = device_mesh(num_shards, self.device)
+            if self.mesh.process:
+                raise ValueError("the sharded repair runs its mesh inside one process, as "
+                                 "the JAX package's ingestor does; ingest outside a "
+                                 "torch.distributed world")
         self.store = store
         self.sink = sink
         self.check_samples = check_samples
@@ -976,7 +993,10 @@ class DeltaIngestor:
         propagation through the sharded entries and the same
         verify/fallback tail. Past the 2-D crossover the partition is the
         ``sharded_2d`` one, whose supersteps ship only the per-peer
-        boundaries; the labels are the same either way. The 2-D CC jumps
+        boundaries; below it (the ``sort`` family) the one-all-gather
+        partition carries its bucket plan, so the LPA supersteps run the
+        bucketed body and CC the sort body; the labels are the same
+        either way. The 2-D CC jumps
         pointers only within a shard's chunk, so it gets a budget scaled
         by D (at most 512). The warm LPA steps one superstep at a time
         (:func:`_warm_lpa_sharded`) and so leaves a 2-cycle early, as the
@@ -998,9 +1018,12 @@ class DeltaIngestor:
         mesh = self.mesh
         family = self._resolve_shard_family(graph)
         self.last_shard_family = family
+        two_d = family == "sharded_2d"
         sg = shard_graph_arrays(
-            partition_graph(graph, mesh=mesh, build_plan2d=family == "sharded_2d"), mesh)
-        emit_shard_exchange(self.sink, "delta_repair", sg, version=self.snapshot.version,
+            partition_graph(graph, mesh=mesh, build_plan2d=two_d, build_bucket_plan=not two_d),
+            mesh)
+        emit_shard_exchange(self.sink, "delta_repair", sg, family=family,
+                            version=self.snapshot.version,
                             **({"virtual": True} if mesh.virtual else {}))
         init_lpa = np.arange(v, dtype=np.int32)
         init_lpa[: len(self.labels)] = self.labels

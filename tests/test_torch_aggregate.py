@@ -16,6 +16,7 @@ from graphmine_tpu.graph.container import build_graph as jbuild_graph
 from graphmine_tpu_torch.graph.container import build_graph
 from graphmine_tpu_torch.ops.aggregate import aggregate_messages, pregel
 from graphmine_tpu_torch.ops.cc import connected_components
+from _torch_threads import one_torch_thread  # noqa: F401
 
 jagg = importlib.import_module("graphmine_tpu.ops.aggregate")
 

@@ -35,6 +35,7 @@ from graphmine_tpu_torch.ops.lof import (
     select_lof_impl,
 )
 from graphmine_tpu_torch.pipeline.metrics import MetricsSink
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _blob(n, f=8, seed=42):

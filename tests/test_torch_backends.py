@@ -15,6 +15,7 @@ from graphmine_tpu.pipeline.config import parse_args as jparse_args
 from graphmine_tpu_torch.io.edges import from_arrays
 from graphmine_tpu_torch.pipeline import PipelineConfig, backends, run_pipeline
 from graphmine_tpu_torch.pipeline.config import parse_args
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _real_pyspark_absent():

@@ -62,6 +62,7 @@ from graphmine_tpu_torch.pipeline.config import PipelineConfig
 from graphmine_tpu_torch.pipeline.driver import run_pipeline
 from graphmine_tpu_torch.pipeline.metrics import MetricsSink
 from graphmine_tpu_torch.testing import faults
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 RTOL = 1e-5

@@ -30,6 +30,7 @@ from graphmine_tpu_torch.ops.cc import (
     connected_components,
 )
 from graphmine_tpu_torch.pipeline.metrics import MetricsSink
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _graph(kind):

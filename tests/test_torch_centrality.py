@@ -19,6 +19,7 @@ from graphmine_tpu.graph.container import build_graph as jbuild_graph
 
 from graphmine_tpu_torch.graph.container import build_graph
 from graphmine_tpu_torch.ops import centrality as tc
+from _torch_threads import one_torch_thread  # noqa: F401
 
 jc = importlib.import_module("graphmine_tpu.ops.centrality")
 RTOL, ATOL = 1e-5, 1e-7

@@ -24,6 +24,7 @@ import chip_smoke  # noqa: E402
 
 from graphmine_tpu_torch.io.edges import load_edge_list  # noqa: E402
 from graphmine_tpu_torch.ops.knn import _tiled_knn  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _run(cwd):
@@ -801,18 +802,7 @@ def test_mesh_only_exits_nonzero_without_cuda():
     assert '"ok"' not in out.stdout and "CUDA is not available" in out.stderr
 
 
-@pytest.fixture
-def one_thread():
-    """One intra-op thread: the shard bodies are many small ops, whose
-    thread pools would otherwise oversubscribe the cores the other test
-    workers share."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
-def test_mesh_small_phase_on_the_cpu(tmp_path, one_thread):
+def test_mesh_small_phase_on_the_cpu(tmp_path):
     """Phase 11a with the CPU in the card's place (operators on a
     512-vertex planted graph, pipelines on phase 4's parquet): every gate
     holds, and the checks refuse a result that differs."""
@@ -833,7 +823,7 @@ def test_mesh_small_phase_on_the_cpu(tmp_path, one_thread):
         chip_smoke.check_mesh_ops(ops, bad)
 
 
-def test_superstep_points_agree_on_the_cpu(monkeypatch, one_thread):
+def test_superstep_points_agree_on_the_cpu(monkeypatch):
     from graphmine_tpu_torch import datasets
     from graphmine_tpu_torch.graph.container import build_graph
 
@@ -896,7 +886,7 @@ def test_small_deltas_skip_ids_are_7a_draw():
     assert got != chip_smoke.small_deltas(snap, seed=5)
 
 
-def test_serve_mesh_phase_on_the_cpu(tmp_path, monkeypatch, one_thread):
+def test_serve_mesh_phase_on_the_cpu(tmp_path, monkeypatch):
     """Phase 12 with the CPU in the card's place, on a 512-vertex planted
     store standing for both phase 4's and phase 5's: every gate holds, the
     child process's included; the CPU side's check refuses a publish or an
@@ -945,3 +935,39 @@ def test_serve_mesh_phase_on_the_cpu(tmp_path, monkeypatch, one_thread):
     bad["sharded_2d"]["applies"][0]["iterations"] += 1
     with pytest.raises(RuntimeError, match="sharded_2d"):
         chip_smoke.check_cpu_chains(job, bad)
+
+
+def test_parses_dist_only():
+    assert chip_smoke.parse_args(["--dist-only"]).dist_only
+    assert not chip_smoke.parse_args([]).dist_only
+    with pytest.raises(SystemExit):
+        chip_smoke.parse_args(["--dist-only", "--mesh-only"])
+
+
+def test_dist_only_exits_nonzero_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the smoke would run")
+    out = subprocess.run([sys.executable, "chip_smoke.py", "--dist-only"], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and "CUDA is not available" in out.stderr
+
+
+def test_dist_scale_check_holds_labels_and_backend(tmp_path):
+    """13b's check: each rank's labels and CC equal the reference's, the
+    virtual gloo world as asked; a changed label or another backend fails."""
+    ref = {"labels": np.arange(6, dtype=np.int32), "cc_labels": np.zeros(6, np.int32)}
+    rank = {"labels": ref["labels"], "cc": ref["cc_labels"], "cc_supersteps": 3,
+            "lpa_ms": [1.0, 2.0, 3.0], "exchange_ms": [0.5], "build_seconds": 0.1,
+            "partition_seconds": 0.2, "peak_bytes": 10, "num_messages": 12,
+            "backend": "gloo", "virtual": True}
+    for r in range(chip_smoke.DIST_SCALE_RANKS):
+        np.savez(tmp_path / f"rank{r}.npz", **rank)
+    line = chip_smoke.check_scale(tmp_path, ref)
+    assert chip_smoke.check_keys(line, chip_smoke.DIST_SCALE_KEYS, "dist scale") is line
+    assert line["lpa_ms"] == [2.0] * chip_smoke.DIST_SCALE_RANKS and line["cc_supersteps"] == 3
+    with pytest.raises(RuntimeError, match="virtual"):
+        chip_smoke.check_scale(tmp_path, ref, virtual=False)
+    np.savez(tmp_path / "rank1.npz", **{**rank, "labels": ref["labels"][::-1]})
+    with pytest.raises(RuntimeError, match="rank 1: 5 LPA supersteps"):
+        chip_smoke.check_scale(tmp_path, ref)

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from graphmine_tpu_torch.ops import cluster_metrics as cm
+from _torch_threads import one_torch_thread  # noqa: F401
 
 jcm = importlib.import_module("graphmine_tpu.ops.cluster_metrics")
 

@@ -23,6 +23,7 @@ import torch
 
 from graphmine_tpu import compat as jcompat
 from graphmine_tpu_torch import compat as tcompat
+from _torch_threads import one_torch_thread  # noqa: F401
 
 TESTS = Path(__file__).resolve().parent
 REPO = TESTS.parent

@@ -19,6 +19,7 @@ from graphmine_tpu import datasets as jdatasets
 from graphmine_tpu.io import native as jnative
 
 from graphmine_tpu_torch import datasets
+from _torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 

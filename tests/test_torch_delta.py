@@ -33,6 +33,7 @@ from graphmine_tpu_torch.serve import delta as pd
 from graphmine_tpu_torch.serve.query import QueryEngine
 from graphmine_tpu_torch.serve.snapshot import SnapshotStore
 from graphmine_tpu_torch.testing import faults
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _lof_close(got, want):
@@ -458,14 +459,8 @@ FAMILY_ENV = {"sort": str(1 << 62), "sharded_2d": "1"}
 
 @pytest.fixture
 def virtual4(monkeypatch):
-    """A 4-shard virtual CPU mesh for the port, one intra-op thread."""
-    import torch
-
+    """A 4-shard virtual CPU mesh for the port."""
     monkeypatch.setenv("GRAPHMINE_VIRTUAL_DEVICES", "4")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("family", ["sort", "sharded_2d"])

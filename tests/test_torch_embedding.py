@@ -15,6 +15,7 @@ from graphmine_tpu.graph.container import build_graph as jbuild_graph
 
 from graphmine_tpu_torch.graph.container import build_graph
 from graphmine_tpu_torch.ops import embedding as te
+from _torch_threads import one_torch_thread  # noqa: F401
 
 je = importlib.import_module("graphmine_tpu.ops.embedding")
 MIN_COS = 0.9999

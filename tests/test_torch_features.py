@@ -18,6 +18,7 @@ from graphmine_tpu_torch import datasets
 from graphmine_tpu_torch.graph.container import build_graph
 from graphmine_tpu_torch.ops import triangles
 from graphmine_tpu_torch.ops.features import standardize, vertex_features
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 

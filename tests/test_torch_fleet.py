@@ -43,6 +43,7 @@ from graphmine_tpu_torch.serve import wal as pwal
 from graphmine_tpu_torch.serve.server import SnapshotServer
 from graphmine_tpu_torch.serve.snapshot import SnapshotStore
 from graphmine_tpu_torch.testing import faults
+from _torch_threads import one_torch_thread  # noqa: F401
 
 PKGS = {
     "jax": SimpleNamespace(

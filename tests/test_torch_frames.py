@@ -25,6 +25,7 @@ from graphmine_tpu.table import Table as JTable
 from graphmine_tpu_torch.frames import GraphFrame
 from graphmine_tpu_torch.io.edges import EdgeTable
 from graphmine_tpu_torch.table import Table
+from _torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
 

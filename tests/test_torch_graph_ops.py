@@ -13,6 +13,7 @@ from graphmine_tpu.graph.container import build_graph as jbuild_graph
 
 from graphmine_tpu_torch.graph.container import build_graph
 from graphmine_tpu_torch.ops import degrees, kcore
+from _torch_threads import one_torch_thread  # noqa: F401
 
 jdegrees = importlib.import_module("graphmine_tpu.ops.degrees")
 jkcore = importlib.import_module("graphmine_tpu.ops.kcore")

@@ -79,18 +79,23 @@ def test_parser_is_the_ports_own_library(tmp_path):
 
 
 def test_package_exports_the_graph_ops_without_jax():
-    # the package-level names resolve to the port's own functions
+    # every package-level name (the JAX package's 93 exports) resolves to
+    # the port's own function, class or module with no jax in the process
     code = _BLOCKED + (
+        "import types\n"
         "import graphmine_tpu_torch as p\n"
         "names = [n for n in p.__all__ if n != 'resolve_device']\n"
-        "mods = {getattr(p, n).__module__ for n in names}\n"
+        "vals = [getattr(p, n) for n in names]\n"
+        "mods = {v.__name__ if isinstance(v, types.ModuleType) else v.__module__\n"
+        "        for v in vals}\n"
         "assert all(m.startswith('graphmine_tpu_torch.') for m in mods), mods\n"
+        "assert sys.modules.get('jax') is None and sys.modules.get('graphmine_tpu') is None\n"
         "print(len(names))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 25
+    assert int(out.stdout.strip()) == 93
 
 
 FRAMES_SLICE = ("ops._threefry", "ops.pagerank", "ops.centrality", "ops.mis", "ops.ktruss",

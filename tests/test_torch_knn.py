@@ -21,6 +21,7 @@ import torch
 
 from graphmine_tpu_torch.ops.knn import knn
 from graphmine_tpu_torch.ops.lof import auroc, lof_from_knn, lof_scores, select_lof_impl
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _tie_free_points(n, f, seed=0):

@@ -11,6 +11,7 @@ from graphmine_tpu.graph.container import build_graph as jbuild_graph
 from graphmine_tpu_torch.graph.container import build_graph
 from graphmine_tpu_torch.ops import ktruss as tk
 from graphmine_tpu_torch.ops.triangles import triangle_count
+from _torch_threads import one_torch_thread  # noqa: F401
 
 jk = importlib.import_module("graphmine_tpu.ops.ktruss")
 

@@ -10,6 +10,7 @@ from graphmine_tpu.graph.container import build_graph as jbuild_graph
 
 from graphmine_tpu_torch.graph.container import build_graph
 from graphmine_tpu_torch.ops import linkpred as tl
+from _torch_threads import one_torch_thread  # noqa: F401
 
 jl = importlib.import_module("graphmine_tpu.ops.linkpred")
 

@@ -38,6 +38,7 @@ from graphmine_tpu_torch.pipeline import PipelineConfig, driver, run_pipeline
 from graphmine_tpu_torch.pipeline.checkpoint import graph_fingerprint
 from graphmine_tpu_torch.pipeline.config import parse_args
 from graphmine_tpu_torch.serve.snapshot import SnapshotStore
+from _torch_threads import one_torch_thread  # noqa: F401
 
 jlouvain = importlib.import_module("graphmine_tpu.ops.louvain")
 jmodularity = importlib.import_module("graphmine_tpu.ops.modularity")

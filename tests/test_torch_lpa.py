@@ -28,6 +28,7 @@ from graphmine_tpu_torch.ops.bucketed_mode import build_graph_and_plan, lpa_supe
 from graphmine_tpu_torch.ops.modularity import modularity
 from graphmine_tpu_torch.ops.outliers import masked_label_propagation, recursive_lpa_outliers
 from graphmine_tpu_torch.ops.segment import segment_mode
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 

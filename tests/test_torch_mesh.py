@@ -78,12 +78,67 @@ def test_surviving_and_multislice_meshes_follow_jax(virtual8):
             fn(3, devices=devs) if devs is not None else fn(3)
 
 
-def test_initialize_distributed():
-    # no cluster to join: False, as the JAX package answers on one host
+def test_initialize_distributed(monkeypatch):
+    # no cluster to join: False, as the JAX package answers on one host;
+    # a cluster named only in part raises and joins nothing (the whole
+    # contract, joining included, is held in a world of processes by
+    # tests/test_torch_distributed.py)
+    for key in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
     assert tmesh.initialize_distributed() is False
-    with pytest.raises(NotImplementedError, match="A7c"):
-        tmesh.initialize_distributed(coordinator_address="localhost:1234", num_processes=2,
-                                     process_id=0)
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(ValueError, match=r"process_id \(or RANK\)"):
+        tmesh.initialize_distributed(device="cpu")
+    monkeypatch.delenv("WORLD_SIZE")
+    with pytest.raises(ValueError, match="num_processes"):
+        tmesh.initialize_distributed(coordinator_address="localhost:1234", process_id=0,
+                                     device="cpu")
+    with pytest.raises(TypeError, match="unknown arguments"):
+        tmesh.initialize_distributed(cluster_detection_method="slurm")
+    assert tmesh.world() is None
+
+
+# (device, rank, size, local_device_ids, cards, LOCAL_RANK, LOCAL_WORLD_SIZE,
+#  GRAPHMINE_VIRTUAL_DEVICES) -> (device, backend, virtual), or the error's text
+PICKS = [
+    pytest.param("cpu", 3, 4, None, 0, None, None, None, ("cpu", "gloo", False), id="cpu"),
+    # two hosts of 8 cards, 16 ranks, started the JAX way: the card named
+    pytest.param("cuda", 9, 16, [1], 8, None, None, None, ("cuda:1", "nccl", False),
+                 id="jax-multihost"),
+    pytest.param("cuda", 9, 16, None, 8, "1", "8", None, ("cuda:1", "nccl", False),
+                 id="torchrun-multihost"),
+    pytest.param("cuda", 2, 4, None, 4, None, None, None, ("cuda:2", "nccl", False),
+                 id="one-host-no-local"),
+    pytest.param("cuda", 1, 4, None, 1, "1", "4", "4", ("cuda:0", "gloo", True),
+                 id="virtual"),
+    # a world larger than the host, placed by nothing: never a virtual world
+    pytest.param("cuda", 9, 16, None, 8, None, None, "16", "LOCAL_RANK and LOCAL_WORLD_SIZE",
+                 id="multihost-unplaced"),
+    pytest.param("cuda", 1, 2, None, 1, "1", None, None, "LOCAL_RANK and LOCAL_WORLD_SIZE",
+                 id="partial-local"),
+    pytest.param("cuda", 1, 4, None, 1, "1", "4", None, "GRAPHMINE_VIRTUAL_DEVICES=4",
+                 id="virtual-not-asked"),
+    pytest.param("cuda", 0, 2, [8], 8, None, None, None, "has 8 card", id="id-out-of-range"),
+]
+
+
+@pytest.mark.parametrize("device,rank,size,ids,cards,lrank,lsize,virtual,want", PICKS)
+def test_pick_device_places_each_rank(monkeypatch, device, rank, size, ids, cards, lrank, lsize,
+                                      virtual, want):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    for key, value in (("LOCAL_RANK", lrank), ("LOCAL_WORLD_SIZE", lsize),
+                       ("GRAPHMINE_VIRTUAL_DEVICES", virtual)):
+        if value is None:
+            monkeypatch.delenv(key, raising=False)
+        else:
+            monkeypatch.setenv(key, value)
+    if isinstance(want, str):
+        with pytest.raises(ValueError, match=want):
+            tmesh._pick_device(torch.device(device), rank, size, ids)
+        return
+    dev, backend, is_virtual = tmesh._pick_device(torch.device(device), rank, size, ids)
+    assert (str(dev), backend, is_virtual) == want
 
 
 def test_collectives_move_every_shard(virtual8):

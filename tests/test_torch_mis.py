@@ -11,6 +11,7 @@ from graphmine_tpu.graph.container import build_graph as jbuild_graph
 
 from graphmine_tpu_torch.graph.container import build_graph
 from graphmine_tpu_torch.ops import mis as tm
+from _torch_threads import one_torch_thread  # noqa: F401
 
 jm = importlib.import_module("graphmine_tpu.ops.mis")
 

@@ -20,6 +20,7 @@ from graphmine_tpu.io.edges import load_edge_list as jload_edge_list
 
 from graphmine_tpu_torch.io import native
 from graphmine_tpu_torch.io.edges import load_edge_list
+from _torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 

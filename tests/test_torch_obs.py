@@ -26,6 +26,7 @@ from graphmine_tpu_torch.pipeline.config import PipelineConfig
 from graphmine_tpu_torch.pipeline.metrics import MetricsSink, maybe_profile
 from graphmine_tpu_torch.pipeline.resilience import ResilienceConfig
 from graphmine_tpu_torch.testing import faults
+from _torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.obs
 

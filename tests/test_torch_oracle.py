@@ -6,6 +6,7 @@ import pytest
 
 from graphmine_tpu import oracle as jo
 from graphmine_tpu_torch import oracle as to
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _edges(seed, v, e):

@@ -32,6 +32,7 @@ from graphmine_tpu_torch.io.edges import _column_codes, load_parquet_edges
 from graphmine_tpu_torch.io.factorize import IncrementalFactorizer
 from graphmine_tpu_torch.pipeline import PipelineConfig, run_pipeline
 from graphmine_tpu_torch.pipeline.config import parse_args
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _column(ids, null_mask, dictionary: bool):

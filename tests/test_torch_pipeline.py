@@ -23,7 +23,6 @@ import functools
 
 import numpy as np
 import pytest
-import torch
 
 from graphmine_tpu.io import native as jnative
 from graphmine_tpu.pipeline.config import PipelineConfig as JPipelineConfig
@@ -36,6 +35,7 @@ from graphmine_tpu_torch.io.edges import load_edge_list
 from graphmine_tpu_torch.pipeline import driver
 from graphmine_tpu_torch.pipeline.config import parse_args
 from graphmine_tpu_torch.pipeline.driver import main
+from _torch_threads import one_torch_thread  # noqa: F401
 
 LOF_K = 32
 
@@ -316,26 +316,21 @@ def mesh_runs(tmp_path_factory):
     base = dict(data_path=str(path), data_format="edgelist", max_iter=5, outlier_method="both",
                 lof_k=LOF_K, num_devices=4)
     out = {}
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)  # many small shard ops: keep the workers' cores free
-    try:
-        with pytest.MonkeyPatch.context() as mp:
-            mp.setenv("GRAPHMINE_VIRTUAL_DEVICES", "4")
-            mp.setattr(jnative, "load_edge_list_chunked", lambda *a, **k: None)
-            mp.setattr(jnative, "load_edge_list_native", lambda *a, **k: None)
-            mp.setattr(driver, "load_edge_list",
-                       functools.partial(load_edge_list, use_native=False))
-            out["jax"] = jrun_pipeline(JPipelineConfig(**base, lof_impl="xla"))
-            for sched in ("replicated", "ring"):
-                out[sched] = run_pipeline(PipelineConfig(**base, schedule=sched,
-                                                         lof_impl="exact", device="cpu"))
-            mp.setenv("GRAPHMINE_HBM_BYTES", SCALE_OUT_HBM)
-            out["jax_scale_out"] = jrun_pipeline(JPipelineConfig(
-                **base, lof_impl="xla", snapshot_out=str(root / "jax_store")))
-            out["scale_out"] = run_pipeline(PipelineConfig(
-                **base, lof_impl="exact", device="cpu", snapshot_out=str(root / "port_store")))
-    finally:
-        torch.set_num_threads(threads)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("GRAPHMINE_VIRTUAL_DEVICES", "4")
+        mp.setattr(jnative, "load_edge_list_chunked", lambda *a, **k: None)
+        mp.setattr(jnative, "load_edge_list_native", lambda *a, **k: None)
+        mp.setattr(driver, "load_edge_list",
+                   functools.partial(load_edge_list, use_native=False))
+        out["jax"] = jrun_pipeline(JPipelineConfig(**base, lof_impl="xla"))
+        for sched in ("replicated", "ring"):
+            out[sched] = run_pipeline(PipelineConfig(**base, schedule=sched,
+                                                     lof_impl="exact", device="cpu"))
+        mp.setenv("GRAPHMINE_HBM_BYTES", SCALE_OUT_HBM)
+        out["jax_scale_out"] = jrun_pipeline(JPipelineConfig(
+            **base, lof_impl="xla", snapshot_out=str(root / "jax_store")))
+        out["scale_out"] = run_pipeline(PipelineConfig(
+            **base, lof_impl="exact", device="cpu", snapshot_out=str(root / "port_store")))
     out["stores"] = (JStore(str(root / "jax_store")).load(),
                      SnapshotStore(str(root / "port_store")).load())
     out["is_anomaly"] = is_anomaly[out["replicated"].edge_table.names.astype(np.int64)]

@@ -23,6 +23,7 @@ from graphmine_tpu_torch.kernels import knn_cuda
 from graphmine_tpu_torch.obs import costmodel, memmodel
 from graphmine_tpu_torch.ops.bucketed_mode import build_graph_and_plan
 from graphmine_tpu_torch.pipeline import planner
+from _torch_threads import one_torch_thread  # noqa: F401
 
 GRID_V = (100, 5_000, 1 << 17, 300_000)
 GRID_K = (8, 128, 200)

@@ -20,6 +20,7 @@ from graphmine_tpu_torch import datasets
 from graphmine_tpu_torch.pipeline.checkpoint import graph_fingerprint
 from graphmine_tpu_torch.serve.query import QueryEngine, _as_int_ids
 from graphmine_tpu_torch.serve.snapshot import SnapshotStore
+from _torch_threads import one_torch_thread  # noqa: F401
 
 V = 300
 

@@ -25,6 +25,7 @@ from graphmine_tpu_torch.obs import spans
 from graphmine_tpu_torch.pipeline import resilience as res
 from graphmine_tpu_torch.pipeline.metrics import MetricsSink
 from graphmine_tpu_torch.testing import faults
+from _torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.faults
 
@@ -347,10 +348,6 @@ def mesh_env(monkeypatch):
     monkeypatch.setattr(jnative, "load_edge_list_native", lambda *a, **k: None)
     monkeypatch.setattr(driver, "load_edge_list",
                         functools.partial(load_edge_list, use_native=False))
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)  # many small shard ops: keep the workers' cores free
-    yield
-    torch.set_num_threads(threads)
 
 
 def _mesh_cfg(pkg, path, **kw):

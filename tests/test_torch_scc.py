@@ -14,6 +14,7 @@ from graphmine_tpu.graph.container import build_graph as jbuild_graph
 from graphmine_tpu_torch.graph.container import build_graph
 from graphmine_tpu_torch.ops.cluster_metrics import adjusted_rand_index
 from graphmine_tpu_torch.ops.scc import strongly_connected_components
+from _torch_threads import one_torch_thread  # noqa: F401
 
 jscc = importlib.import_module("graphmine_tpu.ops.scc")
 

@@ -40,6 +40,7 @@ from graphmine_tpu_torch.serve import fleet_cli
 from graphmine_tpu_torch.serve.fleet import FleetConfig, FleetRouter, ReplicaSpec
 from graphmine_tpu_torch.serve.server import SnapshotServer
 from graphmine_tpu_torch.serve.snapshot import SnapshotStore
+from _torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 

@@ -40,6 +40,7 @@ from graphmine_tpu_torch.serve.delta import EdgeDelta, RepairDebt
 from graphmine_tpu_torch.serve.server import SnapshotServer
 from graphmine_tpu_torch.serve.snapshot import SnapshotStore
 from graphmine_tpu_torch.testing import faults
+from _torch_threads import one_torch_thread  # noqa: F401
 
 PKGS = {
     "jax": SimpleNamespace(

@@ -38,6 +38,7 @@ from graphmine_tpu_torch.pipeline.checkpoint import (
 from graphmine_tpu_torch.pipeline.metrics import MetricsSink
 from graphmine_tpu_torch.serve import snapshot as snapshot_mod
 from graphmine_tpu_torch.serve.snapshot import PublishFencedError, SnapshotStore
+from _torch_threads import one_torch_thread  # noqa: F401
 
 LOF_K = 32
 EXACT = ("src", "dst", "labels", "cc_labels", "census_present", "census_sizes",

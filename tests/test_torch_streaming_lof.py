@@ -20,6 +20,7 @@ from graphmine_tpu.ops.knn import cross_knn as jcross_knn
 
 from graphmine_tpu_torch.ops import streaming_lof as sl
 from graphmine_tpu_torch.ops.knn import cross_knn
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _lof_close(got, want):

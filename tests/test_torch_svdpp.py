@@ -15,6 +15,7 @@ import torch
 
 js = importlib.import_module("graphmine_tpu.ops.svdpp")
 from graphmine_tpu_torch.ops import svdpp as ts  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
 FIELDS = ("p", "q", "y", "bu", "bi", "mu")

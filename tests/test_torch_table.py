@@ -19,6 +19,7 @@ import pytest
 
 from graphmine_tpu import table as jtable
 from graphmine_tpu_torch import table as ttable
+from _torch_threads import one_torch_thread  # noqa: F401
 
 TESTS = Path(__file__).resolve().parent
 JAX_FILES = ("test_table.py", "test_table_relational.py")

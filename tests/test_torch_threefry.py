@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 from graphmine_tpu_torch.ops import _threefry as tf
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SEEDS = [0, 1, 42, -1, 2**31 - 1, 123456789]
 SHAPES = [(1,), (7,), (1000,), (65537,), (33, 9)]
