@@ -25,8 +25,10 @@ In order, and failing on the first phase that fails:
    of points on the integer grid [0, 4)^F, full of exact distance ties (one
    of 4,096 points and, in the full run, one at the main path's shape,
    262,144 x 8); the general instance at (4096, 8, 200), (4096, 8, 1024),
-   (20000, 12, 64), (2000, 33, 300), on a [0, 4)^16 grid at k = 256, and at
-   (4096, 8, 2000), whose keys live in device scratch: distances bit-equal
+   (20000, 12, 64), (2000, 33, 300), on a [0, 4)^16 grid at k = 256 and at
+   each of its plans; the wide instance at (4096, 8, 2000), whose keys live
+   in device scratch, at (3001, 65, 150), on a [0, 4)^65 grid at k = 150
+   and at each of its plans (``WIDE_PLAN_CASES``): distances bit-equal
    (max_abs_err 0), kNN indices equal, ties included, rows ascending, self
    excluded;
 4. runs the port's pipeline on the card and on the CPU on small planted
@@ -84,8 +86,10 @@ In order, and failing on the first phase that fails:
    ``weighted_path`` line (``launches.knn_topk`` >= 1);
 6. holds the fast instance against its plain version at the shape 5b
    gave it (the pipeline's own feature matrix, whose duplicate rows tie;
-   indices equal there too) and the general instance on normal clouds at
-   (65536, 8, 256) and (65536, 16, 128), times each instance, the plain
+   indices equal there too), the general instance on normal clouds at
+   (65536, 8, 256) and (65536, 16, 128) (each beside the wide instance on
+   the same points) and the wide instance at its four ``WIDE_TIMED``
+   shapes, times each instance, the plain
    version and one library call (``cdist`` + ``topk``) with CUDA events
    (their ``kernels`` line, with the operations bound, and the unfused
    floors on a line of their own are printed after phase 11); then holds
@@ -311,8 +315,10 @@ the fast instance at the main path's shape (262,144 x 8, k = 128) on a
 normal cloud (the ``kernels`` entry, with its plain and library times), on
 the [0, 4)^8 grid cloud and on a constant cloud (every distance 0, so each
 row inserts only its first k candidates: the kernel's time with next to no
-top-k work), and the general instance at phase 6's shapes, then prints the
-``kernels`` line, the floor line and the last line.
+top-k work), the general instance at phase 6's shapes (each beside the
+wide instance on the same points) and the wide instance at its four timed
+shapes (``WIDE_TIMED``), then prints the ``kernels`` line, the floor line
+and the last line.
 
 It exits non-zero, printing no result, where CUDA is absent or where the
 port's package is not beside this file.
@@ -357,11 +363,23 @@ GENERAL_PLAN_CASES = ((3001, 1, 130), (2500, 5, 300), (3001, 3, 600), (3001, 8, 
                       (3001, 64, 1300))
 GENERAL_GRID_CASE = (4096, 8, 256)
 # The wide instance (F > 64, or keys too many for the general one): F = 65,
-# and keys in device scratch.
+# and keys in device scratch; a [0, 4)^65 grid at k = 150; then each
+# rows-a-warp choice with the queries staged whole and riding in the stages
+# (F = 400, past the staging limit at 8 rows a warp; F = 5,000 on 300
+# points), keys in shared memory and in scratch with either, N off a whole
+# tile, and persistent grids that walk several row groups a block.
 WIDE_CASE = (3001, 65, 150)
 GLOBAL_SCRATCH_CASE = (4096, 8, 2000)
+WIDE_TIED_CASE = (4096, 65, 150)
+WIDE_PLAN_CASES = ((3001, 65, 64), (17001, 65, 250), (12001, 65, 400), (8001, 65, 600),
+                   (8001, 65, 800), (8001, 65, 1000), (20001, 8, 1900), (3001, 400, 64),
+                   (3001, 400, 150), (12001, 800, 400), (8001, 2000, 600), (3001, 4000, 1700),
+                   (300, 5000, 20))
 GENERAL_TIMED = ((65536, 8, 256), (65536, 16, 128), (V_MAIN, 8, 256))
-WIDE_TIMED = (65536, 65, 128)
+# The wide instance's timed rows: F past the general instance's 64 (65, the
+# narrowest, and 128, a node embedding's width), and keys past its capacity
+# (F = 8 at k = 1,500, phase 4's lof_k, and k = 2,000, past shared memory).
+WIDE_TIMED = ((65536, 65, 128), (65536, 128, 128), (65536, 8, 1500), (65536, 8, 2000))
 SMALL_LOF_K = 32
 WIDE_LOF_K = 200  # phase 4's exact run past the fast instance's k: the general instance
 WIDEST_LOF_K = 1500  # phase 4's exact run past the general instance's keys: the wide one
@@ -547,7 +565,7 @@ def hold(pts, k: int) -> dict:
 
 
 def wide_beside(pts, k: int) -> dict:
-    """The wide instance, which the general one replaced at its shapes, on
+    """The wide instance, which the general one takes over at its shapes, on
     the same ``pts`` as a general entry, in the same call: its parity
     against the plain version and its mean milliseconds over 5 launches."""
     import torch
@@ -717,17 +735,20 @@ def general_entries(launches, constant: bool = False, features=None) -> list:
     return out
 
 
-def wide_entry(launches) -> dict:
-    """The ``kernels`` entry of the wide instance at :data:`WIDE_TIMED` on a
-    seeded normal cloud; ``launches``: its count in phase 4's lof_k = 1500
-    run, or None."""
+def wide_entries(launches) -> list:
+    """The ``kernels`` entries of the wide instance at :data:`WIDE_TIMED`,
+    each on a seeded normal cloud; ``launches``: the instance's count in
+    phase 4's lof_k = 1500 run, or None."""
     import torch
 
-    n, f, k = WIDE_TIMED
-    pts = torch.from_numpy(np.random.default_rng(8).normal(size=(n, f)).astype(np.float32)).cuda()
-    entry = kernel_entry(pts, k, "normal", launches)
-    require(entry["instance"] == "wide", f"({n}, {f}, {k}) did not run the wide instance")
-    return entry
+    out = []
+    for n, f, k in WIDE_TIMED:
+        rng = np.random.default_rng([n, f, k])
+        pts = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).cuda()
+        out.append(kernel_entry(pts, k, "normal", launches))
+        require(out[-1]["instance"] == "wide", f"({n}, {f}, {k}) did not run the wide instance")
+        del pts
+    return out
 
 
 def write_parquet(path: Path, src: np.ndarray, dst: np.ndarray, num_vertices: int) -> None:
@@ -803,7 +824,10 @@ def main(argv=None) -> int:
     n, f, k = GENERAL_GRID_CASE
     clouds.append((grid(n, f, rng_plans), k, "grid", "general"))
     clouds.append((normal(*WIDE_CASE[:2], rng_plans), WIDE_CASE[2], "normal", "wide"))
-    general_plans = set()
+    n, f, k = WIDE_TIED_CASE
+    clouds.append((grid(n, f, rng_plans), k, "grid", "wide"))
+    clouds += [(normal(n, f, rng_plans), k, "normal", "wide") for n, f, k in WIDE_PLAN_CASES]
+    plans = {"general": set(), "wide": set()}
     for cloud, k, kind, instance in clouds:
         pts = torch.from_numpy(cloud.astype(np.float32)).to(dev)
         res = hold(pts, k)
@@ -811,11 +835,18 @@ def main(argv=None) -> int:
         require(res["instance"] == instance, f"({n}, {f}, {k}) ran the {res['instance']} instance")
         if (n, f, k) == GLOBAL_SCRATCH_CASE:
             require(res["topk"] == "global", f"({n}, {f}, {k}) did not keep its keys in scratch")
-        if instance == "general":
-            general_plans.add((res["queries"], res["rows_per_warp"]))
+        if instance != "fast":
+            plans[instance].add((res["queries"], res["rows_per_warp"]))
+        if instance == "wide":
+            plans[instance].add((res["queries"], res["topk"]))
         log(f"knn_topk parity {kind} n={n} f={f} k={k}: {res}")
-    every = {(q, r) for q, rows in knn_cuda.GENERAL_ROWS_PER_WARP.items() for r in rows}
-    require(general_plans == every, f"general plans never held: {sorted(every - general_plans)}")
+    for instance, choices in (("general", knn_cuda.GENERAL_ROWS_PER_WARP),
+                              ("wide", knn_cuda.WIDE_ROWS_PER_WARP)):
+        every = {(q, r) for q, rows in choices.items() for r in rows}
+        if instance == "wide":
+            every |= {(q, t) for q in choices for t in ("shared", "global")}
+        require(plans[instance] == every,
+                f"{instance} plans never held: {sorted(every - plans[instance], key=str)}")
     del pts
 
     if args.kernels_only:
@@ -832,7 +863,7 @@ def main(argv=None) -> int:
             entry["other_clouds"].append({"cloud": kind, "ms": ms, **parity})
         del full, pts
         print_kernels([entry] + general_entries(launches=None, constant=True)
-                      + [wide_entry(launches=None)])
+                      + wide_entries(launches=None))
     else:
         work = ROOT / "build" / "chip_smoke"
         shutil.rmtree(work, ignore_errors=True)
@@ -5200,7 +5231,7 @@ def run_main_path(work: Path) -> None:
     entry["weighted_path_launches"] = launches["knn_topk_fast"]
     general = general_entries(pipeline_launches["wide_k"]["knn_topk_general"], features=feats)
     del feats
-    entries = [entry] + general + [wide_entry(pipeline_launches["widest_k"]["knn_topk_wide"])]
+    entries = [entry] + general + wide_entries(pipeline_launches["widest_k"]["knn_topk_wide"])
     entries = with_serving_launches(entries, serve_launches)
     # The JAX package gates the index's recall at 0.999 on its LOF policy
     # tests' cloud (20,000 x 8, k = 32); at the main path's size, k = 128,

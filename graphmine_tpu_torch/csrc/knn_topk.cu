@@ -77,9 +77,9 @@
 // The general instance (1 <= F <= 64, and k up to what its keys leave room
 // for: 1,344): the fast instance's design at any feature count and key
 // capacity, bound the same way, by the FP32 issue rate without FMA (2F+3
-// instructions a pair). It replaces, at these shapes, the simpler kernel
-// kept below as the wide instance, which streamed every point from L2 once
-// a warp. Against that kernel's five limits:
+// instructions a pair). It replaced, at these shapes, the first wide kernel,
+// which streamed every point from L2 once a warp. Against that kernel's five
+// limits:
 // 1. A shared tile. A prologue (pack_general_kernel) packs the points tile
 //    by tile, each chunk of 8 features as [f0..f3 x T][f4..f7 x T], then
 //    [norm x T], and a ring of 3 or 4 stages filled by TMA bulk copies
@@ -102,30 +102,57 @@
 //    fit beside the ring, then the most stages (kernels/knn_cuda.py::
 //    launch_plan picks them and passes them here), one block an SM.
 //
-// The wide instance (F > 64, or keys that do not fit beside a ring of 3
-// stages at one row a warp): there the query rows and a ring no longer fit
-// beside each other, so it keeps no ring. It keeps the contract (the same
-// 2F+3 operations in the same order, keys of distance bits over index, ties
-// to the smaller index, the self pair dropped on the rare path) and only
-// has to be right:
-// - A prologue (pack_wide_kernel) computes the norms in _sq_norms' order
-//   and copies the points into rows of F rounded up to 8, zero-padded. The
-//   cross term runs over those 8-feature chunks, carrying the sum across
-//   chunks in feature order; the padding adds exact zeros.
-// - Each lane reads its reference point's chunk and the warp's query rows'
-//   chunk (one address for the warp, a broadcast) straight from the packed
-//   copy, through L1 and L2; there is no tile padding, so points past N are
-//   masked by `valid`.
-// - 16 warps of R query rows (R = 6, 3 or 1, a template parameter). Each
-//   row keeps kcap = k rounded up to 32 sorted keys: in shared memory while
-//   16 R (kcap + 32) keys fit in 227 KB, else in device scratch that the
-//   wrapper allocates (one row a warp).
-// - merge_wide walks the sorted keys in chunks of 32 from the top down
-//   (every key moves up, so no chunk overwrites one not yet read).
+// The wide instance (F > 64, or keys that do not fit beside the general
+// instance's ring): the same contract, bound the same way, by the FP32
+// issue rate without FMA at 2F+3 instructions a pair, and past that by the
+// top-k's merges at large k. The first wide kernel kept no tile in shared
+// memory: each lane loaded its point's chunk and the warp's rows' chunks
+// from L2 for every step (14 loads a 96 operations), zero-padded F to 8
+// and kept a row of key scratch for every point past shared memory. This
+// design keeps the data on the chip:
+// 1. Chunked tiles in a TMA ring. pack_general_kernel, at F rounded up to 4
+//    (fpad), packs tiles of T points as [f0..f3 x T][f4..f7 x T]...[norm x
+//    T]. A chunk is at most 32 features (fpad spread evenly over the fewest
+//    chunks), so a tile's chunk is one contiguous stretch and the last one
+//    carries the norms. A ring of 2 to 4 stages, each one chunk of one tile
+//    filled by TMA bulk copies under one barrier, streams the tiles chunk by
+//    chunk; T is 64 where a tile takes several chunks (up to 256 at small
+//    F), so a stage is at most kWideStageFloats (9 KB) and leaves room for
+//    the keys. Padded points carry an infinite norm: no bounds check.
+// 2. Cross terms in registers. Each lane takes two points of the tile and
+//    carries the 2R partial sums from chunk to chunk in feature order; after
+//    the last chunk it adds the norms and votes (wide_step). Features past F
+//    are zero on both sides, so they add exact +0 products (a cross term of
+//    -0 turns +0, which no distance tells apart after the doubling, the
+//    subtraction from a norm >= +0 and the clamp): F = 65 costs 2 x 68 + 3 =
+//    139 operations a pair against the plain version's 133. The loop keeps
+//    its registers for the 2R sums, the R broadcast rows and the two points
+//    (the rows' norms, thresholds and counts live in shared memory), so that
+//    all R loads of a group are in flight at once.
+// 3. Queries read once. The block's 16 R rows are staged whole in shared
+//    memory once a row group, group-major (a group's R rows are R
+//    consecutive broadcasts), where they fit beside the ring and the keys;
+//    past that the rows' chunk rides in each stage, copied under the stage's
+//    barrier. No row is read from L2 inside the loop.
+// 4. Keys. Each row keeps kcap sorted keys in shared memory while they fit;
+//    past that in device scratch for a persistent grid of at most
+//    kWideResidentBlocks blocks that walk the row groups, so the scratch is
+//    bounded by the resident blocks (132 x 16 R x kcap keys), not by N, and
+//    L2 holds it (32 MiB at most past one row a warp). At one row a warp
+//    (large k) a row buffers 128 candidates and merge_wide folds them in at
+//    once: a merge rewrites the keys above its smallest candidate whatever
+//    its fill, so this takes four times the candidates a rewrite of
+//    merge_general's 32.
+// 5. The plan (kernels/knn_cuda.py::wide_plan): the most rows a warp (8, 6,
+//    4, 3, 2, 1; 8, 4, 2, 1 where the queries ride), the queries whole
+//    before riding, the stages (3, 4 or 2; at one row a warp the most, up to
+//    8, since a merge holds its warp for many steps and the ring's slack
+//    keeps the other warps going), then the keys in shared memory before
+//    scratch; the wrapper passes the plan here.
 //
-// C interface (bound with ctypes): knn_topk_scratch_bytes and
-// knn_general_scratch_bytes give the size of the packed tiles the caller
-// allocates for the fast and the general instance; knn_topk_f32,
+// C interface (bound with ctypes): knn_topk_scratch_bytes,
+// knn_general_scratch_bytes and knn_wide_scratch_bytes give the size of the
+// packed tiles the caller allocates for each instance; knn_topk_f32,
 // knn_general_f32 and knn_wide_f32 launch an instance's prologue and main
 // kernel on the given stream and return the first launch error
 // (cudaGetLastError()), 0 if none; the last two return
@@ -809,191 +836,476 @@ bool general_rows_ok(bool queries_in_registers, int rows_per_warp) {
 
 constexpr int kWideWarps = 16;
 constexpr int kWideThreads = kWideWarps * 32;
-constexpr int kChunk = 8;  // features per step of the cross-term sum
+constexpr int kWideStageFloats = 2304;  // a stage's points at most, features and norms
+constexpr int kWideMaxChunk = 32;       // features a chunk at most
+constexpr int kWideMinStages = 2;
+constexpr int kWideMaxStages = 8;
+constexpr int kWidePackPoints = 256;       // points are packed in whole groups of this many
+constexpr int kWideResidentBlocks = 132;   // a persistent grid: one block an SM of an H100 SXM
+constexpr int kWideBigBuf = 128;  // a row's candidate buffer at one row a warp
 
-size_t wide_smem_bytes(int rows_per_warp, int kcap, bool global_topk) {
-  return size_t(kWideWarps) * rows_per_warp * (kBuf + (global_topk ? 0 : kcap)) *
-         sizeof(uint64_t);
+int wide_fpad(int f) { return (f + 3) / 4 * 4; }
+
+// Features a chunk: a tile's features spread evenly over the fewest chunks
+// of at most kWideMaxChunk, rounded up to 4 (the last chunk takes the rest).
+int wide_chunk(int fpad) {
+  const int chunks = (fpad + kWideMaxChunk - 1) / kWideMaxChunk;
+  return ((fpad + chunks - 1) / chunks + 3) / 4 * 4;
 }
 
-// Norms in _sq_norms' order and the points copied into rows of fpad
-// (F rounded up to 8) floats, zero-padded.
-__global__ void pack_wide_kernel(const float* __restrict__ pts, int n, int f, int fpad,
-                                    float* __restrict__ packed, float* __restrict__ norms) {
-  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  const float* p = pts + (size_t)j * f;
-  float* out = packed + (size_t)j * fpad;
-  float s = __fmul_rn(p[0], p[0]);
-  out[0] = p[0];
-  for (int c = 1; c < f; ++c) {
-    const float x = p[c];
-    out[c] = x;
-    s = __fadd_rn(s, __fmul_rn(x, x));
+// Points a tile: the most, as a power of two up to 256, whose chunk and
+// norms fit in kWideStageFloats (64 wherever a tile takes several chunks).
+int wide_tile(int chunk) {
+  int tile = 256;
+  while (tile * (chunk + 1) > kWideStageFloats) tile >>= 1;
+  return tile;
+}
+
+// The query tiles that ride in each stage beside the points' chunk: the
+// block's rows (16, 32, 64 or 128) lie in one tile or fill whole ones.
+__host__ __device__ __forceinline__ int wide_query_tiles(int rows, int tile, bool ride) {
+  return ride ? (rows > tile ? rows / tile : 1) : 0;
+}
+
+// Candidates a row buffers between merges: kWideBigBuf at one row a warp
+// (merge_wide), else kBuf (merge_general).
+__host__ __device__ constexpr int wide_row_buf(int rows_per_warp) {
+  return rows_per_warp == 1 ? kWideBigBuf : kBuf;
+}
+
+// The ring (each stage a points' chunk and the query tiles riding with
+// it), the rows' top-k keys (unless in device scratch) and buffers, each
+// row's norm, threshold and buffer count, the block's query rows (when
+// staged whole) and the stages' barriers.
+size_t wide_smem_bytes(int fpad, int chunk, int tile, int stages, int rows_per_warp, int kcap,
+                       bool ride, bool keys_global) {
+  const int rows = kWideWarps * rows_per_warp;
+  const size_t stage = size_t(tile) * (chunk + 1) * (1 + wide_query_tiles(rows, tile, ride));
+  return size_t(stages) * stage * sizeof(float) +
+         size_t(rows) * ((keys_global ? 0 : kcap) + wide_row_buf(rows_per_warp)) * sizeof(uint64_t) +
+         size_t(rows) * 3 * sizeof(float) + (ride ? 0 : size_t(rows) * fpad * sizeof(float)) +
+         size_t(stages) * (sizeof(uint64_t) + sizeof(unsigned));
+}
+
+// The packed points: N rounded up to kWidePackPoints (a multiple of every
+// tile and of every block's rows that ride), fpad features and a norm each.
+size_t wide_packed_floats(int n, int f) {
+  const size_t points = (size_t(n) + kWidePackPoints - 1) / kWidePackPoints * kWidePackPoints;
+  return points * (wide_fpad(f) + 1);
+}
+
+// The rows a warp may take: 8, 6, 4, 3, 2 or 1 with the queries staged
+// whole; 8, 4, 2 or 1 with them riding in the stages (a warp's rows then lie
+// in one tile).
+bool wide_rows_ok(bool ride, int rows_per_warp) {
+  switch (rows_per_warp) {
+    case 6:
+    case 3:
+      return !ride;
+    case 8:
+    case 4:
+    case 2:
+    case 1:
+      return true;
+    default:
+      return false;
   }
-  for (int c = f; c < fpad; ++c) out[c] = 0.f;
-  norms[j] = s;
 }
 
-// merge_buffer for any kcap (a multiple of 32): the same sort and ranks,
-// then the sorted keys are walked in chunks of 32 from the top down, each
-// chunk read whole before it is written; keys below the smallest
-// candidate's rank stay in place. `topk` may point to shared or global
-// memory.
-__device__ float merge_wide(uint64_t* topk, const uint64_t* buf, int cnt, int k, int kcap,
-                               int lane) {
-  __syncwarp();
-  uint64_t b = lane < cnt ? buf[lane] : kSentinelKey;
+// A bulk copy into a stage whose bytes its barrier already expects.
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src, unsigned bytes,
+                                          uint64_t* full) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(full))
+      : "memory");
+}
+
+// One group of 4 features of two points a lane (x_at[0] and x_at[32])
+// against a warp's R rows (q_at[0 .. R-1]): the cross terms carried in
+// feature order, or (kFirst) started by the group's first product.
+template <int R, bool kFirst>
+__device__ __forceinline__ void wide_group(float (&d2)[2][R], const float4* x_at,
+                                           const float4* q_at) {
+  const float4 x = x_at[0];
+  const float4 y = x_at[32];
+  float4 u[R];
 #pragma unroll
-  for (int size = 2; size <= 32; size <<= 1) {
+  for (int r = 0; r < R; ++r) u[r] = q_at[r];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if constexpr (kFirst) {
+      d2[0][r] = __fmul_rn(u[r].x, x.x);
+      d2[1][r] = __fmul_rn(u[r].x, y.x);
+    } else {
+      d2[0][r] = __fadd_rn(d2[0][r], __fmul_rn(u[r].x, x.x));
+      d2[1][r] = __fadd_rn(d2[1][r], __fmul_rn(u[r].x, y.x));
+    }
+    d2[0][r] = __fadd_rn(d2[0][r], __fmul_rn(u[r].y, x.y));
+    d2[1][r] = __fadd_rn(d2[1][r], __fmul_rn(u[r].y, y.y));
+    d2[0][r] = __fadd_rn(d2[0][r], __fmul_rn(u[r].z, x.z));
+    d2[1][r] = __fadd_rn(d2[1][r], __fmul_rn(u[r].z, y.z));
+    d2[0][r] = __fadd_rn(d2[0][r], __fmul_rn(u[r].w, x.w));
+    d2[1][r] = __fadd_rn(d2[1][r], __fmul_rn(u[r].w, y.w));
+  }
+}
+
+// merge_general for a buffer of up to kWideBigBuf candidates, the buffer of
+// a row at one row a warp (there the keys are many and the merges
+// frequent). A merge rewrites the keys above its smallest candidate
+// whatever the buffer's fill, so a buffer four times as large takes four
+// times the candidates a rewrite. The warp sorts the buffer (bitonic, four
+// keys a lane: candidate e = 4 lane + s in b[s]) and writes it back sorted;
+// candidate e's slot is its rank among the kcap keys (found as in
+// merge_general) plus e, and the slots ascend with e. The slots are
+// rewritten from the top down, 32 a step: a vote and a shuffle count the
+// candidates below the step, one OR of the warp marks the step's slots that
+// take a candidate (read back from the sorted buffer), and every other slot
+// takes the key as many places down as there are candidates below it.
+__device__ __forceinline__ float merge_wide(uint64_t* topk, uint64_t* buf, int cnt, int k,
+                                            int kcap, int lane) {
+  constexpr int kPer = kWideBigBuf / 32;
+  __syncwarp();
+  uint64_t b[kPer];
+#pragma unroll
+  for (int s = 0; s < kPer; ++s) b[s] = kPer * lane + s < cnt ? buf[kPer * lane + s] : kSentinelKey;
+#pragma unroll
+  for (int size = 2; size <= kWideBigBuf; size <<= 1) {
 #pragma unroll
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      const uint64_t o = __shfl_xor_sync(kFull, b, stride);
-      const bool keep_min = ((lane & stride) == 0) == ((lane & size) == 0);
-      b = (o < b) == keep_min ? o : b;
+#pragma unroll
+      for (int s = 0; s < kPer; ++s) {
+        const int e = kPer * lane + s;
+        if (stride < kPer) {  // the partner is in this lane: exchange the pair once
+          const int p = s ^ stride;
+          if (p > s) {
+            const bool up = (e & size) == 0;
+            const uint64_t lo = b[s] < b[p] ? b[s] : b[p];
+            const uint64_t hi = b[s] < b[p] ? b[p] : b[s];
+            b[s] = up ? lo : hi;
+            b[p] = up ? hi : lo;
+          }
+        } else {
+          const uint64_t o = __shfl_xor_sync(kFull, b[s], stride / kPer);
+          const bool keep_min = ((e & stride) == 0) == ((e & size) == 0);
+          b[s] = (o < b[s]) == keep_min ? o : b[s];
+        }
+      }
     }
   }
-  int rank = 0;  // keys below b
-  int top = 1;
-  while (top * 2 <= kcap) top *= 2;
-  for (int step = top; step >= 1; step >>= 1) {
-    if (rank + step <= kcap && topk[rank + step - 1] < b) rank += step;
-  }
-  const int rank_or_max = lane < cnt ? rank : kcap;
-  const int first = __shfl_sync(kFull, rank_or_max, 0);
-  const int last = __shfl_sync(kFull, rank_or_max, 31);
-  for (int base = kcap - 32; base >= (first / 32) * 32; base -= 32) {
-    const int p = base + lane;
-    const uint64_t key = topk[p];
-    int below = 0;  // candidates smaller than key p: those of rank <= p
+#pragma unroll
+  for (int s = 0; s < kPer; ++s) buf[kPer * lane + s] = b[s];
+  const int run_len = kcap >> 5;
+  const uint64_t run_last = topk[(lane + 1) * run_len - 1];
+  const uint64_t top = __shfl_sync(kFull, run_last, 31);
+  int slot[kPer];
+#pragma unroll
+  for (int s = 0; s < kPer; ++s) {
+    int run = 0;  // runs whose last key is below b[s]
 #pragma unroll
     for (int step = 16; step >= 1; step >>= 1) {
-      if (__shfl_sync(kFull, rank_or_max, below + step - 1) <= p) below += step;
+      if (__shfl_sync(kFull, run_last, run + step - 1) < b[s]) run += step;
     }
-    const int dest = p + (last <= p ? 32 : below);
-    __syncwarp();
-    if (dest < kcap) topk[dest] = key;
-    __syncwarp();
+    if (top < b[s]) run = 32;
+    int rank = run * run_len;  // keys below b[s]
+    if (run < 32) {
+      const int end = rank + run_len - 1;  // the run's last key is not below b[s]
+      for (int step = run_len > 1 ? 1 << (31 - __clz(run_len - 1)) : 0; step >= 1; step >>= 1) {
+        if (rank + step <= end && topk[rank + step - 1] < b[s]) rank += step;
+      }
+    }
+    const int e = kPer * lane + s;
+    slot[s] = e < cnt ? rank + e : kcap;  // kcap or past it: dropped
   }
-  if (lane < cnt && lane + rank < kcap) topk[lane + rank] = b;
+  __syncwarp();
+  const int first = __shfl_sync(kFull, slot[0], 0);
+  const unsigned lanes_below = (1u << lane) - 1;
+  for (int g = (kcap - 1) / kMergeGroup * kMergeGroup; g >= first / kMergeGroup * kMergeGroup;
+       g -= kMergeGroup) {
+    uint64_t key[kMergeKeysPerLane];
+#pragma unroll
+    for (int t = 0; t < kMergeKeysPerLane; ++t) {
+      const int base = g + t * 32;
+      if (base < kcap) {  // the same for every lane of the warp
+        // candidates below the step: the lanes whose last slot is below it,
+        // and the part of the next lane's
+        const int full_lanes = __popc(__ballot_sync(kFull, slot[kPer - 1] < base));
+        int part = 0;
+        unsigned bits = 0;  // this lane's candidates in the step
+#pragma unroll
+        for (int s = 0; s < kPer; ++s) {
+          part += slot[s] < base;
+          const unsigned d = unsigned(slot[s] - base);
+          if (d < 32u) bits |= 1u << d;
+        }
+        const int part_next = __shfl_sync(kFull, part, full_lanes & 31);
+        const int below = kPer * full_lanes + (full_lanes < 32 ? part_next : 0);
+        const unsigned taken = __reduce_or_sync(kFull, bits);
+        const int before = below + __popc(taken & lanes_below);  // candidates below this slot
+        key[t] = (taken >> lane) & 1 ? buf[before] : topk[base + lane - before];
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int t = 0; t < kMergeKeysPerLane; ++t) {
+      if (g + t * 32 < kcap) topk[g + t * 32 + lane] = key[t];
+    }
+  }
   __syncwarp();
   return __uint_as_float(static_cast<uint32_t>(topk[k - 1] >> 32));
 }
 
-__device__ __forceinline__ void load8(const float* p, float x[kChunk]) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
-  x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
+// A row's merge: merge_wide at one row a warp, else merge_general.
+template <int R>
+__device__ __forceinline__ float wide_merge(uint64_t* topk, uint64_t* buf, int cnt, int k,
+                                            int kcap, int lane) {
+  if constexpr (R == 1) {
+    return merge_wide(topk, buf, cnt, k, kcap, lane);
+  } else {
+    return merge_general(topk, buf, cnt, k, kcap, lane);
+  }
 }
 
+// take_step with the rows' norms, thresholds and buffer counts in shared
+// memory (q_sq, thr, cnt: the warp's R entries, equal in every lane, each
+// lane writing the value it reads back), so that the loop over features
+// keeps its registers for the cross terms.
 template <int R>
+__device__ __forceinline__ void wide_step(float (&d2)[R], float c_sq, unsigned j0,
+                                          const float* q_sq, float* thr, int* cnt,
+                                          uint64_t* my_topk, uint64_t* my_buf, int row0, int k,
+                                          int kcap, int lane) {
+  unsigned hits[R];
+  unsigned any = 0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    d2[r] = __fadd_rn(__fsub_rn(q_sq[r], __fmul_rn(2.f, d2[r])), c_sq);
+    hits[r] = __ballot_sync(kFull, !(d2[r] >= thr[r]));
+    any |= hits[r];
+  }
+  if (!any) return;
+  const unsigned j = j0 + lane;
+  const unsigned lanes_below = (1u << lane) - 1;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (!hits[r]) continue;
+    const float nd = d2[r] > 0.f ? d2[r] : 0.f;  // the plain version's clamp
+    float t = thr[r];
+    bool pass = nd < t && j != unsigned(row0 + r);
+    unsigned mask = __ballot_sync(kFull, pass);
+    if (!mask) continue;
+    uint64_t* row_buf = my_buf + r * wide_row_buf(R);
+    int c = cnt[r];
+    if (c + __popc(mask) > wide_row_buf(R)) {
+      t = wide_merge<R>(my_topk + r * kcap, row_buf, c, k, kcap, lane);
+      thr[r] = t;
+      c = 0;
+      pass = pass && nd < t;
+      mask = __ballot_sync(kFull, pass);
+    }
+    if (pass) row_buf[c + __popc(mask & lanes_below)] = (uint64_t(__float_as_uint(nd)) << 32) | j;
+    cnt[r] = c + __popc(mask);
+  }
+}
+
+// kRide: the query rows' chunk rides in each stage; else the block's rows
+// are staged whole in shared memory once a row group. topk_global: the
+// rows' keys in device scratch (grid x 16 R x kcap keys), else in shared
+// memory. Block b takes row groups b, b + grid, ...: one each unless the
+// keys are in scratch.
+template <bool kRide, int R>
 __global__ void __launch_bounds__(kWideThreads, 1)
-knn_wide_kernel(const float* __restrict__ packed, const float* __restrict__ norms, int n,
-                   int fpad, int k, int kcap, uint64_t* __restrict__ topk_global,
-                   float* __restrict__ out_d, int* __restrict__ out_i) {
+knn_wide_kernel(const float* __restrict__ pts, const float* __restrict__ packed, int n, int f,
+                int fpad, int chunk, int tile, int stages, int k, int kcap, int n_groups,
+                uint64_t* __restrict__ topk_global, float* __restrict__ out_d,
+                int* __restrict__ out_i) {
+  constexpr int kRows = kWideWarps * R;
   extern __shared__ __align__(16) unsigned char smem[];
-  uint64_t* buf_keys = reinterpret_cast<uint64_t*>(smem);
+  const int n_tiles = (n + tile - 1) / tile;
+  const int n_chunks = (fpad + chunk - 1) / chunk;
+  const int last = fpad - (n_chunks - 1) * chunk;  // features of the last chunk
+  const int pt_floats = tile * (chunk + 1);        // a stage's points, norms included
+  const int q_tiles = wide_query_tiles(kRows, tile, kRide);
+  const int stage_floats = pt_floats * (1 + q_tiles);
+  const size_t tile_floats = size_t(tile) * (fpad + 1);  // a packed tile
+  const bool keys_global = topk_global != nullptr;
+  float* ring = reinterpret_cast<float*>(smem);
+  uint64_t* topk_keys =
+      reinterpret_cast<uint64_t*>(smem + size_t(stages) * stage_floats * sizeof(float));
+  uint64_t* buf_keys = topk_keys + (keys_global ? 0 : size_t(kRows) * kcap);
+  float* row_state =
+      reinterpret_cast<float*>(buf_keys + kRows * wide_row_buf(R));  // q_sq, thr, cnt
+  float* q_rows = row_state + 3 * kRows;
+  uint64_t* full = reinterpret_cast<uint64_t*>(q_rows + (kRide ? 0 : kRows * fpad));
+  unsigned* released = reinterpret_cast<unsigned*>(full + stages);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const long long row0 = ((long long)blockIdx.x * kWideWarps + warp) * R;
-  uint64_t* my_buf = buf_keys + warp * R * kBuf;
-  uint64_t* my_topk = topk_global != nullptr
-                          ? topk_global + (size_t)row0 * kcap
-                          : buf_keys + kWideWarps * R * kBuf + (size_t)warp * R * kcap;
-  for (int i = lane; i < R * kcap; i += 32) my_topk[i] = kSentinelKey;
-  __syncwarp();
+  // The block's stream of stages: for each of its row groups, every tile's
+  // chunks in order.
+  const int per_group = n_tiles * n_chunks;
+  const int my_groups = (n_groups - int(blockIdx.x) + int(gridDim.x) - 1) / int(gridDim.x);
+  const long long total = (long long)my_groups * per_group;
+
+  // Fill stage s with stream position g: the points' chunk, then the
+  // chunk of each query tile riding with it, under one expected byte count.
+  auto load = [&](long long g, int s) {
+    const long long j = g / per_group;
+    const int p = int(g % per_group);
+    const int t = p / n_chunks, c = p % n_chunks;
+    const unsigned bytes = unsigned((c + 1 < n_chunks ? chunk : last + 1) * tile * sizeof(float));
+    const size_t off = size_t(c) * chunk * tile;
+    float* dst = ring + size_t(s) * stage_floats;
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                     smem_addr(&full[s])),
+                 "r"(bytes * (1 + q_tiles))
+                 : "memory");
+    bulk_copy(dst, packed + t * tile_floats + off, bytes, &full[s]);
+    if constexpr (kRide) {
+      const long long q0 = (blockIdx.x + j * gridDim.x) * kRows / tile;
+      for (int q = 0; q < q_tiles; ++q) {
+        bulk_copy(dst + (q + 1) * pt_floats, packed + (q0 + q) * tile_floats + off, bytes,
+                  &full[s]);
+      }
+    }
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      released[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    for (int s = 0; s < stages && s < total; ++s) load(s, s);
+  }
+  __syncthreads();
 
   const float inf = __int_as_float(0x7f800000);
-  const unsigned lanes_below = (1u << lane) - 1;
-  const int n_chunks = fpad / kChunk;
-  float q_sq[R];
-  float thr[R];
-  int cnt[R];
+  uint64_t* my_buf = buf_keys + warp * R * wide_row_buf(R);
+  float* q_sq = row_state + warp * R;
+  float* thr = q_sq + kRows;
+  int* cnt = reinterpret_cast<int*>(thr + kRows);
+  // The warp's staged rows, group-major: group G of row r is float4
+  // my_q[G * R + r], so a group's R rows are R consecutive broadcasts.
+  float4* my_q = reinterpret_cast<float4*>(q_rows) + warp * R * (fpad / 4);
+  // Row r's group h of the stage's chunk: qx[h * q_grp + r], from the
+  // stage's query tiles (riding) or from the staged rows.
+  const int q_grp = kRide ? tile : R;
+  long long g = 0;
+  for (int j = 0, s = 0, phase = 0; j < my_groups; ++j) {
+    const int grp = blockIdx.x + j * gridDim.x;
+    const int row0 = grp * kRows + warp * R;
+    uint64_t* my_topk = keys_global
+                            ? topk_global + (size_t(blockIdx.x) * kRows + warp * R) * kcap
+                            : topk_keys + size_t(warp) * R * kcap;
+    __syncwarp();
+    for (int i = lane; i < R * kcap; i += 32) my_topk[i] = kSentinelKey;
+    if constexpr (!kRide) {
+      for (int i = lane; i < R * (fpad / 4); i += 32) {
+        const int r = i % R, c = i / R * 4;
+        const int row = row0 + r;
+        float v[4];
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const bool real = row0 + r < n;
-    // a padded row reads the last real row and gets a threshold of -inf,
-    // so nothing passes
-    q_sq[r] = real ? norms[row0 + r] : 0.f;
-    thr[r] = real ? inf : -inf;
-    cnt[r] = 0;
-  }
-
-  for (long long base = 0; base < n; base += 32) {
-    const long long j = base + lane;
-    const bool valid = j < n;
-    const float* pj = packed + (size_t)(valid ? j : 0) * fpad;
-    float d2[R] = {};
-    for (int c = 0; c < n_chunks; ++c) {
-      float x[kChunk];
-      load8(pj + c * kChunk, x);
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const long long row = row0 + r < n ? row0 + r : n - 1;
-        float q[kChunk];
-        load8(packed + (size_t)row * fpad + c * kChunk, q);
-        float s = c == 0 ? __fmul_rn(q[0], x[0]) : __fadd_rn(d2[r], __fmul_rn(q[0], x[0]));
-#pragma unroll
-        for (int e = 1; e < kChunk; ++e) s = __fadd_rn(s, __fmul_rn(q[e], x[e]));
-        d2[r] = s;
+        for (int e = 0; e < 4; ++e) v[e] = (row < n && c + e < f) ? pts[(size_t)row * f + c + e] : 0.f;
+        my_q[i] = make_float4(v[0], v[1], v[2], v[3]);
       }
     }
-    const float c_sq = valid ? norms[j] : inf;
-    bool hit = false;
-#pragma unroll
+    // The prologue's norm; a padded row gets 0 and a threshold of -inf, so
+    // its distances are finite and never pass.
     for (int r = 0; r < R; ++r) {
-      d2[r] = __fadd_rn(__fsub_rn(q_sq[r], __fmul_rn(2.f, d2[r])), c_sq);
-      hit |= valid && !(d2[r] >= thr[r]);
+      const int row = row0 + r;
+      const bool real = row < n;
+      q_sq[r] = real ? packed[(size_t)(row / tile) * tile_floats + size_t(fpad) * tile + row % tile]
+                     : 0.f;
+      thr[r] = real ? inf : -inf;
+      cnt[r] = 0;
     }
-    if (__any_sync(kFull, hit)) {
+    __syncwarp();
+    // The warp's rows in the riding query tiles (float4s from the stage's
+    // start): tile qi of the stage, point pi of it.
+    const int p_w = int(size_t(grp) * kRows % tile) + warp * R;
+    const int q_off = (1 + p_w / tile) * (pt_floats / 4) + p_w % tile;
+
+    float d2[2][R];
+    for (int t = 0; t < n_tiles; ++t) {
+      const unsigned base = unsigned(t) * tile;
+      for (int c = 0; c < n_chunks; ++c, ++g) {
+        mbar_wait(&full[s], phase);
+        const float* st = ring + size_t(s) * stage_floats;
+        const float4* fx = reinterpret_cast<const float4*>(st);
+        const bool last_chunk = c + 1 == n_chunks;
+        const int groups = (last_chunk ? last : chunk) / 4;
+        const float4* qx = kRide ? fx + q_off : my_q + c * (chunk / 4) * R;
+        // Two points a lane a step (64 a warp); a tile of several chunks is
+        // one step, so the cross terms carry over from stage to stage.
+        for (int u = 0; u < tile; u += 64) {
+          const int i = u + lane;
+          int h = 0;
+          if (c == 0) {
+            wide_group<R, true>(d2, fx + i, qx);
+            h = 1;
+          }
+          for (; h < groups; ++h) wide_group<R, false>(d2, fx + h * tile + i, qx + h * q_grp);
+          if (last_chunk) {
+            const float* fn = st + size_t(last) * tile;
+            // the lower 32 points, then the upper: the scan stays in index order
+#pragma unroll 1
+            for (int half = 0; half < 2; ++half) {
+              float v[R];
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float nd = d2[r] > 0.f ? d2[r] : 0.f;  // the plain version's clamp
-        bool pass = valid && nd < thr[r] && j != row0 + r;
-        unsigned mask = __ballot_sync(kFull, pass);
-        if (!mask) continue;
-        uint64_t* row_buf = my_buf + r * kBuf;
-        if (cnt[r] + __popc(mask) > kBuf) {
-          thr[r] = merge_wide(my_topk + (size_t)r * kcap, row_buf, cnt[r], k, kcap, lane);
-          cnt[r] = 0;
-          pass = pass && nd < thr[r];
-          mask = __ballot_sync(kFull, pass);
+              for (int r = 0; r < R; ++r) v[r] = half ? d2[1][r] : d2[0][r];
+              wide_step<R>(v, fn[i + 32 * half], base + u + 32 * half, q_sq, thr, cnt, my_topk,
+                           my_buf, row0, k, kcap, lane);
+            }
+          }
         }
-        if (pass) {
-          row_buf[cnt[r] + __popc(mask & lanes_below)] =
-              (uint64_t(__float_as_uint(nd)) << 32) | uint32_t(j);
+        // Release the stage; the last warp to release it refills it with the
+        // stream position `stages` ahead.
+        __syncwarp();
+        if (lane == 0) {
+          __threadfence_block();
+          if (atomicAdd(&released[s], 1u) % kWideWarps == kWideWarps - 1 && g + stages < total) {
+            __threadfence_block();
+            asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+            load(g + stages, s);
+          }
         }
-        cnt[r] += __popc(mask);
+        if (++s == stages) {
+          s = 0;
+          phase ^= 1;
+        }
       }
     }
-  }
 
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const long long row = row0 + r;
-    if (row >= n) continue;
-    uint64_t* row_topk = my_topk + (size_t)r * kcap;
-    if (cnt[r] > 0) merge_wide(row_topk, my_buf + r * kBuf, cnt[r], k, kcap, lane);
-    for (int p = lane; p < k; p += 32) {
-      const uint64_t key = row_topk[p];
-      out_d[(size_t)row * k + p] = __uint_as_float(static_cast<uint32_t>(key >> 32));
-      out_i[(size_t)row * k + p] = static_cast<int>(static_cast<uint32_t>(key));
+    for (int r = 0; r < R; ++r) {
+      const int row = row0 + r;
+      if (row >= n) continue;
+      uint64_t* row_topk = my_topk + r * kcap;
+      if (cnt[r] > 0) wide_merge<R>(row_topk, my_buf + r * wide_row_buf(R), cnt[r], k, kcap, lane);
+      for (int p = lane; p < k; p += 32) {
+        const uint64_t key = row_topk[p];
+        out_d[(size_t)row * k + p] = __uint_as_float(static_cast<uint32_t>(key >> 32));
+        out_i[(size_t)row * k + p] = static_cast<int>(static_cast<uint32_t>(key));
+      }
     }
   }
 }
 
-template <int R>
-int launch_wide(const float* packed, const float* norms, int n, int fpad, int k, int kcap,
-                   uint64_t* topk_global, float* out_d, int* out_i, size_t smem,
-                   cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(knn_wide_kernel<R>,
+template <bool kRide, int R>
+int launch_wide(const float* points, const float* packed, int n, int f, int fpad, int chunk,
+                int tile, int stages, int k, int kcap, uint64_t* topk_global, float* out_d,
+                int* out_i, size_t smem, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(knn_wide_kernel<kRide, R>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long rows_per_block = kWideWarps * R;
-  const unsigned blocks = static_cast<unsigned>((n + rows_per_block - 1) / rows_per_block);
-  knn_wide_kernel<R><<<blocks, kWideThreads, smem, s>>>(packed, norms, n, fpad, k, kcap,
-                                                          topk_global, out_d, out_i);
+  const long long rows = kWideWarps * R;
+  const int n_groups = static_cast<int>((n + rows - 1) / rows);
+  const int grid = topk_global != nullptr && n_groups > kWideResidentBlocks ? kWideResidentBlocks
+                                                                             : n_groups;
+  knn_wide_kernel<kRide, R><<<grid, kWideThreads, smem, s>>>(
+      points, packed, n, f, fpad, chunk, tile, stages, k, kcap, n_groups, topk_global, out_d,
+      out_i);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1021,35 +1333,60 @@ extern "C" int knn_topk_f32(const float* points, int n, int f, int k, float* out
   return static_cast<int>(cudaGetLastError());
 }
 
-// Wide instance (any f >= 1, 0 < k < n): rows_per_warp (6, 3 or 1) and
-// kcap (k rounded up to 32) from the wrapper's launch plan; topk_scratch
-// holds ceil(n / (16 rows_per_warp)) * 16 rows_per_warp * kcap keys, or is
-// null to keep the keys in shared memory; smem_bytes must be
-// wide_smem_bytes of the same plan. packed: n * fpad floats (f
-// rounded up to 8), norms: n floats, both 16-byte aligned.
-extern "C" int knn_wide_f32(const float* points, int n, int f, int k, int rows_per_warp, int kcap,
-                            size_t smem_bytes, float* packed, float* norms, void* topk_scratch,
-                            float* out_d, int* out_i, void* stream) {
+// Wide instance (any f >= 1, 0 < k < n), from the wrapper's launch plan:
+// chunk (wide_chunk of f rounded up to 4), tile (wide_tile of the chunk),
+// stages (2-8), rows_per_warp, queries_ride (the query rows' chunk rides in
+// each stage; else they are staged whole), kcap (k rounded up to 32) and
+// smem_bytes (wide_smem_bytes of the same plan, at most kSmemLimit).
+// packed: knn_wide_scratch_bytes(n, f) bytes, 16-byte aligned; topk_scratch
+// holds min(row groups, kWideResidentBlocks) x 16 rows_per_warp x kcap keys,
+// or is null to keep the keys in shared memory. Returns
+// cudaErrorInvalidValue on any other plan.
+extern "C" size_t knn_wide_scratch_bytes(int n, int f) {
+  return wide_packed_floats(n, f) * sizeof(float);
+}
+
+extern "C" int knn_wide_f32(const float* points, int n, int f, int k, int chunk, int tile,
+                            int stages, int rows_per_warp, int queries_ride, int kcap,
+                            size_t smem_bytes, float* packed, void* topk_scratch, float* out_d,
+                            int* out_i, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kcap < k || kcap % 32 != 0 || f < 1 || !(0 < k && k < n) ||
-      smem_bytes != wide_smem_bytes(rows_per_warp, kcap, topk_scratch != nullptr)) {
+  const bool ride = queries_ride != 0;
+  uint64_t* topk = static_cast<uint64_t*>(topk_scratch);
+  const int fpad = wide_fpad(f);
+  if (f < 1 || !(0 < k && k < n) || kcap < k || kcap % 32 != 0 || chunk != wide_chunk(fpad) ||
+      tile != wide_tile(chunk) || stages < kWideMinStages || stages > kWideMaxStages ||
+      !wide_rows_ok(ride, rows_per_warp) ||
+      smem_bytes != wide_smem_bytes(fpad, chunk, tile, stages, rows_per_warp, kcap, ride,
+                                    topk != nullptr) ||
+      smem_bytes > size_t(kSmemLimit)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int fpad = (f + kChunk - 1) / kChunk * kChunk;
-  pack_wide_kernel<<<(n + 255) / 256, 256, 0, s>>>(points, n, f, fpad, packed, norms);
+  const unsigned n_pack = static_cast<unsigned>(wide_packed_floats(n, f) / (fpad + 1));
+  pack_general_kernel<<<(n_pack + 255) / 256, 256, 0, s>>>(points, n, f, fpad, tile, n_pack,
+                                                           packed);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  uint64_t* topk = static_cast<uint64_t*>(topk_scratch);
-  switch (rows_per_warp) {
-    case 6:
-      return launch_wide<6>(packed, norms, n, fpad, k, kcap, topk, out_d, out_i, smem_bytes, s);
-    case 3:
-      return launch_wide<3>(packed, norms, n, fpad, k, kcap, topk, out_d, out_i, smem_bytes, s);
-    case 1:
-      return launch_wide<1>(packed, norms, n, fpad, k, kcap, topk, out_d, out_i, smem_bytes, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+#define GW_LAUNCH(Q, R)                                                                   \
+  return launch_wide<Q, R>(points, packed, n, f, fpad, chunk, tile, stages, k, kcap, topk, \
+                           out_d, out_i, smem_bytes, s)
+  if (ride) {
+    switch (rows_per_warp) {
+      case 8: GW_LAUNCH(true, 8);
+      case 4: GW_LAUNCH(true, 4);
+      case 2: GW_LAUNCH(true, 2);
+      default: GW_LAUNCH(true, 1);
+    }
   }
+  switch (rows_per_warp) {
+    case 8: GW_LAUNCH(false, 8);
+    case 6: GW_LAUNCH(false, 6);
+    case 4: GW_LAUNCH(false, 4);
+    case 3: GW_LAUNCH(false, 3);
+    case 2: GW_LAUNCH(false, 2);
+    default: GW_LAUNCH(false, 1);
+  }
+#undef GW_LAUNCH
 }
 
 // General instance (1 <= f <= 64, 0 < k < n), from the wrapper's launch

@@ -6,7 +6,9 @@ The source is compiled with ``nvcc`` for ``sm_90a`` into
 instances of the kernel: the fast one for F <= 8 and k <= 128 (the main
 path's shape), the general one for every other F <= 64 whose top-k keys
 fit in shared memory beside its ring of tiles, and the wide one for the
-rest (F > 64, or k too large for the general instance's keys).
+rest (F > 64, or k too large for the general instance's keys): a ring of
+feature-chunked tiles, its keys in shared memory or, past it, in device
+scratch for a persistent grid.
 :func:`launch_plan` picks the instance and its shape (tile, stages, rows,
 where the queries and the keys live, shared memory) on the host, and the
 call passes them on. One call launches a prologue that packs the points
@@ -52,11 +54,26 @@ GENERAL_MAX_F = 64
 GENERAL_TILE_FLOATS = 4608  # a stage's floats at most, norms included
 GENERAL_STAGES = (4, 3)
 GENERAL_ROWS_PER_WARP = {"registers": (6, 4, 3, 2, 1), "shared": (8, 6, 4, 3, 2, 1)}
-# The wide instance (no ring): 16 warps of R rows reading points and
-# queries through L1/L2, keys in shared memory while they fit, else in
-# device scratch.
+# The wide instance (csrc/knn_topk.cu: kWide*): F rounded up to 4 (fpad),
+# spread over chunks of at most 32 features; tiles of `tile` points (a
+# power of two up to 256 whose chunk and norms fit a stage's floats); a ring
+# of 2-8 stages, each a tile's chunk and, where the queries ride, the block's
+# query rows' chunk; 16 warps of R rows, the queries staged whole in shared
+# memory or riding; keys in shared memory, else in device scratch for a
+# persistent grid of one block an SM.
 WIDE_WARPS = 16
-WIDE_ROWS_PER_WARP = (6, 3, 1)
+WIDE_STAGE_FLOATS = 2304
+WIDE_MAX_CHUNK = 32
+# Stages in the plan's order: 3 measured 1-3% faster than 4 at 8 rows a
+# warp; at one row a warp (large k) the most, since a merge holds its warp
+# for many steps and the ring's slack keeps the others going (PERF.md).
+WIDE_STAGES = (3, 4, 2)
+WIDE_ONE_ROW_STAGES = (8, 6, 4, 3, 2)
+WIDE_ROWS_PER_WARP = {"shared": (8, 6, 4, 3, 2, 1), "stage": (8, 4, 2, 1)}
+WIDE_PACK_POINTS = 256
+WIDE_RESIDENT_BLOCKS = 132  # one block an SM of an H100 SXM
+WIDE_SCRATCH_BYTES = 32 << 20  # key scratch that L2 (50 MB) holds beside the points
+WIDE_BIG_BUF = 128  # a row's candidate buffer at one row a warp (32 otherwise)
 KEY_BYTES = 8
 SMEM_LIMIT_BYTES = 232_448  # dynamic shared memory a block may opt into on sm_90
 
@@ -118,8 +135,11 @@ def _load(lib: Path) -> None:
     handle.knn_general_scratch_bytes.argtypes = [i32, i32]
     handle.knn_general_scratch_bytes.restype = ctypes.c_size_t
     wide = handle.knn_wide_f32
-    wide.argtypes = [ptr, i32, i32, i32, i32, i32, ctypes.c_size_t, ptr, ptr, ptr, ptr, ptr, ptr]
+    wide.argtypes = [ptr, i32, i32, i32, i32, i32, i32, i32, i32, i32, ctypes.c_size_t, ptr, ptr,
+                     ptr, ptr, ptr]
     wide.restype = ctypes.c_int
+    handle.knn_wide_scratch_bytes.argtypes = [i32, i32]
+    handle.knn_wide_scratch_bytes.restype = ctypes.c_size_t
     _lib = handle
 
 
@@ -147,13 +167,14 @@ def launch_plan(n: int, f: int, k: int) -> dict:
     """The instance that :func:`knn_topk` launches for ``n`` points of ``f``
     features at ``k`` (a pure function of the shape): ``instance``
     (``"fast"``, ``"general"`` or ``"wide"``), ``tile`` and ``stages`` (the
-    ring; 0 for the wide instance, which has none), ``rows_per_warp``,
-    ``rows_per_block``, ``queries`` (``"registers"``, ``"shared"`` or, for
-    the wide instance, ``"global"``), ``kcap`` (keys kept a row), ``topk``
-    (``"shared"`` or ``"global"``: where those keys live), ``smem_bytes``
-    (the block's dynamic shared memory, at most :data:`SMEM_LIMIT_BYTES`)
-    and ``scratch_keys`` (the 8-byte keys of device scratch, 0 in shared
-    memory).
+    ring), ``rows_per_warp``, ``rows_per_block``, ``queries``
+    (``"registers"``, ``"shared"`` or, for the wide instance only,
+    ``"stage"``: riding in the ring), ``kcap`` (keys kept a row), ``topk``
+    (``"shared"`` or, for the wide instance, ``"global"``: where those keys
+    live), ``smem_bytes`` (the block's dynamic shared memory, at most
+    :data:`SMEM_LIMIT_BYTES`) and ``scratch_keys`` (the 8-byte keys of
+    device scratch, 0 in shared memory); the wide plan adds ``chunk`` and
+    ``blocks``.
 
     The general instance takes F <= 64 with the most rows a warp, then the
     most stages, whose keys fit beside its ring; the wide one
@@ -184,21 +205,82 @@ def launch_plan(n: int, f: int, k: int) -> dict:
     return wide_plan(n, f, k)
 
 
+def wide_layout(f: int) -> tuple[int, int, int]:
+    """The wide instance's packed layout for ``f`` features: ``(fpad,
+    chunk, tile)``, F rounded up to 4, the features a chunk (spread evenly
+    over the fewest chunks of at most :data:`WIDE_MAX_CHUNK`, rounded up
+    to 4; the last chunk takes the rest) and the points a tile (the most, a
+    power of two up to 256, whose chunk and norms fit in
+    :data:`WIDE_STAGE_FLOATS`)."""
+    fpad = -(-f // 4) * 4
+    chunks = -(-fpad // WIDE_MAX_CHUNK)
+    chunk = -(-(-(-fpad // chunks)) // 4) * 4
+    tile = 256
+    while tile * (chunk + 1) > WIDE_STAGE_FLOATS:
+        tile //= 2
+    return fpad, chunk, tile
+
+
+def wide_query_tiles(rows: int, tile: int, queries: str) -> int:
+    """The query tiles riding in each stage (``queries == "stage"``)."""
+    return (rows // tile if rows > tile else 1) if queries == "stage" else 0
+
+
+def wide_smem_bytes(f: int, stages: int, rows_per_warp: int, kcap: int, queries: str,
+                    topk: str) -> int:
+    """The wide instance's dynamic shared memory: the ring (each stage a
+    tile's chunk with its norms, and the riding query tiles' chunk), each
+    row's kcap keys (``topk == "shared"``), candidate buffer (128 keys at
+    one row a warp, else 32), norm, threshold and buffer count, the rows
+    staged whole (``queries == "shared"``) and a barrier and a release
+    count per stage."""
+    fpad, chunk, tile = wide_layout(f)
+    rows = WIDE_WARPS * rows_per_warp
+    stage = tile * (chunk + 1) * (1 + wide_query_tiles(rows, tile, queries))
+    buf = WIDE_BIG_BUF if rows_per_warp == 1 else 32
+    return (stages * stage * 4 + rows * ((kcap if topk == "shared" else 0) + buf) * KEY_BYTES
+            + rows * 3 * 4 + (rows * fpad * 4 if queries == "shared" else 0) + stages * (8 + 4))
+
+
+def wide_packed_floats(n: int, f: int) -> int:
+    """Floats of the wide instance's packed points: N rounded up to
+    :data:`WIDE_PACK_POINTS`, fpad features and a norm each."""
+    return -(-n // WIDE_PACK_POINTS) * WIDE_PACK_POINTS * (wide_layout(f)[0] + 1)
+
+
 def wide_plan(n: int, f: int, k: int) -> dict:
-    """The wide instance's plan (the keys of :func:`launch_plan`): the most
-    rows a warp whose keys fit in shared memory, and past that one row a
-    warp with its keys in device scratch. It takes any shape; the chip
-    smoke launches it beside the general instance at the same shapes."""
+    """The wide instance's plan (the keys of :func:`launch_plan`, with
+    ``chunk`` and ``blocks``): the most rows a warp, then the queries staged
+    whole before riding in the stages, then the stages in
+    :data:`WIDE_STAGES`' order (:data:`WIDE_ONE_ROW_STAGES` at one row a
+    warp), then the keys in shared memory before device scratch; the first
+    that fits. With the keys in scratch the grid is persistent,
+    ``blocks`` = min(row groups, :data:`WIDE_RESIDENT_BLOCKS`), and the
+    scratch holds ``blocks`` x rows x kcap keys, whatever N; past one row a
+    warp it must stay within :data:`WIDE_SCRATCH_BYTES`. It takes any
+    shape; the chip smoke launches it beside the general instance at the
+    same shapes."""
     kcap = -(-k // 32) * 32
-    wide = {"instance": "wide", "tile": 0, "stages": 0, "queries": "global", "kcap": kcap}
-    for r in WIDE_ROWS_PER_WARP:
-        smem = WIDE_WARPS * r * (kcap + 32) * KEY_BYTES
-        if smem <= SMEM_LIMIT_BYTES:
-            return {**wide, "rows_per_warp": r, "rows_per_block": WIDE_WARPS * r,
-                    "topk": "shared", "smem_bytes": smem, "scratch_keys": 0}
-    rows = WIDE_WARPS
-    return {**wide, "rows_per_warp": 1, "rows_per_block": rows, "topk": "global",
-            "smem_bytes": WIDE_WARPS * 32 * KEY_BYTES, "scratch_keys": -(-n // rows) * rows * kcap}
+    _, chunk, tile = wide_layout(f)
+    for r in WIDE_ROWS_PER_WARP["shared"]:
+        rows = WIDE_WARPS * r
+        groups = -(-n // rows)
+        for queries in ("shared", "stage"):
+            if r not in WIDE_ROWS_PER_WARP[queries]:
+                continue
+            for stages in WIDE_ONE_ROW_STAGES if r == 1 else WIDE_STAGES:
+                for topk in ("shared", "global"):
+                    blocks = min(groups, WIDE_RESIDENT_BLOCKS) if topk == "global" else groups
+                    scratch = blocks * rows * kcap if topk == "global" else 0
+                    if r > 1 and scratch * KEY_BYTES > WIDE_SCRATCH_BYTES:
+                        continue
+                    smem = wide_smem_bytes(f, stages, r, kcap, queries, topk)
+                    if smem <= SMEM_LIMIT_BYTES:
+                        return {"instance": "wide", "tile": tile, "chunk": chunk,
+                                "stages": stages, "rows_per_warp": r, "rows_per_block": rows,
+                                "queries": queries, "kcap": kcap, "topk": topk,
+                                "smem_bytes": smem, "blocks": blocks, "scratch_keys": scratch}
+    raise AssertionError("the wide instance fits at a row a warp with its keys in scratch")
 
 
 def knn_topk(points: torch.Tensor, k: int):
@@ -241,15 +323,15 @@ def run_plan(points: torch.Tensor, k: int, plan: dict):
                 int(plan["queries"] == "registers"), plan["kcap"], plan["smem_bytes"],
                 tiles.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), stream)
         else:
-            packed = torch.empty((n, -(-f // 8) * 8), dtype=torch.float32, device=dev)
-            norms = torch.empty(n, dtype=torch.float32, device=dev)
+            packed = torch.empty(_lib.knn_wide_scratch_bytes(n, f) // 4, dtype=torch.float32,
+                                 device=dev)
             topk = (torch.empty(plan["scratch_keys"], dtype=torch.int64, device=dev)
                     if plan["topk"] == "global" else None)
             err = _lib.knn_wide_f32(
-                points.data_ptr(), n, f, k, plan["rows_per_warp"], plan["kcap"],
-                plan["smem_bytes"], packed.data_ptr(), norms.data_ptr(),
-                None if topk is None else topk.data_ptr(), out_d.data_ptr(),
-                out_i.data_ptr(), stream)
+                points.data_ptr(), n, f, k, plan["chunk"], plan["tile"], plan["stages"],
+                plan["rows_per_warp"], int(plan["queries"] == "stage"), plan["kcap"],
+                plan["smem_bytes"], packed.data_ptr(), None if topk is None else topk.data_ptr(),
+                out_d.data_ptr(), out_i.data_ptr(), stream)
     if err:
         raise RuntimeError(f"knn_topk ({plan['instance']} instance) launch failed: "
                            f"cudaError {err}")

@@ -27,7 +27,8 @@ are XLA's layout on a TPU and are not carried over):
   is the largest of these;
 - LOF (:func:`lof_footprint`): the exact kNN on ``knn_topk`` (features,
   the ``[N, k]`` outputs, the packed copy the wrapper allocates, and the
-  8-byte keys in device scratch past k = 1,760) or the IVF index
+  wide instance's 8-byte keys in device scratch, per resident block,
+  where its plan keeps them there) or the IVF index
   (``ops/ann.py``: the probe lists and the chunk results ``[R, 4096, k]``
   float32 + int32, which live twice while the merge's flat copies are
   made), with the LOF formula's ``[N, k]`` temporaries.
@@ -77,11 +78,19 @@ IVF_SEARCH_ELEMS = 1 << 25
 IVF_N_PROBE = 16
 
 # knn_topk's launch plan (kernels/knn_cuda.py), mirrored: the fast
-# instance packs 512-point tiles of 9 floats; the general instance keeps
-# kcap = k rounded up to 32 keys a row, in device scratch past this k.
+# instance packs 512-point tiles of 9 floats; the general instance (F <= 64)
+# packs tiles of F rounded up to 8 and keeps kcap = k rounded up to 32 keys
+# a row in shared memory beside its ring; the wide instance packs N rounded
+# up to 256 points of F rounded up to 4, and keeps its keys in device
+# scratch for a persistent grid (at most 132 blocks of 16 R rows) where its
+# plan puts them there (the scratch within 32 MiB past a row a warp).
 KNN_FAST_F, KNN_FAST_K = 8, 128
 KNN_TILE_POINTS, KNN_TILE_FLOATS = 512, 512 * 9
-KNN_SCRATCH_MIN_K = 1761
+KNN_SMEM_LIMIT = 232_448
+KNN_GENERAL_MAX_F, KNN_GENERAL_TILE_FLOATS = 64, 4608
+KNN_WIDE_STAGE_FLOATS, KNN_WIDE_MAX_CHUNK, KNN_WIDE_PACK_POINTS = 2304, 32, 256
+KNN_WIDE_SCRATCH_BLOCKS, KNN_WIDE_SCRATCH_BYTES = 132, 32 << 20
+KNN_WIDE_STAGES, KNN_WIDE_ONE_ROW_STAGES = (3, 4, 2), (8, 6, 4, 3, 2)
 
 # The blocked family's bin budget (ops/blocking.py DEFAULT_TILE_SLOTS),
 # mirrored: a sharded pre-build estimate's tile is at most one bin a shard.
@@ -439,14 +448,50 @@ def ivf_model_clusters(n: int) -> int:
 
 
 def _knn_topk_scratch(n: int, f: int, k: int) -> dict:
-    """The device buffers ``knn_topk`` allocates beside its outputs."""
+    """The device buffers ``knn_topk`` allocates beside its outputs: the
+    packed points and, for the wide instance past shared memory, the keys."""
     if f <= KNN_FAST_F and k <= KNN_FAST_K:
         tiles = -(-n // KNN_TILE_POINTS)
         return {"knn_packed": _I32 * tiles * KNN_TILE_FLOATS}
-    out = {"knn_packed": _I32 * n * (-(-f // 8) * 8) + _I32 * n}
-    if k >= KNN_SCRATCH_MIN_K:
-        kcap = -(-k // 32) * 32
-        out["knn_scratch_keys"] = 8 * (-(-n // 16) * 16) * kcap
+    kcap = -(-k // 32) * 32
+    if f <= KNN_GENERAL_MAX_F:
+        fpad = -(-f // 8) * 8
+        tile = 512
+        while tile * (fpad + 1) > KNN_GENERAL_TILE_FLOATS:
+            tile //= 2
+        # the general plan with the least shared memory: a row a warp, 3 stages
+        smem = (3 * tile * (fpad + 1) * _I32 + 16 * (kcap + 32) * 8
+                + (0 if fpad == 8 else 16 * fpad * _I32) + 3 * 12)
+        if smem <= KNN_SMEM_LIMIT:
+            return {"knn_packed": _I32 * -(-n // tile) * tile * (fpad + 1)}
+    fpad = -(-f // 4) * 4
+    chunks = -(-fpad // KNN_WIDE_MAX_CHUNK)
+    chunk = -(-(-(-fpad // chunks)) // 4) * 4
+    tile = 256
+    while tile * (chunk + 1) > KNN_WIDE_STAGE_FLOATS:
+        tile //= 2
+    points = -(-n // KNN_WIDE_PACK_POINTS) * KNN_WIDE_PACK_POINTS
+    out = {"knn_packed": _I32 * points * (fpad + 1)}
+    # the plan's order: the most rows a warp, the rows staged whole before
+    # riding, the stages (the most at a row a warp), the keys in shared
+    # memory before scratch (within its budget past a row a warp)
+    stage = tile * (chunk + 1) * _I32
+    for r in (8, 6, 4, 3, 2, 1):
+        rows = 16 * r
+        blocks = min(-(-n // rows), KNN_WIDE_SCRATCH_BLOCKS)
+        keys = 8 * blocks * rows * kcap
+        for whole in (True, False):
+            if not whole and r in (6, 3):
+                continue
+            for stages in (KNN_WIDE_ONE_ROW_STAGES if r == 1 else KNN_WIDE_STAGES):
+                ring = stages * stage * (1 + (0 if whole else max(1, rows // tile)))
+                base = (ring + rows * ((128 if r == 1 else 32) * 8 + 12)
+                        + (rows * fpad * _I32 if whole else 0) + stages * 12)
+                if base + rows * kcap * 8 <= KNN_SMEM_LIMIT:
+                    return out
+                if base <= KNN_SMEM_LIMIT and (r == 1 or keys <= KNN_WIDE_SCRATCH_BYTES):
+                    out["knn_scratch_keys"] = keys
+                    return out
     return out
 
 

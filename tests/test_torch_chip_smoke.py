@@ -78,7 +78,41 @@ def test_every_general_plan_has_a_parity_case():
     assert (scratch["instance"], scratch["topk"]) == ("wide", "global")
     assert [knn_cuda.launch_plan(*s)["instance"] for s in chip_smoke.GENERAL_TIMED] == [
         "general"] * 3
-    assert knn_cuda.launch_plan(*chip_smoke.WIDE_TIMED)["instance"] == "wide"
+    assert [knn_cuda.launch_plan(*s)["instance"] for s in chip_smoke.WIDE_TIMED] == ["wide"] * 4
+
+
+def test_every_wide_plan_has_a_parity_case():
+    """Phase 3's wide cases run each rows-a-warp choice with the queries
+    staged whole and riding in the stages, the keys in shared memory and in
+    scratch with either, F = 65 on a tied grid, F past the staging limit, N
+    off a whole tile and a persistent grid that walks several row groups a
+    block; the timed rows are F = 65 (keys in shared memory) and 128 (in
+    scratch) at k = 128 and F = 8 at k = 1,500 and 2,000 (in scratch)."""
+    from graphmine_tpu_torch.kernels import knn_cuda
+
+    cases = (chip_smoke.WIDE_CASE, chip_smoke.GLOBAL_SCRATCH_CASE, chip_smoke.WIDE_TIED_CASE,
+             *chip_smoke.WIDE_PLAN_CASES)
+    plans = [knn_cuda.launch_plan(*case) for case in cases]
+    assert {p["instance"] for p in plans} == {"wide"}
+    assert {(p["queries"], p["rows_per_warp"]) for p in plans} == {
+        (q, r) for q, rows in knn_cuda.WIDE_ROWS_PER_WARP.items() for r in rows}
+    assert {(p["queries"], p["topk"]) for p in plans} == {
+        (q, t) for q in ("shared", "stage") for t in ("shared", "global")}
+    assert chip_smoke.WIDE_TIED_CASE[1:] == (65, 150)
+    # past the staging limit: 8 rows of 400 features do not fit whole
+    assert knn_cuda.launch_plan(3001, 400, 64)["queries"] == "stage"
+    assert knn_cuda.wide_smem_bytes(400, 2, 8, 64, "shared", "global") > 232_448
+    assert (3001, 400, 64) in chip_smoke.WIDE_PLAN_CASES
+    assert any(n % p["tile"] for (n, _, _), p in zip(cases, plans))
+    assert any(p["topk"] == "global" and -(-n // p["rows_per_block"]) > p["blocks"]
+               for (n, _, _), p in zip(cases, plans))
+    timed = {s: knn_cuda.launch_plan(*s) for s in chip_smoke.WIDE_TIMED}
+    assert list(timed) == [(65536, 65, 128), (65536, 128, 128), (65536, 8, 1500),
+                           (65536, 8, 2000)]
+    assert [p["topk"] for p in timed.values()] == ["shared", "global", "global", "global"]
+    # one row a warp with its keys in shared memory (merge_wide there)
+    assert any(p["rows_per_warp"] == 1 and p["topk"] == "shared" for p in plans)
+    assert chip_smoke.WIDEST_LOF_K == 1500
 
 
 def test_exits_nonzero_alone(tmp_path):

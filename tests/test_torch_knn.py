@@ -142,10 +142,10 @@ def test_plain_knn_matches_jax_knn_past_the_fast_instance():
     np.testing.assert_array_equal(i.numpy(), np.asarray(i_ref))
 
 
-@pytest.mark.parametrize("f", [64, 65])
+@pytest.mark.parametrize("f", [64, 65, 128])
 def test_plain_knn_matches_jax_knn_at_the_general_instances_widest(f):
-    # F = 64, the general instance's widest, and F = 65, the wide
-    # instance's, at k = 150. Points on the integer grid [0, 4)^F: every
+    # F = 64, the general instance's widest, and F = 65 and 128, the wide
+    # instance's (one chunk and a remainder; four whole chunks), at k = 150. Points on the integer grid [0, 4)^F: every
     # distance is an integer below 2^24, exact in both packages' float32
     # arithmetic, so distances and indices are equal, ties included.
     from graphmine_tpu.ops.knn import knn as jknn
@@ -211,10 +211,52 @@ def test_general_plan_is_the_sources_shape():
                                                                              64, 64]
 
 
+def test_wide_plan_is_the_sources_shape():
+    """The wrapper's wide-instance constants are the source's: warps, a
+    stage's floats, the largest chunk, the stage counts, the packing, the
+    persistent grid and the rows a warp of each query layout (the template
+    arguments knn_wide_f32 dispatches to); and its layout rule."""
+    import re
+
+    from graphmine_tpu_torch.kernels import knn_cuda
+
+    c = _cu_constants()
+    assert c["kWideWarps"] == knn_cuda.WIDE_WARPS == 16
+    assert c["kWideStageFloats"] == knn_cuda.WIDE_STAGE_FLOATS
+    assert c["kWideMaxChunk"] == knn_cuda.WIDE_MAX_CHUNK
+    stages = set(knn_cuda.WIDE_STAGES) | set(knn_cuda.WIDE_ONE_ROW_STAGES)
+    assert (c["kWideMinStages"], c["kWideMaxStages"]) == (min(stages), max(stages)) == (2, 8)
+    assert c["kWidePackPoints"] == knn_cuda.WIDE_PACK_POINTS
+    assert c["kWideResidentBlocks"] == knn_cuda.WIDE_RESIDENT_BLOCKS
+    assert c["kWideBigBuf"] == knn_cuda.WIDE_BIG_BUF == 128
+    code = knn_cuda.SOURCE.read_text()
+    for flag, queries in (("true", "stage"), ("false", "shared")):
+        rows = {int(r) for r in re.findall(rf"GW_LAUNCH\({flag}, (\d+)\)", code)}
+        assert rows == set(knn_cuda.WIDE_ROWS_PER_WARP[queries])
+    for f in range(1, 600):
+        fpad, chunk, tile = knn_cuda.wide_layout(f)
+        chunks = -(-fpad // chunk)
+        last = fpad - (chunks - 1) * chunk
+        assert fpad - 4 < f <= fpad and fpad % 4 == 0 and chunk % 4 == 0
+        # the fewest chunks of at most 32 features, the last one not empty
+        assert chunk <= knn_cuda.WIDE_MAX_CHUNK and chunks == -(-fpad // knn_cuda.WIDE_MAX_CHUNK)
+        assert 0 < last <= chunk
+        # a stage's points fit; a tile of several chunks is one step of 64
+        assert tile * (chunk + 1) <= knn_cuda.WIDE_STAGE_FLOATS
+        assert tile == 256 or 2 * tile * (chunk + 1) > knn_cuda.WIDE_STAGE_FLOATS
+        assert chunks == 1 or tile == 64
+        # the packing's whole groups hold whole tiles and every riding block
+        assert knn_cuda.WIDE_PACK_POINTS % tile == 0
+    assert [knn_cuda.wide_layout(f) for f in (3, 8, 16, 65, 128, 5000)] == [
+        (4, 4, 256), (8, 8, 256), (16, 16, 128), (68, 24, 64), (128, 32, 64), (5000, 32, 64)]
+
+
 def _expected_smem(plan, f):
     """A plan's shared memory from its parts: the ring, the keys and
     buffers, the staged queries and a barrier and count per stage (general);
-    the keys and buffers, or the buffers alone (wide)."""
+    the ring with the riding query tiles, the keys (unless in scratch),
+    buffers and each row's norm, threshold and count, the queries staged
+    whole and a barrier and count per stage (wide)."""
     rows, kcap = plan["rows_per_block"], plan["kcap"]
     if plan["instance"] == "general":
         fpad = -(-f // 8) * 8
@@ -222,7 +264,13 @@ def _expected_smem(plan, f):
         queries = rows * fpad * 4 if plan["queries"] == "shared" else 0
         return ring + rows * (kcap + 32) * 8 + queries + plan["stages"] * (8 + 4)
     if plan["instance"] == "wide":
-        return rows * (kcap + 32 if plan["topk"] == "shared" else 32) * 8
+        fpad, tile = -(-f // 4) * 4, plan["tile"]
+        riding = (max(1, rows // tile)) if plan["queries"] == "stage" else 0
+        ring = plan["stages"] * tile * (plan["chunk"] + 1) * (1 + riding) * 4
+        buf = 128 if plan["rows_per_warp"] == 1 else 32
+        keys = rows * ((kcap if plan["topk"] == "shared" else 0) + buf) * 8 + rows * 12
+        queries = rows * fpad * 4 if plan["queries"] == "shared" else 0
+        return ring + keys + queries + plan["stages"] * (8 + 4)
     return plan["smem_bytes"]
 
 
@@ -233,10 +281,11 @@ def _expected_smem(plan, f):
     (65_536, 16, 128, "general", 128, "shared"),
     (2000, 33, 300, "general", 64, "shared"),
     (4096, 8, 1024, "general", 16, "shared"),
-    (4096, 8, 1760, "wide", 16, "shared"),
-    (4096, 8, 1761, "wide", 16, "global"),
+    (8001, 65, 1248, "wide", 16, "shared"),
+    (8001, 65, 1249, "wide", 16, "global"),
+    (4096, 8, 1536, "wide", 16, "global"),
     (100_000, 3, 50_000, "wide", 16, "global"),
-    (10, 5000, 9, "wide", 96, "shared"),
+    (10, 5000, 9, "wide", 128, "shared"),
     # queries in registers (F <= 8), each rows-a-warp choice
     (3001, 1, 130, "general", 96, "shared"),
     (65_536, 8, 256, "general", 64, "shared"),
@@ -251,11 +300,11 @@ def _expected_smem(plan, f):
     (3001, 40, 500, "general", 32, "shared"),
     (3001, 64, 1300, "general", 16, "shared"),
     # F = 64 against F = 65; the key capacity where general gives way to wide
-    (3001, 65, 150, "wide", 96, "shared"),
+    (3001, 65, 150, "wide", 128, "global"),
     (3000, 8, 1344, "general", 16, "shared"),
-    (3000, 8, 1345, "wide", 16, "shared"),
+    (3000, 8, 1345, "wide", 64, "global"),
     (3000, 64, 1344, "general", 16, "shared"),
-    (3000, 64, 1345, "wide", 16, "shared"),
+    (3000, 64, 1345, "wide", 64, "global"),
 ])
 def test_launch_plan_pins_the_instances(n, f, k, instance, rows, topk):
     from graphmine_tpu_torch.kernels import knn_cuda
@@ -269,10 +318,66 @@ def test_launch_plan_pins_the_instances(n, f, k, instance, rows, topk):
         assert plan["queries"] == ("registers" if f <= 8 else "shared")
         assert plan["stages"] in (3, 4) and plan["tile"] == knn_cuda.general_tile(-(-f // 8) * 8)
     if instance == "wide":
-        assert (plan["queries"], plan["tile"], plan["stages"]) == ("global", 0, 0)
+        assert plan["queries"] in ("shared", "stage")
+        assert plan["stages"] in (knn_cuda.WIDE_ONE_ROW_STAGES if plan["rows_per_warp"] == 1
+                                  else knn_cuda.WIDE_STAGES)
+        assert (plan["tile"], plan["chunk"]) == knn_cuda.wide_layout(f)[2:0:-1]
         assert plan == knn_cuda.wide_plan(n, f, k)
-        blocks = -(-n // rows)
+        groups = -(-n // rows)
+        blocks = min(groups, 132) if topk == "global" else groups
+        assert plan["blocks"] == blocks
         assert plan["scratch_keys"] == (blocks * rows * plan["kcap"] if topk == "global" else 0)
+
+
+@pytest.mark.parametrize("n,f,k,tile,chunk,stages,rows,queries,topk", [
+    # the timed rows: F = 65 (chunks of 24, 24, 20; keys in shared memory),
+    # F = 128 (four chunks of 32; 8 rows staged whole only beside keys in
+    # scratch), and F = 8 at k = 1,500 and 2,000 (one row a warp, so that
+    # L2 holds the keys per resident block; 8 stages, which leave no room
+    # for the keys in shared memory)
+    (65_536, 65, 128, 64, 24, 3, 128, "shared", "shared"),
+    (65_536, 128, 128, 64, 32, 3, 128, "shared", "global"),
+    (65_536, 8, 1500, 256, 8, 8, 16, "shared", "global"),
+    (65_536, 8, 2000, 256, 8, 8, 16, "shared", "global"),
+    # one row a warp with its keys in shared memory beside 8 stages
+    (65_536, 65, 1000, 64, 24, 8, 16, "shared", "shared"),
+    # F = 5,000: 157 chunks, the rows riding; F = 400, past the staging
+    # limit; F = 300 staged whole beside keys in scratch
+    (10, 5000, 9, 64, 32, 3, 128, "stage", "shared"),
+    (3001, 400, 64, 64, 32, 3, 128, "stage", "shared"),
+    (2000, 300, 64, 64, 32, 3, 128, "shared", "global"),
+    # the scratch's L2 budget takes rows a warp away as k grows
+    (17_001, 65, 250, 64, 24, 3, 96, "shared", "global"),
+    (12_001, 65, 400, 64, 24, 3, 64, "shared", "global"),
+    (8001, 65, 800, 64, 24, 3, 32, "shared", "global"),
+    (20_001, 8, 1900, 256, 8, 8, 16, "shared", "global"),
+    # riding at fewer rows
+    (12_001, 800, 400, 64, 32, 3, 64, "stage", "global"),
+    (8001, 2000, 600, 64, 32, 3, 32, "stage", "shared"),
+    (3001, 4000, 1700, 64, 32, 8, 16, "stage", "global"),
+])
+def test_wide_plan_pins_its_choices(n, f, k, tile, chunk, stages, rows, queries, topk):
+    from graphmine_tpu_torch.kernels import knn_cuda
+
+    plan = knn_cuda.launch_plan(n, f, k)
+    assert plan["instance"] == "wide"
+    assert (plan["tile"], plan["chunk"], plan["stages"], plan["rows_per_block"], plan["queries"],
+            plan["topk"]) == (tile, chunk, stages, rows, queries, topk)
+    assert plan["smem_bytes"] == _expected_smem(plan, f) <= knn_cuda.SMEM_LIMIT_BYTES
+
+
+def test_wide_scratch_is_bounded_by_the_resident_blocks():
+    from graphmine_tpu_torch.kernels import knn_cuda
+
+    # 65,536 x 8 at k = 2,000: 132 blocks of 16 rows of 2,016 keys (34 MB,
+    # within L2), not a row of keys for each of the 65,536 points (1.06 GB)
+    plan = knn_cuda.launch_plan(65_536, 8, 2000)
+    assert plan["scratch_keys"] == 132 * 16 * 2016
+    assert 8 * plan["scratch_keys"] < 50 * 10**6 < 8 * 65_536 * 2016
+    # the same at any N past 132 row groups
+    assert knn_cuda.launch_plan(1 << 24, 8, 2000)["scratch_keys"] == plan["scratch_keys"]
+    assert knn_cuda.wide_packed_floats(65_536, 8) == 65_536 * 9
+    assert knn_cuda.wide_packed_floats(3001, 65) == 3072 * 69
 
 
 def test_every_launch_plan_fits_and_the_bad_shapes_raise():
@@ -305,10 +410,28 @@ def test_every_launch_plan_fits_and_the_bad_shapes_raise():
         elif plan["instance"] == "wide":
             # past F = 64, or no general plan fits at one row a warp
             assert f > 64 or min(general) > limit
-            # the most rows a warp whose keys fit
-            if plan["rows_per_warp"] < 6:
-                bigger = {1: 3, 3: 6}[plan["rows_per_warp"]]
-                assert 16 * bigger * (plan["kcap"] + 32) * 8 > limit
+            # the keys in scratch only where no plan keeps them in shared
+            # memory; there a persistent grid, its scratch bounded by the
+            # resident blocks and not by N
+            kcap, r = plan["kcap"], plan["rows_per_warp"]
+            fits = lambda r, q, st, topk: knn_cuda.wide_smem_bytes(f, st, r, kcap, q, topk) <= limit
+            scratch = lambda rr: min(-(-n // (16 * rr)), 132) * 16 * rr * kcap
+            if plan["topk"] == "global":
+                assert plan["blocks"] == min(-(-n // (16 * r)), 132)
+                assert plan["scratch_keys"] == scratch(r) <= 132 * 16 * r * kcap
+                assert r == 1 or 8 * scratch(r) <= knn_cuda.WIDE_SCRATCH_BYTES
+            else:
+                assert plan["scratch_keys"] == 0 and plan["blocks"] == -(-n // (16 * r))
+            # the most rows a warp, the queries whole before riding, the
+            # stages in order, then the keys in shared memory before scratch
+            # (within the scratch's budget past a row a warp)
+            order = [(rr, q, t, st) for rr in knn_cuda.WIDE_ROWS_PER_WARP["shared"]
+                     for q in ("shared", "stage") if rr in knn_cuda.WIDE_ROWS_PER_WARP[q]
+                     for st in (knn_cuda.WIDE_ONE_ROW_STAGES if rr == 1 else knn_cuda.WIDE_STAGES)
+                     for t in ("shared", "global")
+                     if t == "shared" or rr == 1 or 8 * scratch(rr) <= knn_cuda.WIDE_SCRATCH_BYTES]
+            chosen = order.index((r, plan["queries"], plan["topk"], plan["stages"]))
+            assert not any(fits(rr, q, st, t) for rr, q, t, st in order[:chosen])
     for n, f, k in ((10, 2, 10), (10, 2, 0), (10, 0, 3), (1 << 31, 2, 3)):
         with pytest.raises(ValueError):
             knn_cuda.launch_plan(n, f, k)

@@ -162,14 +162,24 @@ def test_exact_footprint_counts_the_ports_tensors(weighted):
     assert seeded.inventory["plan_mats"] >= inv["plan_mats"]
 
 
-@pytest.mark.parametrize("n,f,k", [(262144, 8, 128), (65536, 8, 256), (4096, 8, 2000)])
+@pytest.mark.parametrize("n,f,k", [(262144, 8, 128), (65536, 8, 256), (4096, 8, 2000),
+                                   (65536, 8, 1500), (65536, 8, 2000), (65536, 65, 128),
+                                   (3001, 5000, 9)])
 def test_exact_lof_footprint_follows_the_kernels_launch_plan(n, f, k):
     inv = memmodel.lof_footprint("exact", n, k, features=f).inventory
     lp = knn_cuda.launch_plan(n, f, k)
     assert inv["knn_outputs"] == 8 * n * k and inv["features"] == 4 * n * f
     if lp["instance"] == "fast":
         assert inv["knn_packed"] == 4 * (-(-n // 512)) * 512 * 9
+    if lp["instance"] == "general":
+        fpad = -(-f // 8) * 8
+        assert inv["knn_packed"] == 4 * (-(-n // lp["tile"])) * lp["tile"] * (fpad + 1)
+    if lp["instance"] == "wide":
+        assert inv["knn_packed"] == 4 * knn_cuda.wide_packed_floats(n, f)
     assert inv.get("knn_scratch_keys", 0) == 8 * lp["scratch_keys"]
+    # keys past shared memory: per resident block (34 MB at 65,536 x 8,
+    # k = 2,000), not per point (1.06 GB)
+    assert inv.get("knn_scratch_keys", 0) <= 8 * 132 * 16 * -(-k // 32) * 32
 
 
 def test_ivf_footprint_models_the_chunk_results():
