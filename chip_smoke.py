@@ -17,9 +17,10 @@ In order, and failing on the first phase that fails:
 1. prints the card's name and power limit (``nvidia-smi``) and turns TF32
    off for matrix products and cuDNN;
 2. builds, at once, the kernel of the exact path from
-   ``graphmine_tpu_torch/csrc/knn_topk.cu`` (``nvcc``) and the edge-list
+   ``graphmine_tpu_torch/csrc/knn_topk.cu`` (``nvcc``), the LPA row-mode
+   kernel from ``csrc/bucketed_mode.cu`` (``nvcc``) and the edge-list
    parser from ``csrc/graph_builder.cpp`` (the host C++ compiler), and
-   prints both build times on the ``build_seconds`` line;
+   prints the build times on the ``build_seconds`` line;
 3. holds the kernel against its plain PyTorch version on the card: the
    fast instance (F <= 8, k <= 128) on tie-free normal clouds and on clouds
    of points on the integer grid [0, 4)^F, full of exact distance ties (one
@@ -31,6 +32,20 @@ In order, and failing on the first phase that fails:
    and at each of its plans (``WIDE_PLAN_CASES``): distances bit-equal
    (max_abs_err 0), kNN indices equal, ties included, rows ascending, self
    excluded;
+3b. holds the LPA row-mode kernel against the plain bucketed superstep
+   (``_bucket_mode`` a class) and the sort superstep, labels equal after
+   every superstep, on a graph500-22-like R-MAT (scale 22, edge factor 16,
+   duplicates kept: 134M messages, wide classes to 34,992 and hubs; 10
+   supersteps) and on the e2e-2e18-like planted graph (262,144 vertices,
+   25M edges; 5 supersteps), the kernel's counters rising by one launch a
+   tier and its table's rows a superstep, no row counted on the plain path
+   (``kernel_launches_per_superstep``: measured); then times, on the first
+   superstep's labels
+   (all distinct) and the last's, the superstep on the kernel, the
+   kernel's launches alone, the hubs' histogram and the plain superstep
+   (CUDA events, mean of ``LPA_MODE_REPS``), the host's enqueue of a
+   superstep, and prints them beside the gather yardstick (messages at
+   70 G slots/s) on the ``lpa_mode`` line;
 4. runs the port's pipeline on the card and on the CPU on small planted
    graphs (4,096 vertices): unweighted with the exact kNN, with edge
    weights in quarters (sums exact in float32), with the IVF kNN, from a
@@ -66,7 +81,9 @@ In order, and failing on the first phase that fails:
    resolved LOF impl, any ``ivf_fallback``, the ``quarantine`` record, the
    CC count and giant component, the publish's seconds and bytes and the
    ``canary_score`` record (its probe runs ``knn_topk``: launches >= 1),
-   after loading the store back under the graph's fingerprint;
+   after loading the store back under the graph's fingerprint; its LPA
+   launches the row-mode kernel (``launches.lpa_mode`` >= 1) and leaves no
+   row to the plain path (``lpa_plain_rows`` 0);
 5c. drives the main path again through the run harness at full width:
    the config from the port's ``parse_args`` on the JAX CLI's flags
    (:func:`harness_flags`: checkpoints every superstep, tripwires, the
@@ -83,7 +100,8 @@ In order, and failing on the first phase that fails:
    same graph with a third column of weights
    ``default_rng(7).integers(1, 16, E) / 4``, ``edge_weight_col=2`` and
    ``lof_impl="exact"``, counts reset and read the same way; prints the
-   ``weighted_path`` line (``launches.knn_topk`` >= 1);
+   ``weighted_path`` line (``launches.knn_topk`` >= 1; the weighted LPA
+   never launches the row-mode kernel: ``lpa_mode`` 0);
 6. holds the fast instance against its plain version at the shape 5b
    gave it (the pipeline's own feature matrix, whose duplicate rows tie;
    indices equal there too), the general instance on normal clouds at
@@ -120,7 +138,9 @@ In order, and failing on the first phase that fails:
    the version it names); every publish's CC labels equal a cold
    ``connected_components`` of its graph, a warm repair's labels are an
    LPA fixpoint, the version chain advances by one; ``knn_topk`` runs at
-   least once a publish (the canary); then the apply's stages timed alone
+   least once a publish (the canary); the repairs' LPA launches the
+   row-mode kernel and leaves no row to the plain path; then the apply's
+   stages timed alone
    (:func:`serving_stage_times`); prints the ``serve`` line;
 7c. (after 7b, on phase 4's store, the card against the CPU, correctness
    only) a ``serve --wal --device cuda`` process takes three deltas with
@@ -310,8 +330,11 @@ In order, and failing on the first phase that fails:
 14. prints the smoke's total seconds, the card line again and the last
    line, ``{"ok": true, "device": {...}}``.
 
-``--kernels-only`` skips the pipelines: after phase 3 it holds and times
-the fast instance at the main path's shape (262,144 x 8, k = 128) on a
+Phase 3b runs in the full smoke and under ``--kernels-only``, not in the
+other modes.
+
+``--kernels-only`` skips the pipelines: after phases 3 and 3b it holds and
+times the fast instance at the main path's shape (262,144 x 8, k = 128) on a
 normal cloud (the ``kernels`` entry, with its plain and library times), on
 the [0, 4)^8 grid cloud and on a constant cloud (every distance 0, so each
 row inserts only its first k candidates: the kernel's time with next to no
@@ -393,6 +416,11 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
 HARNESS_RUN_ID = "smoke-5c"
 HARNESS_TIMEOUT_S = 2.0  # phase 4b's watchdog bound (a superstep there takes ms)
+# Phase 3b: (name, graph, supersteps) of the LPA row-mode kernel's parity
+LPA_MODE_GRAPHS = (("graph500-22-like", "rmat", 10), ("e2e-2e18-like", "planted", 5))
+LPA_MODE_RMAT_SCALE = 22
+LPA_MODE_REPS = 20
+LPA_MODE_GATHER_SLOTS_PER_S = 70e9  # the card's random-gather rate (PERF.md, phase 10c)
 KNN_SOURCE = "graphmine_tpu_torch/csrc/knn_topk.cu"
 KNN_REPLACES = "graphmine_tpu/pallas_kernels/knn_pallas.py:117"
 
@@ -798,16 +826,17 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
 
     from graphmine_tpu_torch.io import native
-    from graphmine_tpu_torch.kernels import knn_cuda
+    from graphmine_tpu_torch.kernels import knn_cuda, mode_cuda
 
-    # ---- 2. build: the kernel and the parser, at once --------------------
-    with ThreadPoolExecutor(2) as pool:
+    # ---- 2. build: the kernels and the parser, at once -------------------
+    with ThreadPoolExecutor(3) as pool:
         knn_job = pool.submit(knn_cuda.build, verbose=True)
+        mode_job = pool.submit(mode_cuda.build, verbose=True)
         parser_job = pool.submit(native.build)
-        build_s, parser_s = knn_job.result(), parser_job.result()
-    log(f"kernel built in {build_s:.2f} s, parser in {parser_s:.2f} s")
-    print(json.dumps({"build_seconds": build_s, "parser_build_seconds": parser_s}), flush=True)
-
+        build_s, mode_s, parser_s = knn_job.result(), mode_job.result(), parser_job.result()
+    log(f"kernels built in {build_s:.2f} s and {mode_s:.2f} s, parser in {parser_s:.2f} s")
+    print(json.dumps({"build_seconds": build_s, "lpa_mode_build_seconds": mode_s,
+                      "parser_build_seconds": parser_s}), flush=True)
     # ---- 3. kernel against plain version: tie-free clouds, tied grids ---
     rng, rng_plans = np.random.default_rng(0), np.random.default_rng(1)
     normal = lambda n, f, g=rng: g.normal(size=(n, f))
@@ -850,6 +879,7 @@ def main(argv=None) -> int:
     del pts
 
     if args.kernels_only:
+        run_lpa_mode(dev)
         # ---- the kernel alone at the main path's shape ------------------
         n, f, k = FULL_SHAPE
         full = {"normal": rng.normal(size=(n, f)), "grid": rng.integers(0, 4, size=(n, f)),
@@ -877,6 +907,12 @@ def main(argv=None) -> int:
              else run_dist_only if args.dist_only else run_main_path)(work)
         finally:
             shutil.rmtree(work, ignore_errors=True)
+    return finish(t_start, smi)
+
+
+def finish(t_start: float, smi: str) -> int:
+    """The last three lines: the smoke's seconds, the card line, ``ok``."""
+    import torch
 
     print(json.dumps({"smoke_seconds": time.perf_counter() - t_start}), flush=True)
     print(smi, flush=True)
@@ -887,13 +923,150 @@ def main(argv=None) -> int:
     return 0
 
 
+def lpa_mode_graph(kind: str, device):
+    """Phase 3b's graphs with their fused plans: ``"rmat"``, graph500-22's
+    shape (scale 22, edge factor 16, duplicates kept) drawn on ``device``,
+    or ``"planted"``, the e2e tier's graph (``V_MAIN``, ``E_MAIN``)."""
+    from graphmine_tpu_torch import datasets
+    from graphmine_tpu_torch.ops.bucketed_mode import BucketedModePlan, build_graph_and_plan
+
+    if kind == "rmat":
+        graph, ptr = rmat_graph(LPA_MODE_RMAT_SCALE, 16, seed=LPA_MODE_RMAT_SCALE, device=device)
+        return graph, BucketedModePlan.from_ptr(ptr, graph.num_vertices, graph.msg_send)
+    src, dst, _, _ = datasets.planted_anomaly_graph(V_MAIN, E_MAIN, seed=SEED_MAIN)
+    return build_graph_and_plan(src, dst, num_vertices=V_MAIN, device=device)
+
+
+def plain_bucketed_superstep(labels, plan):
+    """The bucketed superstep on the plain path alone: ``_bucket_mode`` a
+    class, then the hubs' histogram."""
+    from graphmine_tpu_torch.ops.bucketed_mode import _hub_modes, _plain_class_modes
+
+    out = labels.clone()
+    _plain_class_modes(labels, plan, range(len(plan.vertex_ids)), out)
+    _hub_modes(labels, plan, out)
+    return out
+
+
+def lpa_mode_parity(graph, plan, supersteps: int) -> tuple:
+    """Runs ``supersteps`` LPA supersteps from each vertex's id, requiring
+    after each that the bucketed superstep (the kernel on a card) equals
+    the plain bucketed superstep and the sort superstep; returns the first
+    and the last superstep's input labels and the counts of
+    :func:`launch_counts` a superstep over the run (the plain supersteps
+    beside it count nothing)."""
+    import torch
+
+    from graphmine_tpu_torch.ops.bucketed_mode import lpa_superstep_bucketed
+    from graphmine_tpu_torch.ops.lpa import lpa_superstep
+
+    labels = first = torch.arange(graph.num_vertices, dtype=torch.int32, device=graph.device)
+    launch_mark = launch_counts()
+    for step in range(supersteps):
+        last = labels
+        got = lpa_superstep_bucketed(labels, graph, plan)
+        require(torch.equal(got, plain_bucketed_superstep(labels, plan)),
+                f"superstep {step}: the bucketed superstep differs from its plain path")
+        require(torch.equal(got, lpa_superstep(labels, graph)),
+                f"superstep {step}: the bucketed superstep differs from the sort superstep")
+        labels = got
+    per_step = {name: n / supersteps for name, n in launches_since(launch_mark).items()}
+    return first, last, per_step
+
+
+def lpa_mode_floor_ms(num_messages: int) -> float:
+    """The gather yardstick: each message's label gathered once at the
+    card's random-gather rate (PERF.md, phase 10c)."""
+    return 1e3 * num_messages / LPA_MODE_GATHER_SLOTS_PER_S
+
+
+def host_enqueue_ms(fn, reps: int) -> float:
+    """Host milliseconds to queue ``fn()``, unsynchronised, a call."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = 1e3 * (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    return ms
+
+
+def lpa_mode_entry(name: str, graph, plan, first, last, per_step: dict) -> dict:
+    """Phase 3b's timing entry of one graph; ``per_step``: the parity
+    run's counts a superstep (:func:`lpa_mode_parity`)."""
+    import torch
+
+    from graphmine_tpu_torch.obs.costmodel import _bucketed_padded_slots
+    from graphmine_tpu_torch.kernels import mode_cuda
+    from graphmine_tpu_torch.ops.bucketed_mode import _hub_modes, lpa_superstep_bucketed
+
+    table = plan.mode_table
+    entry = {"graph": name, "vertices": graph.num_vertices, "messages": graph.num_messages,
+             "padded_slots": int(_bucketed_padded_slots(plan)),
+             "classes": len(plan.vertex_ids), "tier_classes": list(table.tier_classes),
+             "hubs": 0 if plan.hist_vertex_ids is None else len(plan.hist_vertex_ids),
+             "kernel_launches_per_superstep": per_step["lpa_mode"],
+             "kernel_rows_per_superstep": per_step["lpa_mode_rows"],
+             "gather_floor_ms": lpa_mode_floor_ms(graph.num_messages)}
+    for which, labels in (("first", first), ("last", last)):
+        out = labels.clone()
+        entry[which] = {
+            "superstep_ms": cuda_ms(lambda: lpa_superstep_bucketed(labels, graph, plan),
+                                    LPA_MODE_REPS),
+            "kernel_ms": cuda_ms(lambda: mode_cuda.launch(labels, out, table), LPA_MODE_REPS),
+            "hubs_ms": cuda_ms(lambda: _hub_modes(labels, plan, out), LPA_MODE_REPS),
+            "plain_ms": cuda_ms(lambda: plain_bucketed_superstep(labels, plan), LPA_MODE_REPS),
+            "host_enqueue_ms": host_enqueue_ms(
+                lambda: lpa_superstep_bucketed(labels, graph, plan), LPA_MODE_REPS),
+            "plain_host_enqueue_ms": host_enqueue_ms(
+                lambda: plain_bucketed_superstep(labels, plan), LPA_MODE_REPS),
+        }
+        del out
+    torch.cuda.synchronize()
+    return entry
+
+
+def run_lpa_mode(device) -> None:
+    """Phase 3b: the LPA row-mode kernel's parity and times on the card;
+    prints the ``lpa_mode`` line."""
+    import torch
+
+    t0 = time.perf_counter()
+    entries = []
+    for name, kind, supersteps in LPA_MODE_GRAPHS:
+        graph, plan = lpa_mode_graph(kind, device)
+        table = plan.mode_table
+        require(table.launches >= 2 and not table.plain_classes,
+                f"{name}: the kernel does not take every class ({table})")
+        first, last, per_step = lpa_mode_parity(graph, plan, supersteps)
+        log(f"lpa_mode parity {name}: {supersteps} supersteps equal, counts a superstep "
+            f"{per_step}")
+        require(per_step["lpa_mode"] == table.launches
+                and per_step["lpa_mode_rows"] == table.kernel_rows
+                and per_step["lpa_plain_rows"] == 0,
+                f"{name}: the superstep did not launch one kernel a tier over every row: "
+                f"{per_step}, {table}")
+        entries.append(lpa_mode_entry(name, graph, plan, first, last, per_step))
+        log(f"lpa_mode {name}: {entries[-1]}")
+        del graph, plan, first, last
+        torch.cuda.empty_cache()
+    print(json.dumps({"lpa_mode": entries, "seconds": time.perf_counter() - t0}), flush=True)
+
+
 def launch_counts() -> dict:
-    """The process's ``knn_topk`` calls so far, from its counters:
-    ``knn_topk`` (all instances) and one count per instance."""
-    from graphmine_tpu_torch.kernels import knn_cuda
+    """The process's kernel calls so far, from its counters: ``knn_topk``
+    (all instances) and one count per instance; the LPA row-mode kernel's
+    launches (``lpa_mode``, one a tier), the non-hub rows it took
+    (``lpa_mode_rows``) and those the plain path took on the card
+    (``lpa_plain_rows``)."""
+    from graphmine_tpu_torch.kernels import knn_cuda, mode_cuda
 
     per = {f"knn_topk_{name}": c.value for name, c in knn_cuda.LAUNCH_COUNTERS.items()}
-    return {"knn_topk": sum(per.values()), **per}
+    return {"knn_topk": sum(per.values()), **per, "lpa_mode": mode_cuda.LAUNCHES.value,
+            "lpa_mode_rows": mode_cuda.KERNEL_ROWS.value,
+            "lpa_plain_rows": mode_cuda.PLAIN_ROWS.value}
 
 
 def launches_since(mark: dict) -> dict:
@@ -1750,6 +1923,8 @@ def run_serving(work: Path) -> dict:
     publishes = len(full["deltas"])
     require(full["launches"]["knn_topk"] >= publishes,
             f"7b: knn_topk launched {full['launches']} for {publishes} publishes")
+    require(full["launches"]["lpa_mode"] >= 1 and full["launches"]["lpa_plain_rows"] == 0,
+            f"7b: the repairs' LPA did not run on the row-mode kernel alone: {full['launches']}")
     print(json.dumps({"serve": {**full, "small": small}}), flush=True)
     return {k: small["launches"][k] + full["launches"][k] for k in full["launches"]}
 
@@ -5153,15 +5328,16 @@ def run_dist_only(work: Path) -> None:
 
 
 def run_main_path(work: Path) -> None:
-    """Phases 4-7: small pipelines on the card against the CPU, the run
-    harness on them, the main path, the main path under the harness,
-    serving, the weighted exact path, the kernel at its shapes and the IVF
-    kNN against the exact one."""
+    """Phases 3b-7: the LPA row-mode kernel, small pipelines on the card
+    against the CPU, the run harness on them, the main path, the main path
+    under the harness, serving, the weighted exact path, the kernel at its
+    shapes and the IVF kNN against the exact one."""
     import torch
 
     from graphmine_tpu_torch import datasets
     from graphmine_tpu_torch.pipeline import PipelineConfig
 
+    run_lpa_mode(torch.device("cuda"))  # 3b
     # ---- 4. the pipeline on the card against the CPU, small graphs ------
     pipeline_launches = small_pipelines(work)
 
@@ -5185,6 +5361,8 @@ def run_main_path(work: Path) -> None:
     summary = path_summary(res, is_anomaly, wall, launches, peak)
     require(summary["lof_impl"] == "ivf", "lof_impl='auto' did not resolve to IVF at this size")
     require(launches["knn_topk"] >= 1, "the main path's canary never launched knn_topk")
+    require(launches["lpa_mode"] >= 1 and launches["lpa_plain_rows"] == 0,
+            f"the main path's LPA did not run on the row-mode kernel alone: {launches}")
     summary.update(publish_summary(res, store))
     print(json.dumps({"main_path": {**summary, "data_format": "parquet",
                                     "batch_rows": BATCH_ROWS, "input_write_seconds": gen_s}}),
@@ -5215,6 +5393,8 @@ def run_main_path(work: Path) -> None:
                        edge_weight_col=2, device="cuda"),
         "weighted path")
     require(launches["knn_topk"] > 0, "the weighted exact path never launched knn_topk")
+    require(launches["lpa_mode"] == 0,
+            f"the weighted path's LPA reached the unweighted row-mode kernel: {launches}")
     print(json.dumps({"weighted_path": path_summary(res, is_anomaly, wall, launches, peak)}),
           flush=True)
     feats = res.features

@@ -17,6 +17,12 @@ narrow rows by pairwise sums, wide rows by a row sort and a segmented scan
 that sums each run on its own, hubs by a histogram whose sums come from a
 sort of the hub messages, each run summed on its own in message order.
 
+On a CUDA device the unweighted mode of a fused plan's classes is one
+hand-written kernel (``kernels/mode_cuda.py``, ``csrc/bucketed_mode.cu``),
+at most one launch a width tier, with the same labels bit for bit. The
+PyTorch methods above are its plain version: the CPU runs them, and on the
+card they take weighted plans and classes wider than the kernel's limit.
+
 The plan's matrices are gathered on the graph's device from the resident
 sender array; only row starts and degrees are computed on the host. A plan
 built without the senders carries message indices instead (``msg_idx``)
@@ -26,13 +32,14 @@ array.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from graphmine_tpu_torch.device import resolve_device
 from graphmine_tpu_torch.graph.container import Graph, _build_with_csr
+from graphmine_tpu_torch.kernels import mode_cuda
 from graphmine_tpu_torch.ops.segment import run_totals
 
 _SENTINEL = (1 << 31) - 1
@@ -96,7 +103,9 @@ class BucketedModePlan:
     and ``hist_weight`` the hub messages' weights; ``None`` otherwise.
     A plan built without senders has ``send_idx=None`` and no hubs, and
     carries ``msg_idx[b]``: int32 ``[n_b, w_b]`` message positions, padded
-    with ``M``.
+    with ``M``. ``mode_table``: a fused, unweighted plan's classes laid out
+    for the row-mode kernel (:func:`~graphmine_tpu_torch.kernels.mode_cuda.plan_table`),
+    made with the plan; ``None`` on other plans.
     """
 
     vertex_ids: tuple
@@ -109,6 +118,13 @@ class BucketedModePlan:
     weight_mat: tuple | None = None
     hist_weight: torch.Tensor | None = None
     msg_idx: tuple | None = None
+    mode_table: mode_cuda.ModeTable | None = field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        table = None
+        if self.send_idx is not None and self.weight_mat is None:
+            table = mode_cuda.plan_table(self.send_idx, self.vertex_ids)
+        object.__setattr__(self, "mode_table", table)
 
     @classmethod
     def from_graph(cls, graph: Graph, with_send: bool = False) -> "BucketedModePlan":
@@ -350,6 +366,23 @@ def bucketed_mode(plan: BucketedModePlan, messages: torch.Tensor, fallback: torc
     return out
 
 
+def _mode_route(plan: BucketedModePlan, device: torch.device) -> tuple:
+    """``(table, plain classes)`` of a fused plan's superstep on ``device``:
+    the kernel takes the classes of ``plan.mode_table`` (``table``, ``None``
+    when it takes none) on a CUDA device; the plain path takes the rest,
+    every class on the CPU. On a CUDA device the plain path's rows are
+    counted (:data:`~graphmine_tpu_torch.kernels.mode_cuda.PLAIN_ROWS`)."""
+    every = range(len(plan.vertex_ids))
+    if torch.device(device).type != "cuda":
+        return None, every
+    table = plan.mode_table
+    if table is None:
+        mode_cuda.PLAIN_ROWS.inc(sum(int(ids.shape[0]) for ids in plan.vertex_ids))
+        return None, every
+    mode_cuda.PLAIN_ROWS.inc(table.plain_rows)
+    return (table if table.launches else None), table.plain_classes
+
+
 def lpa_superstep_bucketed(labels: torch.Tensor, graph: Graph,
                            plan: BucketedModePlan) -> torch.Tensor:
     """One LPA superstep via the bucketed plan — labels identical to
@@ -370,24 +403,42 @@ def lpa_superstep_bucketed(labels: torch.Tensor, graph: Graph,
     labels = labels.to(torch.int32)
     if plan.send_idx is None:
         return bucketed_mode(plan, labels[graph.msg_send], labels)
-    lbl_pad = torch.cat([labels, labels.new_full((1,), _SENTINEL)])
     out = labels.clone()
-    wmats = plan.weight_mat or (None,) * len(plan.vertex_ids)
-    for ids, sidx, wmat in zip(plan.vertex_ids, plan.send_idx, wmats):
-        mat = lbl_pad[sidx]
-        out[ids] = _bucket_mode(mat) if wmat is None else _bucket_wmode(mat, wmat)
-    if plan.hist_vertex_ids is not None:
-        # Mega-hub mode: per-hub label histogram + argmax. torch.argmax
-        # returns the FIRST maximal index, i.e. the smallest label among
-        # the most frequent (heaviest) ones — the smallest-label tie-break.
-        n_hist = plan.hist_vertex_ids.shape[0]
-        flat = plan.hist_row_offset + labels[plan.hist_send]
-        if plan.hist_weight is not None:
-            hist = _hub_weight_hist(flat, plan.hist_weight, n_hist * plan.num_vertices)
-        else:
-            hist = torch.zeros(n_hist * plan.num_vertices, dtype=torch.int32,
-                               device=labels.device)
-            hist.index_add_(0, flat, torch.ones_like(flat))
-        modes = torch.argmax(hist.view(n_hist, plan.num_vertices), dim=1)
-        out[plan.hist_vertex_ids] = modes.to(torch.int32)
+    table, plain = _mode_route(plan, labels.device)
+    if table is not None:
+        mode_cuda.launch(labels.contiguous(), out, table)
+    _plain_class_modes(labels, plan, plain, out)
+    _hub_modes(labels, plan, out)
     return out
+
+
+def _plain_class_modes(labels: torch.Tensor, plan: BucketedModePlan, classes,
+                       out: torch.Tensor) -> None:
+    """The plain path: each of the fused plan's ``classes`` gathers its
+    labels and takes its mode (weighted where the plan is) into ``out``."""
+    if not classes:
+        return
+    lbl_pad = torch.cat([labels, labels.new_full((1,), _SENTINEL)])
+    wmats = plan.weight_mat or (None,) * len(plan.vertex_ids)
+    for b in classes:
+        mat = lbl_pad[plan.send_idx[b]]
+        out[plan.vertex_ids[b]] = (_bucket_mode(mat) if wmats[b] is None
+                                   else _bucket_wmode(mat, wmats[b]))
+
+
+def _hub_modes(labels: torch.Tensor, plan: BucketedModePlan, out: torch.Tensor) -> None:
+    """The hubs' modes into ``out``: per-hub label histogram + argmax.
+    torch.argmax returns the FIRST maximal index, i.e. the smallest label
+    among the most frequent (heaviest) ones — the smallest-label
+    tie-break."""
+    if plan.hist_vertex_ids is None:
+        return
+    n_hist = plan.hist_vertex_ids.shape[0]
+    flat = plan.hist_row_offset + labels[plan.hist_send]
+    if plan.hist_weight is not None:
+        hist = _hub_weight_hist(flat, plan.hist_weight, n_hist * plan.num_vertices)
+    else:
+        hist = torch.zeros(n_hist * plan.num_vertices, dtype=torch.int32, device=labels.device)
+        hist.index_add_(0, flat, torch.ones_like(flat))
+    modes = torch.argmax(hist.view(n_hist, plan.num_vertices), dim=1)
+    out[plan.hist_vertex_ids] = modes.to(torch.int32)

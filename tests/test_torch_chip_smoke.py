@@ -56,6 +56,55 @@ def test_parses_kernels_only():
         chip_smoke.parse_args(["--kernel-only-typo"])
 
 
+def test_launch_counts_carry_the_row_mode_counters():
+    """The phases' ``launches`` carry the row-mode kernel's counters: a
+    weighted plan routed as for a CUDA device (host code, nothing
+    launched) counts its rows on the plain path and no launch."""
+    from graphmine_tpu_torch import datasets
+    from graphmine_tpu_torch.ops.bucketed_mode import _mode_route, build_graph_and_plan
+
+    src, dst, _, _ = datasets.planted_anomaly_graph(512, 6000, seed=4)
+    weights = np.random.default_rng(1).random(len(src)).astype(np.float32)
+    _, plan = build_graph_and_plan(src, dst, edge_weights=weights, device="cpu")
+    mark = chip_smoke.launch_counts()
+    assert {"lpa_mode", "lpa_mode_rows", "lpa_plain_rows"} <= set(mark)
+    _mode_route(plan, torch.device("cuda"))
+    since = chip_smoke.launches_since(mark)
+    assert since["lpa_plain_rows"] == sum(int(ids.shape[0]) for ids in plan.vertex_ids) > 0
+    assert since["lpa_mode"] == since["lpa_mode_rows"] == since["knn_topk"] == 0
+
+
+def test_lpa_mode_parity_runs_the_supersteps_on_the_cpu():
+    """Phase 3b's parity loop at a small size on the CPU, where every path
+    is plain: it returns the first and the last superstep's labels and
+    counts nothing, and fails on a superstep that differs."""
+    from graphmine_tpu_torch import datasets
+    from graphmine_tpu_torch.ops.bucketed_mode import build_graph_and_plan, lpa_superstep_bucketed
+
+    src, dst = datasets.rmat(10, 16, seed=3)
+    graph, plan = build_graph_and_plan(src, dst, device="cpu")
+    first, last, per_step = chip_smoke.lpa_mode_parity(graph, plan, 3)
+    assert per_step["lpa_mode"] == per_step["lpa_mode_rows"] == per_step["lpa_plain_rows"] == 0
+    assert torch.equal(first, torch.arange(graph.num_vertices, dtype=torch.int32))
+    want = first
+    for _ in range(2):
+        want = lpa_superstep_bucketed(want, graph, plan)
+    assert torch.equal(last, want)
+    assert torch.equal(chip_smoke.plain_bucketed_superstep(last, plan),
+                       lpa_superstep_bucketed(last, graph, plan))
+    plain = chip_smoke.plain_bucketed_superstep
+    broken = lambda labels, plan: plain(labels, plan) + 1  # noqa: E731
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(chip_smoke, "plain_bucketed_superstep", broken)
+        with pytest.raises(RuntimeError, match="plain path"):
+            chip_smoke.lpa_mode_parity(graph, plan, 1)
+
+
+def test_lpa_mode_floor_is_messages_at_the_gather_rate():
+    # graph500-22's 128.3M messages at 70 G slots/s: about 1.8 ms
+    assert chip_smoke.lpa_mode_floor_ms(128_311_470) == pytest.approx(1.833, abs=1e-3)
+
+
 def test_every_general_plan_has_a_parity_case():
     """Phase 3's cases run each rows-a-warp choice of the general instance
     with its queries in registers and in shared memory, F = 1 and F = 64,
