@@ -3,13 +3,14 @@
 
     python3 benchmark/controls.py --workload <cell> --seeds <n> [<n> ...]
 
-For each seed, in one process: the cell's inputs, one job through the
-program's entry as the window runs it, the plain reference, and the
-control (the reference with one stated guarantee or precision broken:
-``Job.control``). Prints one JSON line a seed with each compared number
-for the program and for the control, and last a summary: the largest
-program reading and the smallest control reading of each number beside
-the cell's limit. The benchmark's own runs do not run this.
+For each seed, in one process that owns the cell's cards (``cuda:0`` to
+``cuda:n-1``, as ``run.py`` gives them): the cell's inputs, one job
+through the program's entry as the window runs it, the plain reference,
+and the control (the reference with one stated guarantee or precision
+broken: ``Job.control``). Prints one JSON line a seed with each compared
+number for the program and for the control, and last a summary: the
+largest program reading and the smallest control reading of each number
+beside the cell's limit. The benchmark's own runs do not run this.
 """
 
 import argparse
@@ -33,17 +34,18 @@ def main(argv=None) -> int:
 
     from benchmark import harness
 
-    device = torch.device("cuda", 0)
-    if not torch.cuda.is_available():
-        print("controls: no CUDA device", file=sys.stderr)
-        return 2
     cell = harness.resolve_cell(harness.load_spec(), args.workload)
-    sync = harness.synchronizer(device)
+    try:
+        cards = harness.cell_cards(cell)
+    except harness.BenchError as e:
+        print(f"controls: {e}", file=sys.stderr)
+        return 2
+    sync = harness.synchronizer(cards)
     worst, least = {}, {}
     for seed in args.seeds:
         row = {"seed": seed}
         t0 = time.perf_counter()
-        job = harness.make_job(cell, seed, device)
+        job = harness.make_job(cell, seed, cards)
         job.setup({})
         out = job.run()
         sync()
@@ -59,8 +61,7 @@ def main(argv=None) -> int:
         row["reference_and_control_s"] = time.perf_counter() - t0
         del ctl, ref, job
         gc.collect()
-        if device.type == "cuda":
-            torch.cuda.empty_cache()
+        harness.empty_caches(cards)
         for name, value in row["program"].items():
             worst[name] = max(worst.get(name, value), value)
         for name, value in row["control"].items():

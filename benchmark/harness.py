@@ -20,6 +20,16 @@ built from ``(config, traffic, inputs, device, seed)`` with:
   broken);
 - ``compare(output, reference)``: ``{number: value}`` for the limits.
 
+A cell with ``chips: n`` runs in one process that owns the cards
+``cuda:0`` to ``cuda:n-1`` (:func:`cell_cards`). Its inputs are made on the
+first, which is also the ``device`` a job is built with; the job gets
+all of them as ``job.devices``, set by :func:`make_job` before
+``setup``. A one-card job need not read it; a job that spans cards
+places its state on them and times its set-up spans with
+``synchronizer(self.devices)``. The warm-up, the window and the traced
+window synchronise every card, so a job ends when its last card does;
+the peak is the fullest card's, and the trace is read card by card.
+
 The window is a closed loop (one analyst's jobs, each synchronised before
 the next). A mix's optional ``params`` override the configuration's
 ``algorithms.<job>`` entries, so a mix that changes a job's parameters
@@ -67,9 +77,9 @@ class Cell:
 @dataclass
 class RunContext:
     """What a metric reads: the job's facts, each job's seconds in the
-    window of a ``--trace 0`` run, set-up seconds and spans, the device's
-    peak bytes, and the trace of a ``--trace 1`` run with the number of
-    jobs in it."""
+    window of a ``--trace 0`` run, set-up seconds and spans, the peak
+    bytes of the cell's fullest card, and the trace of a ``--trace 1`` run
+    with the number of jobs in it."""
 
     facts: dict
     job_seconds: list = field(default_factory=list)
@@ -125,26 +135,86 @@ def load_module(kind: str, name: str):
     return mod
 
 
-def make_job(cell: Cell, seed: int, device):
-    """The cell's job with its inputs made from ``seed`` on ``device``."""
-    gen = cell.config["generator"]
-    data = load_module("generators", gen["name"]).generate(gen["params"], seed, device)
-    return load_module("jobs", cell.traffic["job"]).Job(cell.config, cell.traffic, data,
-                                                      device, seed)
+def as_cards(devices) -> list:
+    """``devices`` (one device, or a list of them) as a list."""
+    return list(devices) if isinstance(devices, (list, tuple)) else [devices]
 
 
-def synchronizer(device):
+def cell_cards(cell: Cell) -> list:
+    """The cell's cards, ``cuda:0`` to ``cuda:chips-1`` in order; a
+    :class:`BenchError` where fewer are visible."""
     import torch
 
-    if device.type == "cuda":
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if have < cell.chips:
+        raise BenchError(f"{cell.name} needs {cell.chips} CUDA device(s); have {have}")
+    return [torch.device("cuda", i) for i in range(cell.chips)]
+
+
+def make_job(cell: Cell, seed: int, devices):
+    """The cell's job with its inputs made from ``seed`` on the first of
+    ``devices`` (one device or the cell's list), and all of them as
+    ``job.devices``."""
+    cards = as_cards(devices)
+    gen = cell.config["generator"]
+    data = load_module("generators", gen["name"]).generate(gen["params"], seed, cards[0])
+    job = load_module("jobs", cell.traffic["job"]).Job(cell.config, cell.traffic, data,
+                                                     cards[0], seed)
+    job.devices = cards
+    return job
+
+
+def synchronizer(devices):
+    """A function that waits for each CUDA card of ``devices`` (one
+    device or a list) in turn; on the CPU it does nothing."""
+    import torch
+
+    cuda = [d for d in as_cards(devices) if d.type == "cuda"]
+    if len(cuda) == 1:
+        device = cuda[0]
         return lambda: torch.cuda.synchronize(device)
-    return lambda: None
+
+    def sync():
+        for d in cuda:
+            torch.cuda.synchronize(d)
+    return sync
+
+
+def empty_caches(cards: list) -> None:
+    """Return each CUDA card's cached blocks to the driver."""
+    import torch
+
+    for d in cards:
+        if d.type == "cuda":
+            with torch.cuda.device(d):
+                torch.cuda.empty_cache()
+
+
+def reset_peaks(cards: list) -> None:
+    """On each CUDA card: wait for it, return its cached blocks and reset
+    its peak statistics."""
+    import torch
+
+    for d in cards:
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+            empty_caches([d])
+            torch.cuda.reset_peak_memory_stats(d)
+
+
+def read_peaks(cards: list) -> list:
+    """Each CUDA card's peak allocated bytes since :func:`reset_peaks`, in
+    the cards' order."""
+    import torch
+
+    return [int(torch.cuda.max_memory_allocated(d)) for d in cards if d.type == "cuda"]
 
 
 @contextmanager
 def span(spans: dict, name: str, sync):
-    """Host-clock seconds of the body, synchronised at both ends, into
-    ``spans[name]``."""
+    """Host-clock seconds of the body, synchronised at both ends by
+    ``sync`` (a :func:`synchronizer` of the cards the span waits for),
+    into ``spans[name]``."""
     sync()
     t0 = time.perf_counter()
     yield
@@ -184,31 +254,40 @@ def window(job, seconds: float, sync, rng: random.Random, record=None) -> tuple:
     return times, kept
 
 
-def traced_window(job, seconds: float, sync, rng: random.Random, device) -> tuple:
+def traced_window(job, seconds: float, sync, rng: random.Random, cards: list) -> tuple:
     """``(job seconds, kept outputs, Trace or None)`` of a short window
-    under ``torch.profiler``."""
+    under ``torch.profiler``, its device operations read on each CUDA
+    card of ``cards``."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from benchmark.trace import read_profile
 
+    cuda = [d.index for d in cards if d.type == "cuda"]
     acts = [ProfilerActivity.CPU]
-    if device.type == "cuda":
+    if cuda:
         acts.append(ProfilerActivity.CUDA)
     with profile(activities=acts) as prof:
         sync()
         with record_function(WINDOW):
             times, kept = window(job, seconds, sync, rng, record=record_function)
             sync()
-    return times, kept, read_profile(prof)
+    return times, kept, read_profile(prof, cuda)
 
 
-def device_facts(device, chips: int, peak: int) -> dict:
+def device_facts(cards: list, peaks: list) -> dict:
+    """The result line's ``device``: the CUDA cards of ``cards`` with the
+    fullest one's peak bytes, and on more than one card each card's peak
+    (``peaks``, in the same order)."""
     import torch
 
-    if device.type == "cuda":
-        return {"platform": "gpu", "kind": torch.cuda.get_device_name(device),
-                "count": chips, "memory_peak_bytes": int(peak)}
-    return {"platform": "cpu", "kind": "cpu", "count": 1, "memory_peak_bytes": 0}
+    cuda = [d for d in cards if d.type == "cuda"]
+    if not cuda:
+        return {"platform": "cpu", "kind": "cpu", "count": 1, "memory_peak_bytes": 0}
+    facts = {"platform": "gpu", "kind": torch.cuda.get_device_name(cuda[0]),
+             "count": len(cuda), "memory_peak_bytes": max(peaks)}
+    if len(cuda) > 1:
+        facts["memory_peak_bytes_per_card"] = list(peaks)
+    return facts
 
 
 def banned_modules() -> list:
@@ -228,21 +307,18 @@ def read_metrics(entries: list, ctx: RunContext) -> dict:
     return out
 
 
-def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
+def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, devices,
              t_start: float | None = None, err=sys.stderr) -> dict:
-    """One run of ``cell``; returns the result line as a dict."""
-    import torch
-
+    """One run of ``cell`` on ``devices`` (one device, or the cell's
+    cards from :func:`cell_cards`); returns the result line as a dict."""
     t_start = time.perf_counter() if t_start is None else t_start
-    sync = synchronizer(device)
+    cards = as_cards(devices)
+    sync = synchronizer(cards)
     rng = random.Random(int(seed) * 1_000_003 + 17)
-    job = make_job(cell, seed, device)
+    job = make_job(cell, seed, cards)
     print(f"bench: {cell.name} seed {seed}: {json.dumps(job.facts)}", file=err, flush=True)
     gc.collect()
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(device)
+    reset_peaks(cards)
     ctx = RunContext(facts=job.facts)
     job.setup(ctx.spans)
     job.run()  # warm-up: the plan, the kernel's library, the allocator
@@ -250,18 +326,17 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     ctx.setup_s = time.perf_counter() - t_start
     tr = None
     if trace:
-        times, kept, tr = traced_window(job, min(seconds, TRACE_SECONDS), sync, rng, device)
+        times, kept, tr = traced_window(job, min(seconds, TRACE_SECONDS), sync, rng, cards)
         ctx.trace, ctx.jobs_traced = tr, len(times)
         attempted = len(times)
     else:
         ctx.job_seconds, kept = window(job, seconds, sync, rng)
         attempted = len(ctx.job_seconds)
-    if device.type == "cuda":
-        ctx.peak_bytes = torch.cuda.max_memory_allocated(device)
+    peaks = read_peaks(cards)
+    ctx.peak_bytes = max(peaks, default=0)
     job.release()
     gc.collect()
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
+    empty_caches(cards)
     ref = job.reference()
     readings = [job.compare(out, ref) for out in kept]
     del kept, ref
@@ -282,11 +357,13 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     metrics = read_metrics(cell.per_layer if trace else cell.end_to_end, ctx)
     result = {"correct": failed == 0, "attempted": attempted, "failed": failed,
               "metrics": metrics,
-              "device": device_facts(device, cell.chips, ctx.peak_bytes)}
+              "device": device_facts(cards, peaks)}
     if trace:
         result["device"]["busy_s"] = tr.busy_s if tr else 0.0
         result["device"]["window_s"] = tr.window_s if tr else 0.0
         if tr:
+            if len(tr.cards) > 1:
+                result["device"]["busy_s_per_card"] = list(tr.busy_s_by_card().values())
             result["breakdown"] = {"device_ops": tr.top_ops(), "idle_gaps": tr.top_gaps()}
     result["checks"] = checks
     return result

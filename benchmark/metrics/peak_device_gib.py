@@ -1,6 +1,7 @@
 """The device's peak allocated bytes (``torch.cuda.max_memory_allocated``)
 in GiB, from the moment the benchmark had made its inputs through the
-program's set-up and the window; nothing on the CPU."""
+program's set-up and the window; for a multi-card cell, the fullest
+card's; nothing on the CPU."""
 
 
 def read(ctx):

@@ -13,10 +13,12 @@ last line of standard output is one JSON object (``correct``,
 ``breakdown``, and last ``checks``: each compared number beside its
 limit); the checks are also the last lines of standard error.
 
-Exits 2 and prints no result without CUDA, with fewer cards than the cell
-asks for, or when JAX or the JAX package was loaded. Build and kernel
-caches stay inside the checkout (``build/``); ``GRAPHMINE_*`` variables
-are cleared so the program runs as the cell states.
+A cell with ``chips: n`` runs in this one process on ``cuda:0`` to
+``cuda:n-1``. Exits 2 and prints no result without CUDA, with fewer
+cards than the cell asks for, or when JAX or the JAX package was loaded.
+Build and kernel caches stay inside the checkout (``build/``);
+``GRAPHMINE_*`` variables are cleared so the program runs as the cell
+states.
 """
 
 import time
@@ -54,18 +56,12 @@ def _environment() -> None:
 def main(argv=None) -> int:
     args = parse_args(argv)
     _environment()
-    import torch
-
     from benchmark import harness
 
     try:
         cell = harness.resolve_cell(harness.load_spec(), args.workload)
-        if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
-            raise harness.BenchError(
-                f"{args.workload} needs {cell.chips} CUDA device(s); "
-                f"have {torch.cuda.device_count() if torch.cuda.is_available() else 0}")
         result = harness.run_cell(cell, args.seed, args.seconds, bool(args.trace),
-                                  torch.device("cuda", 0), t_start=T_START)
+                                  harness.cell_cards(cell), t_start=T_START)
     except harness.BenchError as e:
         print(f"bench: {e}", file=sys.stderr)
         return 2

@@ -1,11 +1,14 @@
 """Reading a ``torch.profiler`` window: device busy time, the window's
 length, device time by operation, and the idle gaps by what the host was
-doing.
+doing, each card apart.
 
 The harness opens ``bench.window`` around the traced jobs (it ends after
-the device has synchronised) and ``bench.job`` around each job. Device
-operations are the trace's kernels, copies and fills; the host side is
-every operator, runtime call and range the profiler recorded.
+every card of the cell has synchronised) and ``bench.job`` around each
+job. Device operations are the trace's kernels, copies and fills, each
+on the card its event names; the host side is every operator, runtime
+call and range the profiler recorded. A cell on one card reads as it
+always did; on more, busy time is the mean over the cards, and each
+breakdown name begins with its card (``cuda:2 ...``).
 """
 
 from __future__ import annotations
@@ -28,54 +31,80 @@ JOB = "bench.job"
 @dataclass
 class Trace:
     """One traced window: ``window_s`` long, ``ops`` the device operations
-    inside it as ``(name, start_us, dur_us)``, ``gaps`` the idle stretches
-    as ``(label, dur_us)``."""
+    inside it as ``(name, start_us, dur_us, card)``, ``gaps`` each card's
+    idle stretches as ``(label, dur_us)``, ``cards`` the card indices the
+    window covers (the cell's, and any other a device operation ran on; a
+    card that ran nothing was idle all through)."""
 
     window_s: float
     ops: list = field(default_factory=list)
     gaps: list = field(default_factory=list)
+    cards: tuple = (0,)
+
+    def busy_s_by_card(self) -> dict:
+        """``{card: seconds}`` in which some device operation ran on that
+        card (the union of its operations)."""
+        by = {}
+        for card in self.cards:
+            busy, end = 0.0, None
+            for _, start, dur, _c in sorted((o for o in self.ops if o[3] == card),
+                                            key=lambda o: o[1]):
+                stop = start + dur
+                if end is None or start >= end:
+                    busy += dur
+                    end = stop
+                elif stop > end:
+                    busy += stop - end
+                    end = stop
+            by[card] = busy * 1e-6
+        return by
 
     @property
     def busy_s(self) -> float:
-        """Seconds in which some device operation ran (their union)."""
-        busy, end = 0.0, None
-        for _, start, dur in sorted(self.ops, key=lambda o: o[1]):
-            stop = start + dur
-            if end is None or start >= end:
-                busy += dur
-                end = stop
-            elif stop > end:
-                busy += stop - end
-                end = stop
-        return busy * 1e-6
+        """The mean over the cards of each card's busy seconds."""
+        by = self.busy_s_by_card()
+        return sum(by.values()) / len(by)
 
-    def device_seconds(self, pattern: str | None = None) -> float:
+    def device_seconds(self, pattern: str | None = None, card: int | None = None) -> float:
         """Summed device seconds of the operations whose name matches
-        ``pattern`` (all of them without one)."""
+        ``pattern`` (all of them without one) on ``card``, or without a
+        card the mean of those sums over the cards."""
         rx = re.compile(pattern) if pattern else None
-        return 1e-6 * sum(d for name, _, d in self.ops if rx is None or rx.search(name))
+
+        def on(c):
+            return 1e-6 * sum(d for name, _, d, k in self.ops
+                              if k == c and (rx is None or rx.search(name)))
+
+        if card is not None:
+            return on(card)
+        return sum(on(c) for c in self.cards) / len(self.cards)
+
+    def _label(self, card: int, name: str) -> str:
+        return f"cuda:{card} {name}" if len(self.cards) > 1 else name
 
     def top_ops(self, n: int = 10) -> list:
         """``[[name, seconds], ...]``: the ``n`` operations with the most
-        device time."""
+        device time, by card where there are several."""
         by = defaultdict(float)
-        for name, _, d in self.ops:
-            by[name[:NAME_CHARS]] += d * 1e-6
+        for name, _, d, card in self.ops:
+            by[self._label(card, name[:NAME_CHARS])] += d * 1e-6
         return [[k, v] for k, v in sorted(by.items(), key=lambda kv: -kv[1])[:n]]
 
     def top_gaps(self, n: int = 10) -> list:
         """``[[label, seconds], ...]``: idle seconds summed by what the host
-        was doing when each gap began, the ``n`` largest."""
+        was doing when each gap began (and by card where there are
+        several), the ``n`` largest."""
         by = defaultdict(float)
         for label, d in self.gaps:
             by[label] += d * 1e-6
         return [[k, v] for k, v in sorted(by.items(), key=lambda kv: -kv[1])[:n]]
 
 
-def read_profile(prof) -> Trace | None:
-    """The :class:`Trace` of a finished ``torch.profiler.profile``, or
-    ``None`` when the window range is missing. The Chrome trace is written
-    to a temporary directory (under ``TMPDIR``) and removed."""
+def read_profile(prof, cards=None) -> Trace | None:
+    """The :class:`Trace` of a finished ``torch.profiler.profile`` over
+    the card indices ``cards``, or ``None`` when the window range is
+    missing. The Chrome trace is written to a temporary directory (under
+    ``TMPDIR``) and removed."""
     tmp = tempfile.mkdtemp(prefix="bench_trace_")
     try:
         path = os.path.join(tmp, "trace.json")
@@ -84,11 +113,20 @@ def read_profile(prof) -> Trace | None:
             events = json.load(fh).get("traceEvents", [])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return from_events(events)
+    return from_events(events, cards)
 
 
-def from_events(events: list) -> Trace | None:
-    """The :class:`Trace` of Chrome-trace events."""
+def event_card(event: dict) -> int:
+    """The card a device event ran on: its ``args.device``, else its
+    ``pid`` (the profiler gives a device's events the device's index as
+    their process)."""
+    args = event.get("args") or {}
+    return int(args["device"] if "device" in args else event["pid"])
+
+
+def from_events(events: list, cards=None) -> Trace | None:
+    """The :class:`Trace` of Chrome-trace events over the card indices
+    ``cards`` (those the device events name, without them)."""
     spans = [e for e in events if e.get("ph") == "X" and "dur" in e]
     window = [e for e in spans if e.get("cat") == "user_annotation" and e.get("name") == WINDOW]
     if not window:
@@ -102,21 +140,26 @@ def from_events(events: list) -> Trace | None:
         start = max(float(e["ts"]), w0)
         stop = min(float(e["ts"]) + float(e["dur"]), w1)
         if stop > start:
-            ops.append((e.get("name", "?"), start, stop - start))
+            ops.append((e.get("name", "?"), start, stop - start, event_card(e)))
     tid = window[0].get("tid")
     host = sorted((float(e["ts"]), -float(e["dur"]), e.get("name", "?")) for e in spans
                   if e.get("cat") in HOST_CATS and e.get("tid") == tid)
-    return Trace(window_s=(w1 - w0) * 1e-6, ops=ops, gaps=_gaps(ops, host, w0, w1))
+    tr = Trace(window_s=(w1 - w0) * 1e-6, ops=ops,
+               cards=tuple(sorted(set(cards or ()) | {o[3] for o in ops})) or (0,))
+    for card in tr.cards:
+        tr.gaps += [(tr._label(card, label), dur) for label, dur in
+                    _gaps([o for o in ops if o[3] == card], host, w0, w1)]
+    return tr
 
 
 def _gaps(ops: list, host: list, w0: float, w1: float) -> list:
-    """Idle stretches of the device inside ``[w0, w1]`` as ``(label,
+    """Idle stretches of one card inside ``[w0, w1]`` as ``(label,
     dur_us)``, each labelled ``range/event``: the innermost ``bench.*``
     range and the innermost host event of the window's thread open at the
     stretch's start. ``host`` is ``(start, -dur, name)`` sorted; events
     of one thread nest, so the open ones form a stack."""
     idle, cursor = [], w0
-    for _, start, dur in sorted(ops, key=lambda o: o[1]):
+    for _, start, dur, _card in sorted(ops, key=lambda o: o[1]):
         if start > cursor:
             idle.append((cursor, start - cursor))
         cursor = max(cursor, start + dur)
