@@ -21,6 +21,12 @@ device, each tier's classes widest first, and the classes wider than
 :func:`launch` runs the kernel for a CUDA tensor or raises; the process's
 counters count its launches and rows, and the rows of the plain path on
 the card (:data:`PLAIN_ROWS`, counted by the superstep's routing).
+
+The labels and the output need not have one length. One card's plan reads
+and writes ``[V]``; a shard of the sharded superstep reads the full label
+vector (``D*Vc``, its padding senders equal to that length, so they read
+the sentinel) and writes its own chunk by local row, with scratch rows past
+it for the padding rows.
 """
 
 from __future__ import annotations
@@ -129,18 +135,24 @@ class ModeTable:
     kernel_rows: int
     plain_rows: int
     launches: int
+    out_rows: int
 
 
-def plan_table(send_idx: tuple, vertex_ids: tuple) -> ModeTable:
+def plan_table(send_idx: tuple, vertex_ids: tuple, out_rows: int) -> ModeTable:
     """The :class:`ModeTable` of a fused plan's ``send_idx`` matrices and
-    ``vertex_ids`` (class by class), on their device. Host work, one small
-    copy and the wide rows' scratch; the matrices are referenced by
-    pointer, not copied. A class past :data:`MAX_WIDTH`, or whose tensors
-    are not contiguous int32, stays on the plain path."""
+    ``vertex_ids`` (class by class, each row's target in an output of
+    ``out_rows``), on their device. Host work, one small copy, one read of
+    the targets' range and the wide rows' scratch; the matrices are
+    referenced by pointer, not copied. A class past :data:`MAX_WIDTH`, or
+    whose tensors are not contiguous int32, stays on the plain path. A
+    kernel row whose target lies outside ``[0, out_rows)`` raises."""
     layouts = [class_layout(int(s.shape[1]))
-               if s.dtype == torch.int32 and s.is_contiguous() and ids.is_contiguous() else None
+               if s.dtype == torch.int32 and s.is_contiguous() and ids.is_contiguous()
+               and ids.dtype == torch.int32 else None
                for s, ids in zip(send_idx, vertex_ids)]
     device = send_idx[0].device if send_idx else torch.device("cpu")
+    _check_targets([ids for ids, lay in zip(vertex_ids, layouts)
+                    if lay is not None and ids.numel()], int(out_rows))
     split = [b for b, lay in enumerate(layouts) if lay is not None and lay["parts"] > 1]
     scratch = torch.zeros((sum(int(send_idx[b].shape[0]) for b in split), 2), dtype=torch.int64,
                           device=device)
@@ -172,7 +184,19 @@ def plan_table(send_idx: tuple, vertex_ids: tuple) -> ModeTable:
                      default=0),
         plain_classes=plain, kernel_rows=sum(int(send_idx[b].shape[0]) for b in classes),
         plain_rows=sum(int(send_idx[b].shape[0]) for b in plain),
-        launches=sum(1 for c in tier_classes if c))
+        launches=sum(1 for c in tier_classes if c), out_rows=int(out_rows))
+
+
+def _check_targets(targets: list, out_rows: int) -> None:
+    """Raise unless every entry of ``targets`` lies in ``[0, out_rows)``
+    (one read of their smallest and largest)."""
+    if not targets:
+        return
+    ends = torch.stack([torch.stack([t.min(), t.max()]) for t in targets]).to(torch.int64)
+    lo, hi = int(ends[:, 0].min()), int(ends[:, 1].max())
+    if lo < 0 or hi >= out_rows:
+        raise ValueError(f"a row's target lies outside [0, {out_rows}): the plan's targets "
+                         f"span [{lo}, {hi}]")
 
 
 def library_path() -> Path:
@@ -216,18 +240,23 @@ def _load(lib: Path) -> None:
 
 def launch(labels: torch.Tensor, out: torch.Tensor, table: ModeTable) -> None:
     """Write the mode of every class of ``table`` into ``out`` (int32
-    ``[V]``, a copy of ``labels`` on the same CUDA device) from ``labels``
-    (int32 ``[V]``, contiguous): one launch a tier that has a class. Raises
-    for anything else, a CPU tensor included, before counting a launch."""
+    ``[table.out_rows]``, contiguous, on the table's CUDA device; rows no
+    class targets keep their value) from ``labels`` (int32 ``[L]``,
+    contiguous, on the same device; a sender equal to ``L`` reads the
+    sentinel): one launch a tier that has a class. Raises for anything
+    else, a CPU tensor included, before counting a launch."""
     if not (labels.is_cuda and out.is_cuda):
         raise ValueError("the row-mode kernel takes CUDA tensors; the CPU runs "
                          "ops.bucketed_mode._bucket_mode")
     if (labels.dtype != torch.int32 or out.dtype != torch.int32 or labels.dim() != 1
-            or out.shape != labels.shape or not (labels.is_contiguous() and out.is_contiguous())
+            or out.dim() != 1 or not (labels.is_contiguous() and out.is_contiguous())
             or out.device != labels.device or table.desc.device != labels.device
             or labels.data_ptr() == out.data_ptr()):
-        raise ValueError("the row-mode kernel takes two distinct contiguous int32 [V] tensors "
+        raise ValueError("the row-mode kernel takes two distinct contiguous 1-D int32 tensors "
                          "on the device of the plan's table")
+    if out.shape[0] != table.out_rows:
+        raise ValueError(f"the plan's table writes an output of {table.out_rows} rows; "
+                         f"got {out.shape[0]}")
     if _lib is None:
         build()
     (n_narrow, n_mid, n_wide), (b_narrow, b_mid, b_wide) = table.tier_classes, table.tier_blocks

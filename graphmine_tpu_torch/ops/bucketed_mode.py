@@ -123,7 +123,7 @@ class BucketedModePlan:
     def __post_init__(self):
         table = None
         if self.send_idx is not None and self.weight_mat is None:
-            table = mode_cuda.plan_table(self.send_idx, self.vertex_ids)
+            table = mode_cuda.plan_table(self.send_idx, self.vertex_ids, self.num_vertices)
         object.__setattr__(self, "mode_table", table)
 
     @classmethod

@@ -54,6 +54,13 @@ from graphmine_tpu_torch.device import (
     virtual_device_count,
     visible_devices,
 )
+from graphmine_tpu_torch.obs.registry import PROCESS
+from graphmine_tpu_torch.obs.spans import OPS
+
+_ALL_GATHER_BYTES = PROCESS.counter(
+    "graphmine_mesh_all_gather_bytes_total",
+    "bytes the mesh's all-gathers moved between distinct devices (a device's copy to "
+    "itself not counted)")
 
 VERTEX_AXIS = "v"
 DCN_AXIS = "dcn"
@@ -492,13 +499,25 @@ def replicate(mesh: Mesh, value: torch.Tensor) -> list:
 
 def all_gather(mesh: Mesh, chunks) -> list:
     """The shards' chunks concatenated in shard order, on every shard's
-    device (a tiled all-gather)."""
-    if not mesh.process:
-        return [torch.cat([c.to(dev) for c in chunks]) for dev in mesh.devices]
-    s = _only_local(mesh)
-    out = [None] * mesh.size
-    out[s] = _world_gather(mesh, chunks[s])
-    return out
+    device (a tiled all-gather). Spanned as ``mesh.all_gather`` (host
+    seconds); the bytes it moves between distinct devices, this process's
+    receipts on a process mesh, are counted in
+    ``graphmine_mesh_all_gather_bytes_total``."""
+    with OPS.span("mesh.all_gather"):
+        if not mesh.process:
+            _ALL_GATHER_BYTES.inc(sum(_nbytes(c) for dev in mesh.devices for c in chunks
+                                      if c.device != dev))
+            return [torch.cat([c.to(dev) for c in chunks]) for dev in mesh.devices]
+        s = _only_local(mesh)
+        out = [None] * mesh.size
+        out[s] = _world_gather(mesh, chunks[s])
+        if not mesh.virtual:
+            _ALL_GATHER_BYTES.inc((mesh.size - 1) * _nbytes(chunks[s]))
+        return out
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def gather_to(chunks, device, mesh: Mesh | None = None) -> torch.Tensor:

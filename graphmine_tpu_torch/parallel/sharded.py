@@ -21,7 +21,12 @@ labels, and on a process mesh they come back whole on every process.
 (the message CSR slices, the degrees and the stacked degree-bucket plan of
 the fast LPA body), so both packages partition a graph identically;
 :func:`shard_graph_arrays` places it on a mesh, one tensor per shard on
-that shard's device. The JAX package's blocked and 2-D partitions
+that shard's device. :func:`partition_graph_on_mesh` gives the same placed
+partition with its bucket plan built on the devices themselves, each shard
+on its own from the streamed edge list, for graphs whose message CSR fits
+no single device or host array; on CUDA cards the bucketed body takes
+each shard's classes on the row-mode kernel
+(:mod:`~graphmine_tpu_torch.kernels.mode_cuda`), as one card does. The JAX package's blocked and 2-D partitions
 (``build_blocked_plan``, ``build_plan2d``) are array for array the JAX
 package's too: the blocked one makes each shard's chunk a bin group of
 destination tiles (the same one all-gather a superstep); the 2-D one
@@ -45,12 +50,15 @@ leave the others waiting in their next collective.
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from graphmine_tpu_torch.graph.container import Graph
+from graphmine_tpu_torch.kernels import mode_cuda
+from graphmine_tpu_torch.obs.registry import PROCESS
+from graphmine_tpu_torch.obs.spans import OPS
 from graphmine_tpu_torch.ops.segment import SegmentSums, segment_min, segment_mode
 from graphmine_tpu_torch.parallel.mesh import (
     Mesh,
@@ -63,6 +71,9 @@ from graphmine_tpu_torch.parallel.mesh import (
 )
 
 _SENTINEL = (1 << 31) - 1
+
+_LPA_SUPERSTEPS = PROCESS.counter("graphmine_sharded_lpa_supersteps_total",
+                                  "supersteps of the sharded LPA loops")
 
 # ---- in-loop divergence tripwires ------------------------------------------
 
@@ -235,6 +246,10 @@ class ShardedGraph:
     x2d_boundary   : B, the shared padded per-peer width;
     x2d_boundary_total: the unpadded boundary slots over every (shard,
                      peer) pair (a 2-D partition drops ``blk_src``)
+    mode_tables    : placed on CUDA cards, an unweighted bucket plan's
+                     row-mode kernel table of each shard
+                     (:func:`~graphmine_tpu_torch.kernels.mode_cuda.plan_table`
+                     of its ``bucket_send`` and ``bucket_target``), else ()
     """
 
     msg_recv_local: object
@@ -258,6 +273,7 @@ class ShardedGraph:
     x2d_boundary: int = 0
     x2d_boundary_total: int = 0
     mesh: Mesh | None = None
+    mode_tables: tuple = field(default=(), repr=False, compare=False)
 
     @property
     def padded_vertices(self) -> int:
@@ -563,12 +579,13 @@ def shard_graph_arrays(sg: ShardedGraph, mesh: Mesh, lpa_only: bool = False) -> 
         return None if a is None else place(mesh, a)
 
     keep = (lambda a: None) if lpa_only else put
+    bucket_send = tuple(put(b) for b in sg.bucket_send)
+    bucket_target = tuple(put(t) for t in sg.bucket_target)
     return ShardedGraph(
         msg_recv_local=keep(sg.msg_recv_local), msg_send=keep(sg.msg_send),
         degrees=keep(sg.degrees), num_vertices=sg.num_vertices,
         chunk_size=sg.chunk_size, num_shards=sg.num_shards,
-        bucket_send=tuple(put(b) for b in sg.bucket_send),
-        bucket_target=tuple(put(t) for t in sg.bucket_target),
+        bucket_send=bucket_send, bucket_target=bucket_target,
         msg_weight=keep(sg.msg_weight),
         bucket_weight=tuple(put(b) for b in sg.bucket_weight),
         blk_src=put(sg.blk_src), blk_pos=put(sg.blk_pos),
@@ -579,7 +596,228 @@ def shard_graph_arrays(sg: ShardedGraph, mesh: Mesh, lpa_only: bool = False) -> 
         x2d_send_tab=put(sg.x2d_send_tab), x2d_src_local=put(sg.x2d_src_local),
         x2d_boundary=sg.x2d_boundary, x2d_boundary_total=sg.x2d_boundary_total,
         mesh=mesh,
+        mode_tables=_mode_tables(mesh, bucket_send, bucket_target, bool(sg.bucket_weight),
+                                 sg.chunk_size),
     )
+
+
+# Edges of one streamed chunk of partition_graph_on_mesh: int32 endpoints of
+# 256 MiB each.
+PARTITION_CHUNK_EDGES = 1 << 26
+
+
+def partition_graph_on_mesh(src, dst, num_vertices: int | None, mesh: Mesh,
+                            lpa_only: bool = False, edge_weights=None) -> ShardedGraph:
+    """Partition an undirected edge list with the bucket plan and place it
+    on ``mesh``, each shard built on its own device: the placed
+    :class:`ShardedGraph` that ``shard_graph_arrays(partition_graph(...,
+    build_bucket_plan=True), mesh, lpa_only=lpa_only)`` gives, array for
+    array, element for element.
+
+    ``src``, ``dst`` (host arrays or tensors on any device) are the
+    edges, each sending a message both ways, duplicates kept;
+    ``edge_weights`` (one float >= 0 an edge) makes the graph weighted.
+    The edges stream to the devices in chunks of
+    :data:`PARTITION_CHUNK_EDGES`; each device keeps the messages its
+    vertex range receives, in message order, sorts them stably by
+    receiver and builds its degrees and its bucket plan with torch ops.
+    Only counts pass through the host: each shard's messages, its largest
+    degree and its rows a width class (the classes pad to the largest
+    shard's). So neither the host nor any one device holds the whole
+    message CSR. ``lpa_only`` keeps no sort-body arrays, as
+    :func:`shard_graph_arrays` drops them. A mesh of this process only: a
+    process mesh takes :func:`partition_graph`."""
+    if mesh.process:
+        raise ValueError("partition_graph_on_mesh builds every shard in this process; "
+                         "on a process mesh use partition_graph and shard_graph_arrays")
+    with OPS.span("mesh.partition"):
+        return _partition_on_mesh(src, dst, num_vertices, mesh, lpa_only, edge_weights)
+
+
+def _as_tensor(values) -> torch.Tensor:
+    return values if isinstance(values, torch.Tensor) else torch.from_numpy(np.asarray(values))
+
+
+def _stream_messages(src, dst, weights, num_vertices: int, mesh: Mesh, vc: int,
+                     chunk: int) -> list:
+    """Each shard's received messages in message order, on its device:
+    ``[(recv - chunk start, send, weight or None)]``, int32 (float32).
+    Message ``i < E`` is edge ``i`` received by ``dst``, message ``E + i``
+    by ``src`` (the message CSR's order before its stable sort). A chunk
+    goes to the first device once and on to the others from there."""
+    devices = mesh.devices
+    picked = [([], []) for _ in devices]
+    ends = []
+    for a in range(0, src.shape[0], chunk):
+        b = min(a + chunk, src.shape[0])
+        s0 = src[a:b].to(devices[0], torch.int32)
+        d0 = dst[a:b].to(devices[0], torch.int32)
+        w0 = None if weights is None else weights[a:b].to(devices[0], torch.float32)
+        ends.append(torch.stack([torch.minimum(s0.min(), d0.min()),
+                                 torch.maximum(s0.max(), d0.max())]))
+        if w0 is not None:
+            ends[-1] = torch.cat([ends[-1], (~(w0 >= 0)).any().to(torch.int32)[None]])
+        for sh, dev in enumerate(devices):
+            sc, dc = s0.to(dev), d0.to(dev)
+            wc = None if w0 is None else w0.to(dev)
+            lo = sh * vc
+            for piece, (recv, send) in zip(picked[sh], ((dc, sc), (sc, dc))):
+                at = torch.nonzero((recv >= lo) & (recv < lo + vc)).squeeze(1)
+                piece.append((recv.index_select(0, at) - lo, send.index_select(0, at),
+                              None if wc is None else wc.index_select(0, at)))
+    if ends:
+        got = torch.stack(ends).tolist()
+        lo, hi = min(g[0] for g in got), max(g[1] for g in got)
+        if lo < 0 or hi >= num_vertices:
+            raise ValueError(f"edge endpoint out of range [0, {num_vertices})")
+        if weights is not None and any(g[2] for g in got):
+            raise ValueError("edge_weights must be non-negative and not NaN")
+    out = []
+    for sh, dev in enumerate(devices):
+        parts = picked[sh][0] + picked[sh][1]
+        picked[sh] = None
+
+        def cat(k, dtype):
+            return (torch.cat([p[k] for p in parts]) if parts
+                    else torch.zeros(0, dtype=dtype, device=dev))
+
+        out.append((cat(0, torch.int32), cat(1, torch.int32),
+                    None if weights is None else cat(2, torch.float32)))
+        del parts
+    return out
+
+
+def _partition_on_mesh(src, dst, num_vertices, mesh, lpa_only, edge_weights) -> ShardedGraph:
+    src, dst = _as_tensor(src), _as_tensor(dst)
+    if src.shape != dst.shape or src.dim() != 1:
+        raise ValueError("src/dst must be equal-length 1-D arrays")
+    weights = None
+    if edge_weights is not None:
+        weights = _as_tensor(edge_weights)
+        if weights.shape != src.shape:
+            raise ValueError("edge_weights must be one float per edge")
+    if num_vertices is None:
+        num_vertices = int(max(src.max(), dst.max())) + 1 if src.shape[0] else 0
+    d, devices, pad_multiple = mesh.size, mesh.devices, 8  # partition_graph's padding
+    vc = -(-num_vertices // d)
+    vc = -(-vc // pad_multiple) * pad_multiple
+    shards = _stream_messages(src, dst, weights, num_vertices, mesh, vc, PARTITION_CHUNK_EDGES)
+
+    # each shard's message CSR: a stable sort of its messages by receiver
+    counts, recv_l, send_l, w_l, degs = [], [], [], [], []
+    for sh, (recv, send, w) in enumerate(shards):
+        shards[sh] = None
+        key, order = torch.sort(recv, stable=True)
+        del recv
+        send_l.append(send[order])
+        w_l.append(None if w is None else w[order])
+        del order, send, w
+        degs.append(torch.bincount(key, minlength=vc).to(torch.int32))
+        recv_l.append(None if lpa_only else key)
+        counts.append(int(key.shape[0]))
+        del key
+    mp = max(max(counts, default=0), 1)
+    mp = -(-mp // pad_multiple) * pad_multiple
+    int32_max = (1 << 31) - 1
+    if mp > int32_max:
+        worst = int(np.argmax(counts))
+        raise ValueError(
+            f"per-shard message count {mp:,} (shard {worst} holds {counts[worst]:,} of "
+            f"{sum(counts):,} messages) exceeds the int32 gather-index bound {int32_max:,}; "
+            f"add devices so every receiver-range shard's messages fit int32")
+
+    bucket_send, bucket_target, bucket_weight = _bucket_plan_on_mesh(degs, send_l, w_l, vc,
+                                                                     devices)
+    msg_recv = msg_send = msg_weight = deg_out = None
+    if not lpa_only:
+        def padded(values, fill, dtype, s):
+            out = torch.full((mp,), fill, dtype=dtype, device=devices[s])
+            out[:counts[s]] = values
+            return out
+
+        msg_recv = tuple(padded(recv_l[s], vc, torch.int32, s) for s in range(d))
+        msg_send = tuple(padded(send_l[s], 0, torch.int32, s) for s in range(d))
+        if weights is not None:
+            msg_weight = tuple(padded(w_l[s], 0.0, torch.float32, s) for s in range(d))
+        deg_out = tuple(degs)
+    return ShardedGraph(
+        msg_recv_local=msg_recv, msg_send=msg_send, degrees=deg_out,
+        num_vertices=num_vertices, chunk_size=vc, num_shards=d,
+        bucket_send=bucket_send, bucket_target=bucket_target, msg_weight=msg_weight,
+        bucket_weight=bucket_weight, mesh=mesh,
+        mode_tables=_mode_tables(mesh, bucket_send, bucket_target, weights is not None, vc))
+
+
+def _bucket_plan_on_mesh(degs, send_l, w_l, vc: int, devices) -> tuple:
+    """The stacked bucket plan of :func:`_build_shard_bucket_plan`, each
+    shard's on its device from its message CSR (``send_l``, ``w_l``, row
+    lengths ``degs``): the width ladder of the largest degree of any shard,
+    and each class's rows padded to the largest shard's count."""
+    from graphmine_tpu_torch.ops.bucketed_mode import _extend_widths, _gather_rows
+
+    d = len(devices)
+    sentinel_send = vc * d
+    widths = _extend_widths(max([1] + [int(g.max()) for g in degs if g.numel()]))
+    n_classes = len(widths)
+    orders, cnts, ptrs = [], [], []
+    for s in range(d):
+        deg = degs[s]
+        classes = torch.searchsorted(torch.from_numpy(widths).to(devices[s]),
+                                     torch.clamp(deg, min=1).to(torch.int64))
+        # one stable sort groups owned vertices by class, rows ascending
+        # within a class; deg == 0 sorts to a trailing pseudo-class
+        key = torch.where(deg > 0, classes, n_classes)
+        orders.append(torch.sort(key, stable=True)[1])
+        cnts.append(torch.bincount(key, minlength=n_classes + 1))
+        ptr = torch.zeros(vc, dtype=torch.int64, device=devices[s])
+        torch.cumsum(deg[:-1], 0, out=ptr[1:])
+        ptrs.append(ptr)
+    cnt = np.stack([c.cpu().numpy() for c in cnts])
+    start = np.zeros_like(cnt)
+    np.cumsum(cnt[:, :-1], axis=1, out=start[:, 1:])
+    bucket_send, bucket_target, bucket_weight = [], [], []
+    for c in np.nonzero(cnt[:, :n_classes].max(axis=0))[0]:
+        w, n_c = int(widths[c]), int(cnt[:, c].max())
+        sends, targets, wmats = [], [], []
+        for s in range(d):
+            n_s = int(cnt[s, c])
+            rows = orders[s][int(start[s, c]):int(start[s, c]) + n_s]
+            starts, lens = ptrs[s][rows], degs[s][rows].to(torch.int64)
+            # padding rows: the sentinel sender (weight 0) into scratch past the chunk
+            mat = torch.full((n_c, w), sentinel_send, dtype=torch.int32, device=devices[s])
+            tgt = torch.arange(vc, vc + n_c, dtype=torch.int32, device=devices[s])
+            if n_s:
+                mat[:n_s] = _gather_rows(send_l[s], starts, lens, w, sentinel_send)
+                tgt[:n_s] = rows.to(torch.int32)
+            sends.append(mat)
+            targets.append(tgt)
+            if w_l[s] is not None:
+                wm = torch.zeros((n_c, w), dtype=torch.float32, device=devices[s])
+                if n_s:
+                    wm[:n_s] = _gather_rows(w_l[s], starts, lens, w, 0.0)
+                wmats.append(wm)
+        bucket_send.append(tuple(sends))
+        bucket_target.append(tuple(targets))
+        if wmats:
+            bucket_weight.append(tuple(wmats))
+    return tuple(bucket_send), tuple(bucket_target), tuple(bucket_weight)
+
+
+def _mode_tables(mesh: Mesh, bucket_send, bucket_target, weighted: bool, vc: int) -> tuple:
+    """Each shard's row-mode kernel table of a placed, unweighted bucket
+    plan on CUDA cards (``None`` at other processes' shards), else ():
+    the shard reads the full label vector and writes its chunk with the
+    padding rows' scratch past it (``vc`` plus the widest class's rows)."""
+    if (not bucket_send or weighted
+            or any(d is None or d.type != "cuda" for d in (mesh.devices[s] for s in mesh.local))):
+        return ()
+
+    def table(s):
+        targets = [t[s] for t in bucket_target]
+        rows = max(int(t.shape[0]) for t in targets)
+        return mode_cuda.plan_table([b[s] for b in bucket_send], targets, vc + rows)
+
+    return tuple(mesh.each(table))
 
 
 def _check_mesh(sg: ShardedGraph, mesh: Mesh) -> None:
@@ -632,13 +870,36 @@ def _lpa_shard_body(full, recv_local, send, deg, weight, s: int, vc: int):
     return torch.where(deg > 0, mode, _own(full, s, vc)).to(torch.int32)
 
 
-def _lpa_shard_body_bucketed(full, bsend, btarget, bweight, s: int, vc: int):
-    """One shard's bucketed LPA superstep: each width class's rows gather
-    from the full vector padded with the sentinel label and take their row
-    mode (weighted when the class carries weights); padding rows scatter
-    into scratch slots past the chunk, which are cut off."""
-    lbl_pad = torch.cat([full, full.new_full((1,), _SENTINEL)])
-    return _rows_mode(lbl_pad, _own(full, s, vc), bsend, btarget, bweight, vc)
+def _lpa_shard_body_bucketed(full, bsend, btarget, bweight, s: int, vc: int, table=None):
+    """One shard's bucketed LPA superstep: each width class's rows read
+    their senders' labels from the full vector (a padding sender, ``D*Vc``,
+    reads the sentinel label) and take their row mode (weighted when the
+    class carries weights) into the owned chunk; padding rows write
+    scratch past it, which is cut off. On a card the row-mode kernel
+    (``table``) takes every class it holds, as on one card; the plain
+    ``_bucket_mode`` takes the rest (classes past ``MAX_WIDTH``, weighted
+    plans, the CPU), and on a card its rows are counted."""
+    own = _own(full, s, vc)
+    out = torch.cat([own, own.new_zeros((max((t.shape[-1] for t in btarget), default=0),))])
+    plain = range(len(bsend))
+    if full.is_cuda:
+        if table is None:
+            mode_cuda.PLAIN_ROWS.inc(sum(int(t.shape[-1]) for t in btarget))
+        else:
+            mode_cuda.PLAIN_ROWS.inc(table.plain_rows)
+            if table.launches:
+                mode_cuda.launch(full, out, table)
+            plain = table.plain_classes
+    if plain:
+        from graphmine_tpu_torch.ops.bucketed_mode import _bucket_mode, _bucket_wmode
+
+        last = full.shape[0] - 1
+        for c in plain:
+            idx = bsend[c]
+            mat = torch.where(idx > last, _SENTINEL, full[torch.clamp(idx, max=last)])
+            out[btarget[c]] = (_bucket_mode(mat) if bweight is None
+                               else _bucket_wmode(mat, bweight[c]))
+    return out[:vc]
 
 
 def _cc_shard_body(full, recv_local, send, deg, s: int, vc: int):
@@ -780,7 +1041,9 @@ def _scan_supersteps(step_fn, state, max_iter: int, chunks, mesh: Mesh,
     rows = []
     prev = state
     for it in range(max_iter):
-        new = step_fn(state)
+        with OPS.span("lpa.sharded_superstep"):
+            new = step_fn(state)
+        _LPA_SUPERSTEPS.inc()
         if trip is not None and (it + 1) % tripwire_every == 0:
             _label_tripwire(trip, mesh, chunks(new), chunks(state), chunks(prev), it, v_pad)
         if collect:
@@ -808,11 +1071,13 @@ _FIXPOINT_TELEMETRY_CAP = 4096
 
 
 def _fixpoint_supersteps(step_fn, state, sg: ShardedGraph, max_iter: int, chunks, mesh: Mesh,
-                         tripwire_every: int = 0, collect: bool = False, guard=_cc_tripwire):
+                         tripwire_every: int = 0, collect: bool = False, guard=_cc_tripwire,
+                         lpa: bool = False):
     """Supersteps until no label changes (CC semantics), bounded by
     ``max_iter`` when nonzero: one host read a superstep, the changed
     count. ``guard`` is the tripwire armed every ``tripwire_every``
-    supersteps. With ``collect`` returns ``(state, (changed [cap],
+    supersteps; ``lpa`` puts each superstep in the ``lpa.sharded_superstep``
+    span and counts it. With ``collect`` returns ``(state, (changed [cap],
     shard_changed [cap, D], iterations))``."""
     limit = max_iter if max_iter > 0 else sg.num_vertices + 2
     cap = min(limit, _FIXPOINT_TELEMETRY_CAP)
@@ -824,7 +1089,12 @@ def _fixpoint_supersteps(step_fn, state, sg: ShardedGraph, max_iter: int, chunks
         buf_s = torch.zeros((cap, sg.num_shards), dtype=torch.int32, device=dev)
     changed, it = 1, 0
     while changed > 0 and it < limit:
-        new = step_fn(state)
+        if lpa:
+            with OPS.span("lpa.sharded_superstep"):
+                new = step_fn(state)
+            _LPA_SUPERSTEPS.inc()
+        else:
+            new = step_fn(state)
         if trip is not None and (it + 1) % tripwire_every == 0:
             guard(trip, mesh, chunks(new), chunks(state), it, v_pad)
         total, per = _telemetry_row(mesh, chunks(new), chunks(state))
@@ -913,11 +1183,12 @@ def _build_lpa_step(sg: ShardedGraph, mesh: Mesh):
         return step
     if sg.bucket_send:
         weights = sg.bucket_weight or None
+        tables = sg.mode_tables or [None] * sg.num_shards
 
         def step(full):
             return all_gather(mesh, mesh.each(lambda s: _lpa_shard_body_bucketed(
                 full[s], [b[s] for b in sg.bucket_send], [t[s] for t in sg.bucket_target],
-                None if weights is None else [w[s] for w in weights], s, vc)))
+                None if weights is None else [w[s] for w in weights], s, vc, tables[s])))
 
         return step
     recv, send, deg = (_need(sg.msg_recv_local, "message CSR"), sg.msg_send, sg.degrees)
@@ -962,7 +1233,7 @@ def sharded_lpa_fixpoint(sg: ShardedGraph, mesh: Mesh, max_iter: int = 0, init_l
     state, (changed, _per, it) = _fixpoint_supersteps(
         _build_lpa_step(sg, mesh), _init_full(sg, mesh, init_labels), sg, max_iter,
         _state_chunks(sg), mesh, tripwire_every=tripwire_every,
-        collect=True, guard=_lpa_range_tripwire)
+        collect=True, guard=_lpa_range_tripwire, lpa=True)
     row = min(it, changed.shape[0]) - 1
     converged = it == 0 or int(changed[row]) == 0
     return _labels_of(sg, mesh, state), it, converged

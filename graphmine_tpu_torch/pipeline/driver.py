@@ -546,7 +546,11 @@ def _run_lpa(config: PipelineConfig, table: EdgeTable, graph: Graph, m: MetricsS
     from graphmine_tpu_torch.ops.bucketed_mode import BucketedModePlan, lpa_superstep_bucketed
     from graphmine_tpu_torch.ops.lpa import lpa_superstep
     from graphmine_tpu_torch.parallel.mesh import make_mesh, surviving_mesh
-    from graphmine_tpu_torch.parallel.sharded import partition_graph, shard_graph_arrays
+    from graphmine_tpu_torch.parallel.sharded import (
+        partition_graph,
+        partition_graph_on_mesh,
+        shard_graph_arrays,
+    )
 
     v, e, msgs = graph.num_vertices, graph.num_edges, graph.num_messages
     is_weighted = graph.msg_weight is not None
@@ -643,10 +647,17 @@ def _run_lpa(config: PipelineConfig, table: EdgeTable, graph: Graph, m: MetricsS
             from graphmine_tpu_torch.parallel.sharded import sharded_label_propagation
 
             mesh = _rung_mesh(ndev)
+            lpa_only = variant == "replicated" and run_plan.lpa_only
             with m.timed("partition", shards=ndev, schedule=variant, **_virtual(mesh.devices)):
-                sg = shard_graph_arrays(
-                    partition_graph(graph, mesh=mesh, build_bucket_plan=variant == "replicated"),
-                    mesh, lpa_only=variant == "replicated" and run_plan.lpa_only)
+                if variant == "replicated" and all(d.type == "cuda" for d in mesh.devices):
+                    # each card builds its own shard from the edge list
+                    sg = partition_graph_on_mesh(graph.src, graph.dst, v, mesh,
+                                                 lpa_only=lpa_only, edge_weights=table.weights)
+                else:
+                    sg = shard_graph_arrays(
+                        partition_graph(graph, mesh=mesh,
+                                        build_bucket_plan=variant == "replicated"),
+                        mesh, lpa_only=lpa_only)
                 _sync(device)
             current["chunk_size"] = sg.chunk_size
             current["cost"] = sharded_superstep_cost("lpa_superstep", sg, e, num_messages=msgs)
